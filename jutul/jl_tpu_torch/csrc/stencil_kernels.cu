@@ -1,5 +1,5 @@
-// 7-point lattice stencil kernels for Hopper (sm_90a): K1 stencil_matvec and
-// K2 scalar_jacobi. Built by nvcc into one shared library with a plain C
+// 7-point lattice stencil kernels for Hopper (sm_90a): K1 stencil_matvec,
+// K2 scalar_jacobi and K4 scalar_chebyshev. Built by nvcc into one shared library with a plain C
 // interface (ops/cuda/_build.py) and bound with ctypes
 // (ops/cuda/stencil_kernels.py, which also holds the plain PyTorch versions).
 //
@@ -9,7 +9,7 @@
 // the lattice is skipped by an explicit bounds check (its coefficient is zero
 // anyway). There is no lane padding and no wrap-around read.
 //
-// Both kernels read 7*C*K coefficient streams plus the neighbour values and
+// The kernels read 7*C*K coefficient streams plus the neighbour values and
 // write one value per cell and component: they are bound by HBM bytes, ~4
 // bytes of coefficients per flop. The first design keeps one thread per
 // output value and relies on L1/L2 for the neighbour reuse; temporal
@@ -106,6 +106,73 @@ __global__ void scalar_jacobi_kernel(const T* __restrict__ coef,
   out[i] = mode == 1 ? res : u[i] + omega * res * dinv;
 }
 
+// K4 (replaces stencil_kernels.py:_kernel_sweeps_cheby (B6, whole level) and
+// _kernel_slab_sweeps_cheby (B7, deep-halo z-slabs)): ONE step of the
+// Chebyshev recurrence on [lower*lmax, lmax] for a scalar stencil, with B6/B7's
+// arithmetic (jutul/jl_tpu/linsolve/cheby.py):
+//   mode 0: d' = (dinv * b) / theta; u' = d'    (first step from u = 0; no
+//                                                 stencil pass, u' not written)
+//   mode 1: d' = (dinv * (b - A u)) / theta; u' = u + d'   (first step from u)
+//   mode 2: d' = c1 * d + c2 * (dinv * (b - A u)); u' = u + d'   (step k >= 1)
+// with dinv = (d0 != 0 ? 1/d0 : 0) from the diagonal. The per-step scalars sit
+// on the device in steps[k] = (c1, c2) = (rho_k rho_{k-1}, 2 rho_k / delta),
+// steps[0] = (theta, 0), computed once per level per CPR update from lmax with
+// the recurrence's own operations (linsolve/cheby.py chebyshev_steps), so no
+// launch needs a host sync. Bound by HBM bytes like K2: 7 coefficient streams
+// plus b, u and d in, u' and d' out, ~48 B per cell at f32; one thread per
+// cell, one launch per step. The TPU kernels run a whole smoothing phase per
+// call; temporal blocking is later work here, as for K2. One kernel serves
+// every level: there is no slab/whole-level split and no halo limit.
+template <typename T>
+__global__ void scalar_chebyshev_kernel(const T* __restrict__ coef,
+                                        const T* __restrict__ b,
+                                        const T* __restrict__ u,
+                                        const T* __restrict__ d,
+                                        const T* __restrict__ steps,
+                                        T* __restrict__ u_out,
+                                        T* __restrict__ d_out, int step,
+                                        int mode, int nz, int ny, int nx) {
+  const long long n = static_cast<long long>(nz) * ny * nx;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const T d0 = coef[i];
+  const T dinv = d0 != T(0) ? T(1) / d0 : T(0);
+  if (mode == 0) {
+    d_out[i] = (dinv * b[i]) / steps[0];
+    return;
+  }
+  const int x = static_cast<int>(i % nx);
+  const int y = static_cast<int>((i / nx) % ny);
+  const int z = static_cast<int>(i / (static_cast<long long>(nx) * ny));
+  T acc = T(0);
+#pragma unroll
+  for (int t = 0; t < 7; ++t) {
+    long long j;
+    if (!neighbour(t, z, y, x, nz, ny, nx, i, &j)) continue;
+    acc += coef[static_cast<long long>(t) * n + i] * u[j];
+  }
+  const T r = dinv * (b[i] - acc);
+  const T dn = mode == 1 ? r / steps[0]
+                         : steps[2 * step] * d[i] + steps[2 * step + 1] * r;
+  d_out[i] = dn;
+  u_out[i] = u[i] + dn;
+}
+
+template <typename T>
+int launch_chebyshev(const T* coef, const T* b, const T* u, const T* d,
+                     const T* steps, T* u_out, T* d_out, int step, int mode,
+                     int nz, int ny, int nx, void* stream) {
+  const long long n = static_cast<long long>(nz) * ny * nx;
+  if (n > 0) {
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    scalar_chebyshev_kernel<T><<<blocks, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        coef, b, u, d, steps, u_out, d_out, step, mode, nz, ny, nx);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_matvec(const T* coef, const T* x, T* y, int C, int K, int nz,
                   int ny, int nx, void* stream) {
@@ -159,6 +226,23 @@ int jt_scalar_jacobi_f64(const double* coef, const double* b, const double* u,
                          int nx, void* stream) {
   return launch_jacobi<double>(coef, b, u, out, omega, mode, nz, ny, nx,
                                stream);
+}
+
+int jt_scalar_chebyshev_f32(const float* coef, const float* b, const float* u,
+                            const float* d, const float* steps, float* u_out,
+                            float* d_out, int step, int mode, int nz, int ny,
+                            int nx, void* stream) {
+  return launch_chebyshev<float>(coef, b, u, d, steps, u_out, d_out, step,
+                                 mode, nz, ny, nx, stream);
+}
+
+int jt_scalar_chebyshev_f64(const double* coef, const double* b,
+                            const double* u, const double* d,
+                            const double* steps, double* u_out, double* d_out,
+                            int step, int mode, int nz, int ny, int nx,
+                            void* stream) {
+  return launch_chebyshev<double>(coef, b, u, d, steps, u_out, d_out, step,
+                                  mode, nz, ny, nx, stream);
 }
 
 }  // extern "C"

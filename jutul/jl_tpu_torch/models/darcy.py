@@ -30,6 +30,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.func import jvp
 
 from ..core.entities import CELLS, FACES
 from ..discretization.tpfa import compute_face_gdz, compute_face_trans
@@ -339,6 +340,96 @@ class PhaseSourceTerm(JutulForce):
                             device=r.device)
         cells = torch.as_tensor(self.cells, device=r.device)
         return r.index_add(0, cells, -torch.atleast_2d(v))
+
+
+class PressureBoundaryCondition(JutulForce):
+    """Dirichlet-like pressure BC on cells via a half-face transmissibility
+    connection to a fixed-pressure reservoir.
+
+    State-dependent force: contributes to the residual AND the diagonal
+    Jacobian (the counterpart of the reference's boundary-condition force
+    path, equations.jl:603 apply_forces_to_equation!). Evaluated over the
+    batch of its cells at once; the diagonal blocks come from one
+    ``torch.func.jvp`` per dof, with the flux's ``where`` differentiating
+    the chosen branch as in JAX.
+    """
+
+    def __init__(self, cells, pressure, trans, saturations=None):
+        self.cells = np.atleast_1d(np.asarray(cells, dtype=np.int64))
+        self.pressure = pressure  # scalar or (ns,)
+        self.trans = trans  # (ns,) half-face trans to boundary
+        self.saturations = saturations  # inflow saturations (ns, nph)
+
+    def shift_pressure_datum(self, p_ref):
+        """Boundary pressure is absolute — rebase it with the cell
+        pressures (JutulForce.shift_pressure_datum protocol)."""
+        import copy as _copy
+
+        g = _copy.copy(self)
+        g.pressure = self.pressure - p_ref
+        return g
+
+    def _flux(self, model, p, mob, rho, pb, T, s_in):
+        """Boundary out-flux (ns, nph) for p (ns,), mob/rho/s_in (ns, nph),
+        pb/T (ns,)."""
+        dp = p - pb  # > 0: outflow
+        mu = mob.new_tensor(model.system.fluid.viscosities)
+        # Inflow mobility uses the system's own relative permeability at the
+        # boundary saturation, kr(s_in)/mu, consistent with interior fluxes
+        # (reference boundary-condition upwinding, equations.jl:603).
+        relperm = model.secondary_variables.get("RelativePermeabilities")
+        kr_in = relperm.evaluate(model, s_in) if relperm is not None else s_in
+        mob_in = kr_in / mu
+        mob_up = torch.where((dp >= 0)[:, None], mob, mob_in)
+        return rho * mob_up * T[:, None] * dp[:, None]
+
+    def _per_source(self, nph, like):
+        ns = self.cells.shape[0]
+        as_t = lambda v: like.new_tensor(np.asarray(v, dtype=np.float64))  # noqa: E731
+        pb = torch.broadcast_to(as_t(self.pressure), (ns,))
+        T = torch.broadcast_to(as_t(self.trans), (ns,))
+        if self.saturations is None:
+            s_in = like.new_full((ns, nph), 1.0 / nph)
+        else:
+            s_in = torch.broadcast_to(as_t(self.saturations), (ns, nph))
+        return pb, T, s_in
+
+    def apply(self, model, eq, eq_name, r, state, dt):
+        if not isinstance(eq, TwoPhaseDarcyEquation):
+            return r
+        cells = torch.as_tensor(self.cells, device=r.device)
+        pb, T, s_in = self._per_source(model.system.fluid.n_phases, r)
+        q = self._flux(model, state["Pressure"][cells],
+                       state["PhaseMobilities"][cells],
+                       state["PhaseMassDensities"][cells], pb, T, s_in)
+        return r.index_add(0, cells, q.to(r.dtype))
+
+    def diagonal_jacobian(self, model, eq, eq_name, compiled, state, dt):
+        if not isinstance(eq, TwoPhaseDarcyEquation):
+            return None
+        p0 = state["Pressure"]
+        cells = torch.as_tensor(self.cells, device=p0.device)
+        U = compiled.get_dofs({k: state[k][cells]
+                               for k in compiled.model.primary_variables})
+        params = {k: v[cells] for k, v in state.items()
+                  if k in compiled.model.parameters
+                  and compiled.cell_entry_entity.get(k) == CELLS}
+        pb, T, s_in = self._per_source(model.system.fluid.n_phases, p0)
+
+        def flux(u):
+            local = dict(params)
+            local.update(compiled.unpack_dofs(u))
+            local = compiled._eval_secondaries_local(local)
+            return self._flux(model, local["Pressure"],
+                              local["PhaseMobilities"],
+                              local["PhaseMassDensities"], pb, T, s_in)
+
+        cols = []
+        for j in range(U.shape[1]):
+            ej = torch.zeros_like(U)
+            ej[:, j] = 1.0
+            cols.append(jvp(flux, (U,), (ej,))[1])  # (ns, neq)
+        return self.cells, torch.stack(cols, dim=-1)  # (ns, neq, ndof)
 
 
 def setup_darcy_model(mesh, fluid: ImmiscibleFluid | None = None,

@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..core.entities import CELLS, FACES, JutulEntity
@@ -145,6 +146,20 @@ class CompiledModel:
                                        state, dt)
             r[:, sl] = r_eq
         return r
+
+    def _force_diagonal_blocks(self, state, dt, forces):
+        """Yield (row_slice, cells, blocks) for every state-dependent force:
+        ``cells`` a host int array (ns,), ``blocks`` (ns, neq_e, ndof) to add
+        on the Jacobian's diagonal (reference: the force Jacobian path of
+        apply_forces_to_equation!, equations.jl:603)."""
+        for info in self.equations:
+            for fv in forces.values():
+                for force in _as_force_list(fv):
+                    contrib = force.diagonal_jacobian(
+                        self.model, info.eq, info.name, self, state, dt)
+                    if contrib is not None:
+                        cells, jac = contrib
+                        yield info.row_slice, np.asarray(cells), jac
 
     def convergence(self, r, state, dt) -> dict:
         """Nested dict eq_name -> criterion -> (neq,) errors

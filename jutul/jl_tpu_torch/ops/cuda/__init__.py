@@ -8,6 +8,7 @@ from .assembly_kernels import darcy_flux_jacobian  # noqa: F401
 from .stencil_kernels import (  # noqa: F401
     ScalarLevel,
     StencilMatvec,
+    scalar_chebyshev,
     scalar_jacobi,
     stencil_matvec,
 )
@@ -16,6 +17,7 @@ KERNELS = {
     "stencil_matvec": stencil_matvec,
     "scalar_jacobi": scalar_jacobi,
     "darcy_flux_jacobian": darcy_flux_jacobian,
+    "scalar_chebyshev": scalar_chebyshev,
 }
 
 

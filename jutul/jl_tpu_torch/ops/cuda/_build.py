@@ -35,6 +35,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "jt_stencil_matvec": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "jt_scalar_jacobi": [_P, _P, _P, _P, _D, _I, _I, _I, _I, _P],
+    "jt_scalar_chebyshev": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P],
     "jt_darcy_flux_jacobian": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 

@@ -1,4 +1,5 @@
-"""Stencil kernels K1 (block-stencil SpMV) and K2 (scalar Jacobi pass).
+"""Stencil kernels K1 (block-stencil SpMV), K2 (scalar Jacobi pass) and K4
+(scalar Chebyshev step).
 
 Wrappers around ``csrc/stencil_kernels.cu``, with the plain PyTorch version
 of each kernel beside it and a launch counter on each wrapper. A wrapper
@@ -19,6 +20,11 @@ the kernel or raises — there is no fallback.
   levels); here a phase is a loop of single-pass launches, so the
   coefficients stream once per sweep. Temporal blocking that restores
   once-per-phase reads is later work.
+- K4 ``scalar_chebyshev`` replaces ``_kernel_sweeps_cheby`` (B6) and
+  ``_kernel_slab_sweeps_cheby`` (B7): one step of the Chebyshev
+  recurrence on a scalar stencil, per-step scalars read from a small
+  device table. Bound by HBM bytes as K2 (plus the direction vector d in
+  and out); one launch per step, so the coefficients stream once per step.
 
 The lattice is the natural contiguous (nz, ny, nx) one: coefficients are
 embedded once per matrix as ``(7, C·K, n)`` with zero boundary entries
@@ -215,11 +221,86 @@ def scalar_jacobi(coef, b, u, omega: float, mode: int, L):
 scalar_jacobi.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K4: one Chebyshev step on a scalar stencil
+# ---------------------------------------------------------------------------
+CHEB_ZERO, CHEB_FIRST, CHEB_STEP = 0, 1, 2
+
+
+def scalar_chebyshev_plain(coef, b, u, d, steps, step: int, mode: int, L):
+    """Plain version of K4 with B6/B7's arithmetic (``coef`` (7, 1, n),
+    ``steps`` (>= step+1, 2) from ``linsolve.cheby.chebyshev_steps``):
+    mode 0 ``d' = (dinv*b)/theta``, ``u' = d'``; mode 1
+    ``d' = (dinv*(b - A u))/theta``, ``u' = u + d'``; mode 2
+    ``d' = c1*d + c2*(dinv*(b - A u))``, ``u' = u + d'`` with
+    ``(c1, c2) = steps[step]``. Returns (u', d')."""
+    d0 = coef[0, 0]
+    dinv = torch.where(d0 != 0, 1.0 / d0, torch.zeros_like(d0))
+    if mode == CHEB_ZERO:
+        dn = (dinv * b) / steps[0, 0]
+        return dn, dn
+    r = dinv * (b - stencil_matvec_plain(coef, u[:, None], L, 1, 1)[:, 0])
+    if mode == CHEB_FIRST:
+        dn = r / steps[0, 0]
+    else:
+        dn = steps[step, 0] * d + steps[step, 1] * r
+    return u + dn, dn
+
+
+def scalar_chebyshev(coef, b, u, d, steps, step: int, mode: int, L):
+    """K4 wrapper: one Chebyshev step (see ``scalar_chebyshev_plain``);
+    ``u`` is ignored in mode 0 and ``d`` outside mode 2 (either may be
+    None there). Returns (u', d')."""
+    if _is_cpu(b):
+        return scalar_chebyshev_plain(coef, b, u, d, steps, step, mode, L)
+    nz, ny, nx = L
+    n = nz * ny * nx
+    b = b.contiguous()
+    _require(coef, b, "scalar_chebyshev coef")
+    _require(steps, b, "scalar_chebyshev steps")
+    if b.shape != (n,) or coef.shape != (TERMS, 1, n) or steps.ndim != 2 \
+            or steps.shape[1] != 2 or not 0 <= step < steps.shape[0]:
+        raise ValueError(f"scalar_chebyshev: bad shapes b {tuple(b.shape)}, "
+                         f"coef {tuple(coef.shape)}, steps "
+                         f"{tuple(steps.shape)} for L={L}, step={step}")
+    ptrs = []
+    for name, v, used in (("u", u, mode != CHEB_ZERO),
+                          ("d", d, mode == CHEB_STEP)):
+        if not used:
+            ptrs.append(None)
+            continue
+        v = v.contiguous()
+        _require(v, b, f"scalar_chebyshev {name}")
+        if v.shape != (n,):
+            raise ValueError(f"scalar_chebyshev: bad shape {name} "
+                             f"{tuple(v.shape)}")
+        ptrs.append(v.data_ptr())
+    d_out = torch.empty_like(b)
+    u_out = None if mode == CHEB_ZERO else torch.empty_like(b)
+    lib = load_library()
+    check(lib.fn("jt_scalar_chebyshev", dtype_suffix(b))(
+        coef.data_ptr(), b.data_ptr(), ptrs[0], ptrs[1], steps.data_ptr(),
+        None if u_out is None else u_out.data_ptr(), d_out.data_ptr(),
+        int(step), int(mode), nz, ny, nx, stream_handle()),
+        "scalar_chebyshev")
+    scalar_chebyshev.launches += 1
+    return (d_out if u_out is None else u_out), d_out
+
+
+scalar_chebyshev.launches = 0
+
+
 class ScalarLevel:
-    """GMG level ops for a ScalarStencil through K2 — the JAX package's
-    level interface (``smooth0``/``smooth``/``residual`` and the fused
-    phase hooks ``presmooth_residual``/``postsmooth``/``sweep_n``), each
-    phase a loop of single-pass launches."""
+    """GMG level ops for a ScalarStencil through K2 and K4 — the JAX
+    package's level interface (``smooth0``/``smooth``/``residual``, the
+    fused Jacobi phase hooks ``presmooth_residual``/``postsmooth``/
+    ``sweep_n`` and their Chebyshev variants ``*_cheby``), each phase a
+    loop of single-pass launches.
+
+    The Chebyshev hooks take the level's per-step scalar table
+    (``linsolve.cheby.chebyshev_steps``, built once per CPR update) where
+    the JAX hooks take ``lmax`` and ``lower``; the residual after a
+    Chebyshev presmooth is K2's residual pass."""
 
     def __init__(self, A):
         self.L = tuple(A.L)
@@ -252,3 +333,23 @@ class ScalarLevel:
         for _ in range(n_sweep):
             u = self.smooth(u, b, omega)
         return u
+
+    # -- Chebyshev (GMG(smoother="chebyshev")) ---------------------------
+    def _cheby(self, b, u, steps, n_sweep):
+        """``n_sweep`` Chebyshev steps from ``u`` (None: from zero)."""
+        mode = CHEB_ZERO if u is None else CHEB_FIRST
+        u, d = scalar_chebyshev(self.coef, b, u, None, steps, 0, mode, self.L)
+        for k in range(1, n_sweep):
+            u, d = scalar_chebyshev(self.coef, b, u, d, steps, k, CHEB_STEP,
+                                    self.L)
+        return u
+
+    def sweep_n_cheby(self, b, steps, n_sweep):
+        return self._cheby(b, None, steps, n_sweep)
+
+    def presmooth_residual_cheby(self, b, steps, n_sweep):
+        u = self._cheby(b, None, steps, n_sweep)
+        return u, self.residual(u, b)
+
+    def postsmooth_cheby(self, u, b, steps, n_sweep):
+        return self._cheby(b, u, steps, n_sweep)

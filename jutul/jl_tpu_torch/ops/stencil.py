@@ -10,8 +10,10 @@ Counterpart of the reference's hard-coded TPFA assembly path
 
 The hot operations run through the CUDA kernels of ``ops/cuda``: the
 face flux + Jacobian blocks (K3), the block-stencil SpMV (K1) and the GMG
-level passes (K2). On CPU tensors those wrappers run their plain PyTorch
-versions.
+level passes (K2 Jacobi/residual, K4 Chebyshev). On CPU tensors those
+wrappers run their plain PyTorch versions. Well models ride this engine
+through ``ops/stencil_wells.py`` (bordered matrix, Schur-eliminated
+wellbores), which ``StencilKrylovSolver.solve`` dispatches to.
 
 Layout conventions (the JAX package's, so both compare like with like):
 - cell fields: (n, ...) with component axes last; Krylov vectors (n, neq);
@@ -108,27 +110,23 @@ class StencilCompiledModel:
         o0, o1 = self.face_offsets[a], self.face_offsets[a + 1]
         return {k: v[o0:o1] for k, v in face_state.items()}
 
-    def assemble(self, state, state0, dt, forces=None):
-        """Residual (n, neq), StencilMatrix and the secondary-evaluated
-        state — the fused-form assembly of the JAX package's
-        ``_assemble_fused``: the cell-local accumulation term in torch
-        (its diagonal by one ``torch.func.jvp`` per dof over the whole
-        cell batch), then one flux + Jacobian kernel call per axis."""
+    def accumulation(self, state, state0, dt):
+        """The cell-local accumulation term over every cell the
+        (secondary-evaluated) states hold: residual (neq, n) and its
+        diagonal (neq, ndof, n), by one ``torch.func.jvp`` per dof over
+        the whole cell batch. Returns (r, diag, U) with U the (n, ndof)
+        packed dofs."""
         comp = self.comp
         model = comp.model
-        state = comp.evaluate_secondaries(state)
-        state0 = comp.evaluate_secondaries(state0)
         U = comp.get_dofs(state)  # (n, ndof)
-        neq, ndof, n = self.neq, self.ndof, self.n_cells
         cell_state = comp._cell_entries(state)
         cell_state0 = comp._cell_entries(state0)
         params_cell = comp._cell_entries(state, include=("parameter",))
-
-        # --- accumulation (cell-local) --------------------------------
-        r = U.new_zeros((neq, n))
+        n = U.shape[0]
+        r = U.new_zeros((self.neq, n))
         for con in self.acc_cons:
             r = r + con.fn(model, cell_state, cell_state0, dt).T
-        diag = U.new_zeros((neq, ndof, n))
+        diag = U.new_zeros((self.neq, self.ndof, n))
         for con in self.acc_cons:
             def local_fn(u, _c=con):
                 local = dict(params_cell)
@@ -136,11 +134,33 @@ class StencilCompiledModel:
                 local = comp._eval_secondaries_local(local)
                 return _c.fn(model, local, cell_state0, dt)
 
-            for j in range(ndof):
+            for j in range(self.ndof):
                 ej = torch.zeros_like(U)
                 ej[:, j] = 1.0
                 _, tj = jvp(local_fn, (U,), (ej,))  # (n, neq)
                 diag[:, j] += tj.T
+        return r, diag, U
+
+    def assemble(self, state, state0, dt, forces=None):
+        """Residual (n, neq), StencilMatrix and the secondary-evaluated
+        state (see ``assemble_evaluated``)."""
+        state = self.comp.evaluate_secondaries(state)
+        state0 = self.comp.evaluate_secondaries(state0)
+        r, A = self.assemble_evaluated(state, state0, dt, forces)
+        return r, A, state
+
+    def assemble_evaluated(self, state, state0, dt, forces=None, acc=None):
+        """Residual (n, neq) and StencilMatrix from secondary-evaluated
+        states — the fused-form assembly of the JAX package's
+        ``_assemble_fused``: the accumulation term in torch, then one
+        flux + Jacobian kernel call per axis, then the forces' residuals
+        and state-dependent diagonal blocks. ``acc``: this lattice's
+        ``accumulation`` result when the caller has it already (the
+        bordered engine evaluates lattice and wellbore cells at once)."""
+        comp = self.comp
+        neq, ndof, n = self.neq, self.ndof, self.n_cells
+        r, diag, U = acc if acc is not None else self.accumulation(
+            state, state0, dt)
 
         # --- flux + Jacobian blocks: one fused kernel per axis --------
         plus, minus = {}, {}
@@ -170,10 +190,22 @@ class StencilCompiledModel:
                 plus[a] = JR.contiguous()
                 minus[a] = -JL
         r2 = r_lat.reshape(neq, n).T.contiguous()
+        diag = diag_lat.reshape(neq, ndof, n)
         if forces:
             r2 = comp._apply_forces(r2, state, dt, forces)
-        A = StencilMatrix(self.L, diag_lat.reshape(neq, ndof, n), plus, minus)
-        return r2, A, state
+            diag = self._apply_force_diag(diag, state, dt, forces)
+        return r2, StencilMatrix(self.L, diag, plus, minus)
+
+    def _apply_force_diag(self, diag, state, dt, forces):
+        """Add state-dependent force Jacobians (e.g. a pressure BC's
+        dq/du) onto the (neq, ndof, n) diagonal; constant sources
+        contribute none."""
+        for sl, cells, jac in self.comp._force_diagonal_blocks(state, dt,
+                                                               forces):
+            diag = diag.clone()
+            diag[sl].index_add_(2, torch.as_tensor(cells, device=diag.device),
+                                jac.to(diag.dtype).permute(1, 2, 0))
+        return diag
 
 
 # ---------------------------------------------------------------------------
@@ -277,20 +309,57 @@ def _coarsen_scalar(A: ScalarStencil, f: int = 2) -> ScalarStencil:
     return ScalarStencil(cL, diag_c.reshape(-1), plus_c, minus_c)
 
 
+def _cheby_setup(A: ScalarStencil):
+    """Per-level Chebyshev data: inverse diagonal + a Gershgorin upper
+    bound on lambda_max(D^-1 A) (one coefficient pass, no power
+    iteration — a slight overestimate only flattens the polynomial a
+    little, while an UNDERestimate would amplify high modes). ``lmax``
+    stays a device scalar: nothing here syncs with the host."""
+    offs = A.diag.new_zeros(A.L)
+    for a in A.plus:
+        offs = offs + F.pad(torch.abs(A.plus[a]), _PADS[a])
+        offs = offs + F.pad(torch.abs(A.minus[a]), _PADS_R[a])
+    dabs = torch.abs(A.diag)
+    dsafe = torch.where(dabs > 0, dabs, torch.ones_like(dabs))
+    lmax = 1.0 + torch.max(offs.reshape(-1) / dsafe)
+    # dead rows never update (dinv = 0), matching the level kernels
+    dinv = torch.where(dabs > 0, 1.0 / A.diag, torch.zeros_like(dabs))
+    return dinv, lmax
+
+
+def _cheby_smooth(lv, dinv, lmax, u, b, n_sweep, lower=0.25):
+    """Chebyshev smoothing of the level via the shared recurrence
+    (linsolve/cheby.py) with the level's residual op — the reference
+    the fused ``*_cheby`` level hooks (K4) are held to."""
+    from ..linsolve.cheby import chebyshev_recurrence
+
+    return chebyshev_recurrence(
+        lambda u_: dinv * lv.residual(u_, b), dinv * b, u, n_sweep,
+        lmax, lower)
+
+
 class GMG:
     """Geometric multigrid V-cycle on a scalar 7-point stencil (the CPR
-    pressure stage on structured grids): weighted-Jacobi smoothing
-    through the K2 level kernel, piecewise-constant restriction and
-    injection prolongation, factor-2 coarsening."""
+    pressure stage on structured grids): piecewise-constant restriction
+    and injection prolongation, factor-2 coarsening.
+
+    ``smoother``: "jacobi" (weighted Jacobi through the K2 level kernel)
+    or "chebyshev" (polynomial smoothing on [cheby_lower*lmax, lmax]
+    through K4; no dot products)."""
 
     def __init__(self, omega: float = 0.8, n_smooth: int = 2,
                  n_coarse_sweeps: int = 40, min_cells: int = 32,
-                 max_levels: int = 10):
+                 max_levels: int = 10, smoother: str = "jacobi",
+                 cheby_lower: float = 0.25):
         self.omega = omega
         self.n_smooth = n_smooth
         self.n_coarse_sweeps = n_coarse_sweeps
         self.min_cells = min_cells
         self.max_levels = max_levels
+        if smoother not in ("jacobi", "chebyshev"):
+            raise ValueError(f"unknown smoother {smoother!r}")
+        self.smoother = smoother
+        self.cheby_lower = cheby_lower
 
     def hierarchy(self, A: ScalarStencil) -> list:
         ops = [A]
@@ -304,13 +373,36 @@ class GMG:
         """Per-level fused level ops, built once per update."""
         return [ScalarLevel(A) for A in ops]
 
-    def vcycle(self, ops: list, b, level: int = 0, mvs: list | None = None):
+    def cheby_data(self, ops: list) -> list | None:
+        """Per-level Chebyshev step tables (``chebyshev_steps``, enough
+        rows for the longest phase) when the Chebyshev smoother is on:
+        every level's lmax stays on the device, and all levels' tables
+        come from one batch of elementwise ops."""
+        if self.smoother != "chebyshev":
+            return None
+        from ..linsolve.cheby import chebyshev_steps
+
+        lmax = torch.stack([_cheby_setup(A)[1] for A in ops])
+        steps = chebyshev_steps(lmax, self.cheby_lower,
+                                max(self.n_smooth, self.n_coarse_sweeps))
+        return list(steps.unbind(0))
+
+    def vcycle(self, ops: list, b, level: int = 0, mvs: list | None = None,
+               cheb: list | None = None):
         if mvs is None:
             mvs = self.matvecs(ops)
+        if cheb is None:
+            cheb = self.cheby_data(ops)
         lv = mvs[level]
-        if level == len(ops) - 1:
+        last = level == len(ops) - 1
+        if cheb is not None:
+            if last:
+                return lv.sweep_n_cheby(b, cheb[level], self.n_coarse_sweeps)
+            u, r = lv.presmooth_residual_cheby(b, cheb[level], self.n_smooth)
+        elif last:
             return lv.sweep_n(b, self.omega, self.n_coarse_sweeps)
-        u, r = lv.presmooth_residual(b, self.omega, self.n_smooth)
+        else:
+            u, r = lv.presmooth_residual(b, self.omega, self.n_smooth)
         # restrict (pw-constant sum) onto the padded lattice
         L = ops[level].L
         PL = _padded_L(L)
@@ -318,7 +410,7 @@ class GMG:
         for axis, n in enumerate(PL):
             if n > 1:
                 rc = _fold(rc, axis)
-        ec = self.vcycle(ops, rc.reshape(-1), level + 1, mvs)
+        ec = self.vcycle(ops, rc.reshape(-1), level + 1, mvs, cheb)
         # prolong: inject the coarse value into each child cell
         e_lat = ec.reshape(ops[level + 1].L)
         for axis, n in enumerate(PL):
@@ -326,6 +418,8 @@ class GMG:
                 e_lat = torch.repeat_interleave(e_lat, 2, dim=axis)
         e_lat = e_lat[: L[0], : L[1], : L[2]]
         u = u + e_lat.reshape(-1)
+        if cheb is not None:
+            return lv.postsmooth_cheby(u, b, cheb[level], self.n_smooth)
         return lv.postsmooth(u, b, self.omega, self.n_smooth)
 
 
@@ -339,6 +433,7 @@ class StencilCPRState:
     mv_Ap: StencilMatvec  # K1 pressure-COLUMN matvec (K=1): stage 2
     # applies A to a vector that is nonzero only in the pressure dof, so
     # only the p-column coefficient streams need reading
+    cheb: list | None = None  # per-level Chebyshev step tables (K4)
 
 
 class StencilCPR:
@@ -377,14 +472,15 @@ class StencilCPR:
             {a: v[:, p:p + 1] for a, v in A.plus.items()},
             {a: v[:, p:p + 1] for a, v in A.minus.items()})
         return StencilCPRState(w, dinv, ops, self.gmg.matvecs(ops),
-                               StencilMatvec(A), StencilMatvec(col))
+                               StencilMatvec(A), StencilMatvec(col),
+                               self.gmg.cheby_data(ops))
 
     def apply(self, state: StencilCPRState, A: StencilMatrix, x):
         """x (n, neq) residual -> du (n, ndof)."""
         from .smallmat import bmv
 
         r_p = torch.sum(state.w * x.T, dim=0)
-        dp = self.gmg.vcycle(state.ops, r_p, mvs=state.mvs)
+        dp = self.gmg.vcycle(state.ops, r_p, mvs=state.mvs, cheb=state.cheb)
         r2 = x - state.mv_Ap(dp[:, None])
         du = bmv(state.dinv, r2)
         du[:, self.p] += dp
@@ -403,12 +499,37 @@ class StencilKrylovSolver:
         self.atol = atol
         self.max_iterations = max_iterations
 
-    def solve(self, A: StencilMatrix, r, rtol=None):
+    def solve(self, A, r, rtol=None):
+        """``A`` a StencilMatrix, or a BorderedStencilMatrix (well models),
+        which is solved by Schur elimination of the wellbore block."""
+        from .stencil_wells import BorderedStencilMatrix
+
+        if isinstance(A, BorderedStencilMatrix):
+            return self._solve_bordered(A, r, rtol)
+        pstate = self.preconditioner.update(A)
+        return self._bicgstab(pstate, A, pstate.mv_A, r, rtol)
+
+    def _bicgstab(self, pstate, A, matvec, r, rtol):
         from ..linsolve.krylov import bicgstab
 
-        pstate = self.preconditioner.update(A)
         return bicgstab(
-            pstate.mv_A, (-r).to(A.diag.dtype),
+            matvec, (-r).to(A.diag.dtype),
             maxiter=self.max_iterations,
             rtol=self.rtol if rtol is None else rtol, atol=self.atol,
             precond=lambda x: self.preconditioner.apply(pstate, A, x))
+
+    def _solve_bordered(self, B, r, rtol=None):
+        """Bordered (well-model) system: Schur-eliminate the wellbore
+        block, run the SAME CPR(GMG)-preconditioned BiCGStab on the
+        reservoir Schur complement (lattice operator + rank-(nw·ndof)
+        perforation correction), back-substitute du_w exactly. The
+        preconditioner sees only the lattice StencilMatrix. Counterpart
+        of the reference's Schur-reduced well solves
+        (src/linsolve/multimodel.jl:17)."""
+        from .stencil_wells import schur_eliminate
+
+        pstate = self.preconditioner.update(B.A)
+        s_matvec, r_schur, back_substitute = schur_eliminate(
+            B, r, base_mv=pstate.mv_A)
+        du_r, stats = self._bicgstab(pstate, B.A, s_matvec, r_schur, rtol)
+        return torch.cat([du_r, back_substitute(du_r)], dim=0), stats

@@ -87,6 +87,48 @@ def test_k2_matches_plain(dev, dtype):
     assert _rel(u12, ref) <= TOL[dtype]
 
 
+def _cheby_plain(lv, b, u, steps, n_sweep):
+    """n_sweep Chebyshev steps through K4's plain version."""
+    mode = SK.CHEB_ZERO if u is None else SK.CHEB_FIRST
+    u, d = SK.scalar_chebyshev_plain(lv.coef, b, u, None, steps, 0, mode, L)
+    for k in range(1, n_sweep):
+        u, d = SK.scalar_chebyshev_plain(lv.coef, b, u, d, steps, k,
+                                         SK.CHEB_STEP, L)
+    return u
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k4_matches_plain(dev, dtype):
+    from jutul.jl_tpu_torch.linsolve.cheby import chebyshev_steps
+    from jutul.jl_tpu_torch.ops.stencil import _cheby_setup
+
+    diag, plus, minus = _random_matrix(1, 1, dtype, dev, seed=2)
+    A = ScalarStencil(L, diag.reshape(-1).abs() + 4.0,
+                      {a: -v[0, 0].abs() for a, v in plus.items()},
+                      {a: -v[0, 0].abs() for a, v in minus.items()})
+    lv = SK.ScalarLevel(A)
+    steps = chebyshev_steps(_cheby_setup(A)[1], 0.25, 12)
+    n = A.n
+    b = torch.randn(n, dtype=dtype, device=dev)
+    u = torch.randn(n, dtype=dtype, device=dev)
+    d = torch.randn(n, dtype=dtype, device=dev)
+    for mode, k in ((SK.CHEB_ZERO, 0), (SK.CHEB_FIRST, 0), (SK.CHEB_STEP, 1),
+                    (SK.CHEB_STEP, 11)):
+        before = SK.scalar_chebyshev.launches
+        got = SK.scalar_chebyshev(lv.coef, b, u, d, steps, k, mode, L)
+        assert SK.scalar_chebyshev.launches == before + 1
+        ref = SK.scalar_chebyshev_plain(lv.coef, b, u, d, steps, k, mode, L)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= TOL[dtype], (mode, k)
+    for n_sweep in (2, 12):
+        assert _rel(lv.sweep_n_cheby(b, steps, n_sweep),
+                    _cheby_plain(lv, b, None, steps, n_sweep)) <= TOL[dtype]
+        assert _rel(lv.postsmooth_cheby(u, b, steps, n_sweep),
+                    _cheby_plain(lv, b, u, steps, n_sweep)) <= TOL[dtype]
+    with pytest.raises(ValueError):  # beyond the step table
+        SK.scalar_chebyshev(lv.coef, b, u, d, steps, 12, SK.CHEB_STEP, L)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k3_matches_plain_with_bound_cells(dev, dtype):
     import chip_smoke
@@ -124,4 +166,5 @@ def test_launch_counters_reset(dev):
     assert set(kernels.launch_counts().values()) == {0}
     test_k1_matches_plain(dev, torch.float32, 2, 2)
     assert kernels.launch_counts() == {
-        "stencil_matvec": 1, "scalar_jacobi": 0, "darcy_flux_jacobian": 0}
+        "stencil_matvec": 1, "scalar_jacobi": 0, "darcy_flux_jacobian": 0,
+        "scalar_chebyshev": 0}
