@@ -15,8 +15,13 @@ failure (nothing is caught, so any failure exits non-zero):
    CUDA-graph replay (K1 block-stencil SpMV, K2 Jacobi/residual pass on every GMG
    level, K3 Darcy flux + Jacobian on every axis incl. cells at S=0, S=1,
    K4 Chebyshev step — every mode and the 2- and 12-step level hooks — on
-   every GMG level of the well-model flagship's pressure hierarchy);
-4. warm-up: both slices at 16x16x8 on the card (first use of each op);
+   every GMG level of the well-model flagship's pressure hierarchy; K5
+   whole Jacobi phases on every level of its Jacobi hierarchy, also against
+   the K2 chain; K6/K7 fused BiCGStab body at the Schur system's 2,097,152
+   values, also against a second call, bitwise); beside each, its bound
+   (bytes over 3.35 TB/s, operations over 67 TFLOP/s, the larger) and, for
+   K1, one cuSPARSE SpMV (torch.sparse.mm) of the same matrix in CSR;
+4. warm-up: the three slices at 16x16x8 on the card (first use of each op);
    source-term slice: the bench flagship with source-term wells at
    256x64x64 = 1,048,576 cells in float32 through
    ``Simulator(use_stencil=True, device="cuda").simulate`` with the bench's
@@ -29,14 +34,26 @@ failure (nothing is caught, so any failure exits non-zero):
    with the Chebyshev GMG smoother, otherwise as phase 4; K1, K2 (the
    residual after a Chebyshev presmooth), K3 and K4 must launch;
 7. its f64 verify over all lattice and wellbore rows, as phase 5;
-8. cross-checks: each slice on a small grid in float64 on the card
+8. wells-jacobi-fused slice: the same well flagship with the bench's
+   default Jacobi smoother and both opt-ins of bench.py's BENCH_FUSED_BODY=1
+   BENCH_GMG_DB=1 (``StencilKrylovSolver(use_fused_body=True)``,
+   ``gmg.slab_double_buffer = True``); K1, K3, K5, K6 and K7 must launch,
+   K2 and K4 never, K6 and K7 once per linear iteration; its f64 verify;
+9. A/B at 64x32x32 on the card, float32: both opt-ins, the K5 phases
+   alone, neither, and neither from a 2-ulp perturbed initial pressure.
+   The phases alone must reproduce "neither" bit for bit; the fused body
+   (another summation order) must succeed and pass the f64 verify, and
+   its counts are reported beside the perturbed run's (phase_ab says why
+   counts cannot be held equal there);
+10. cross-checks: each slice on a small grid in float64 on the card
    (kernels) against the CPU (plain versions): identical ministep, Newton
-   and linear-iteration counts, states within 1e-9.
+   and linear-iteration counts, states within 1e-9 (the Jacobi-phase one
+   without the float32-only fused body).
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
-times and launches (``launches``: the wells slice; ``launches_srcwells``:
-the source-term slice), then the nvidia-smi line, and last
+times, bound and launches (``launches``: its main slice, ``main_slice``;
+``launches_by_slice``: every slice), then the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -63,6 +80,10 @@ CNV_TOL, MB_TOL = 1e-3, 1e-6
 # carries ~1e-7 per rounding over up to a few hundred roundings (12 Jacobi
 # sweeps; the flux chain's exp/pow/cancellation); float64 the same at 2e-16
 REL_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 KERNEL_INFO = {
     "stencil_matvec": ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
                        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:83"),
@@ -74,11 +95,37 @@ KERNEL_INFO = {
         "jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
         "jutul/jl_tpu/ops/pallas/stencil_kernels.py:431 (B6 "
         "_kernel_sweeps_cheby) and :716 (B7 _kernel_slab_sweeps_cheby)"),
+    "scalar_jacobi_phase": (
+        "jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
+        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:602 (B8 "
+        "_kernel_slab_sweeps_db, compute _slab_jacobi_compute :582)"),
+    "fused_alpha_s": ("jutul/jl_tpu_torch/csrc/krylov_kernels.cu",
+                      "jutul/jl_tpu/ops/pallas/krylov_kernels.py:98 (B10 "
+                      "_kernel_alpha_s)"),
+    "fused_omega_update": ("jutul/jl_tpu_torch/csrc/krylov_kernels.cu",
+                           "jutul/jl_tpu/ops/pallas/krylov_kernels.py:130 "
+                           "(B11 _kernel_omega_update)"),
 }
 SLICE_KERNELS = {  # kernels each slice must launch
     "srcwells": ("stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian"),
-    "wells": tuple(KERNEL_INFO),
+    "wells": ("stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian",
+              "scalar_chebyshev"),
+    "wells-jacobi-fused": ("stencil_matvec", "darcy_flux_jacobian",
+                           "scalar_jacobi_phase", "fused_alpha_s",
+                           "fused_omega_update"),
 }
+SLICE_FORBIDDEN = {  # kernels a slice must never launch
+    "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev"),
+}
+# the slice whose launches a kernel's JSON entry reports as ``launches``
+MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
+              "scalar_jacobi": "srcwells",
+              "darcy_flux_jacobian": "wells-jacobi-fused",
+              "scalar_chebyshev": "wells",
+              "scalar_jacobi_phase": "wells-jacobi-fused",
+              "fused_alpha_s": "wells-jacobi-fused",
+              "fused_omega_update": "wells-jacobi-fused"}
+AB_GRID = (64, 32, 32)  # the A/B's 65,536 cells
 
 
 def build_flagship(nx, ny, nz):
@@ -224,9 +271,11 @@ def rate_schedule(forces, n_step):
         for i in range(n_step)]
 
 
-def sim_config(min_cells, smoother="jacobi"):
+def sim_config(min_cells, smoother="jacobi", fused=False):
     """The bench product path's solver and Newton settings
-    (bench.py:528-601) with eager semantics."""
+    (bench.py:528-601) with eager semantics; ``fused``: bench.py's
+    BENCH_FUSED_BODY=1 and BENCH_GMG_DB=1 (the fused BiCGStab body K6/K7
+    and the whole-phase Jacobi kernel K5)."""
     from jutul.jl_tpu_torch import (
         GMG,
         IterationTimestepSelector,
@@ -235,12 +284,13 @@ def sim_config(min_cells, smoother="jacobi"):
         TimestepSelector,
     )
 
+    gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=min_cells,
+              smoother=smoother)
+    gmg.slab_double_buffer = fused
     return dict(
         linear_solver=StencilKrylovSolver(
-            preconditioner=StencilCPR(gmg=GMG(
-                n_smooth=2, n_coarse_sweeps=12, min_cells=min_cells,
-                smoother=smoother)),
-            rtol=1e-3, max_iterations=25),
+            preconditioner=StencilCPR(gmg=gmg), rtol=1e-3, max_iterations=25,
+            use_fused_body=True if fused else None),
         tolerances={"mass_conservation/CNV": CNV_TOL,
                     "mass_conservation/MB": MB_TOL},
         max_nonlinear_iterations=12, tol_factor_final_iteration=10.0,
@@ -293,12 +343,31 @@ def graph_ms(fn, reps=20):
 
 
 class KernelRecord:
-    """Worst errors and the flagship-shape times of one kernel."""
+    """Worst errors and the flagship-shape times of one kernel, with the
+    bytes and operations of the timed call (for its bound) and the time
+    of one PyTorch call computing the same function, where there is one."""
 
     def __init__(self):
         self.max_abs = {}
         self.max_rel = {}
         self.ms = self.plain_ms = self.graph_ms = None
+        self.bytes = self.ops = None
+        self.library_ms = None
+        self.extra = {}
+
+    def set_work(self, tensors, ops):
+        """The timed call's bytes (each input read once, each output
+        written once: ``tensors``) and float32 operations."""
+        self.bytes = int(sum(t.numel() * t.element_size() for t in tensors))
+        self.ops = int(ops)
+
+    def bound(self):
+        """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+        operations over the float32 peak."""
+        t_bytes = self.bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = self.ops / F32_FLOPS * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
 
     def compare(self, dtype, what, kernel, plain):
         torch.cuda.synchronize()
@@ -350,6 +419,34 @@ def _flagship_state(model, state0, params, dtype):
     return (from_numpy(st, "cuda", dtype), from_numpy(params, "cuda", dtype))
 
 
+TERMS_K1 = 7  # stencil terms
+
+
+def _csr(coef, L, C, K):
+    """The block-stencil matrix of ``coef`` (7, C*K, n) as a
+    (n*C, n*K) CSR tensor on its device, rows i*C + c, columns j*K + k —
+    the layout of K1's flattened (n, C) / (n, K) vectors."""
+    nz, ny, nx = L
+    n = nz * ny * nx
+    i = torch.arange(n, device=coef.device)
+    x, y, z = i % nx, (i // nx) % ny, i // (nx * ny)
+    every = torch.ones_like(i, dtype=torch.bool)
+    terms = ((0, every), (1, x + 1 < nx), (-1, x > 0), (nx, y + 1 < ny),
+             (-nx, y > 0), (nx * ny, z + 1 < nz), (-nx * ny, z > 0))
+    rows, cols, vals = [], [], []
+    for t, (off, ok) in enumerate(terms):
+        ii = i[ok]
+        for c in range(C):
+            for k in range(K):
+                rows.append(ii * C + c)
+                cols.append((ii + off) * K + k)
+                vals.append(coef[t, c * K + k][ok])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                               torch.cat(cols)]),
+                                  torch.cat(vals), (n * C, n * K))
+    return coo.coalesce().to_sparse_csr()
+
+
 def phase_kernels(case, records):
     from jutul.jl_tpu_torch import compile_model
     from jutul.jl_tpu_torch.models.setup import merge_state
@@ -383,6 +480,12 @@ def phase_kernels(case, records):
                         AK.darcy_flux_jacobian_plain(*args))
             calls.append(args)
         if dtype == torch.float32:
+            outs = [AK.darcy_flux_jacobian(*c) for c in calls]
+            faces_n = sum(o.shape[-1] for o in outs)
+            # U once, each axis's face parameters, the 3 outputs; ~150
+            # flops per face (the kernel source's count)
+            rec.set_work([U] + [t for c in calls for t in c[2:-2]] + outs,
+                         150 * faces_n)
             rec.ms = cuda_ms(
                 lambda: [AK.darcy_flux_jacobian(*c) for c in calls])
             rec.graph_ms = graph_ms(
@@ -403,6 +506,17 @@ def phase_kernels(case, records):
             rec.compare(dtype, f"K1 {tag}", mv(x),
                         SK.stencil_matvec_plain(mv.coef, x, L, C, K))
             if dtype == torch.float32 and K == 2:
+                rec.set_work([mv.coef, x, mv(x)],
+                             2 * TERMS_K1 * C * K * A.n)
+                csr = _csr(mv.coef, L, C, K)
+                xf = x.reshape(-1, 1)
+                rec.extra["library_vs_kernel_rel_err"] = rel_err(
+                    torch.sparse.mm(csr, xf).reshape(-1, C), mv(x))
+                rec.library_ms = cuda_ms(lambda: torch.sparse.mm(csr, xf))
+                rec.extra["library_call"] = (
+                    "torch.sparse.mm (cuSPARSE SpMV), CSR, "
+                    f"{csr.values().numel()} nonzeros")
+                del csr
                 rec.ms = cuda_ms(lambda: mv(x))
                 rec.graph_ms = graph_ms(lambda: mv(x))
                 rec.plain_ms = cuda_ms(
@@ -444,6 +558,7 @@ def phase_kernels(case, records):
                             lv.sweep_n(b, om, n_sweep),
                             plain(b, None, n_sweep, True, False)[0])
             if dtype == torch.float32 and lv is pst.mvs[0]:
+                rec.set_work([lv.coef, b, u, b], 18 * n)
                 rec.ms = cuda_ms(lambda: lv.smooth(u, b, om))
                 rec.graph_ms = graph_ms(lambda: lv.smooth(u, b, om))
                 rec.plain_ms = cuda_ms(lambda: SK.scalar_jacobi_plain(
@@ -511,6 +626,8 @@ def phase_kernels_cheby(case, records):
                             lv.sweep_n_cheby(b, steps, n_sweep),
                             plain(None, n_sweep))
             if dtype == torch.float32 and lv is pst.mvs[0]:
+                # coef, b, u, d, the step table in; u', d' out
+                rec.set_work([lv.coef, b, u, d, steps[1], u, d], 21 * n)
                 rec.ms = cuda_ms(lambda: step(SK.scalar_chebyshev, u, d, 1,
                                               SK.CHEB_STEP))
                 rec.graph_ms = graph_ms(lambda: step(
@@ -521,36 +638,158 @@ def phase_kernels_cheby(case, records):
         torch.cuda.empty_cache()
 
 
+def phase_kernels_phase(case, records):
+    """K5 (whole Jacobi phases) on every level of the well flagship's
+    Jacobi GMG hierarchy, against its plain version (K2's plain loop) and
+    against the K2 chain on the card (the same arithmetic: the difference
+    is reported, bitwise equality expected), for every hook at 2 and 12
+    sweeps; timed on the fine level's presmooth + residual beside the
+    three-launch K2 chain it replaces."""
+    from jutul.jl_tpu_torch import compile_model, from_numpy
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+    from jutul.jl_tpu_torch.ops.stencil import GMG, StencilCPR
+    from jutul.jl_tpu_torch.ops.stencil_wells import BorderedStencilModel
+
+    model, state0, params, forces = case
+    eng = BorderedStencilModel(compile_model(model), "cuda")
+    rec = records["scalar_jacobi_phase"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    vs_k2 = 0.0
+    for dtype in (torch.float32, torch.float64):
+        full = merge_state(from_numpy(state0, "cuda", dtype),
+                           from_numpy(params, "cuda", dtype))
+        _, B, _ = eng.assemble(full, full, DT, forces)
+        gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384)
+        gmg.slab_double_buffer = True
+        pst = StencilCPR(gmg=gmg).update(B.A)
+        om = gmg.omega
+        log(f"# K5 vs plain and vs K2, {dtype}, levels "
+            f"{[lv.L for lv in pst.mvs]}")
+        for op, lv in zip(pst.ops, pst.mvs):
+            k2 = SK.ScalarLevel(op)  # the same level through the K2 chain
+            n = int(np.prod(lv.L))
+            b, u = (torch.randn(n, generator=gen, device="cuda", dtype=dtype)
+                    for _ in range(2))
+            for n_sweep in (2, 12):
+                cases = (
+                    ("presmooth+residual", lambda lv_: torch.stack(
+                        lv_.presmooth_residual(b, om, n_sweep)),
+                     lambda: torch.stack(SK.scalar_jacobi_phase_plain(
+                         lv.coef, b, None, om, n_sweep, True, lv.L))),
+                    ("postsmooth", lambda lv_: lv_.postsmooth(
+                        u, b, om, n_sweep),
+                     lambda: SK.scalar_jacobi_phase_plain(
+                         lv.coef, b, u, om, n_sweep, False, lv.L)[0]),
+                    ("sweep_n", lambda lv_: lv_.sweep_n(b, om, n_sweep),
+                     lambda: SK.scalar_jacobi_phase_plain(
+                         lv.coef, b, None, om, n_sweep, False, lv.L)[0]))
+                for what, hook, plain in cases:
+                    got = hook(lv)
+                    rec.compare(dtype, f"K5 {lv.L} {what} x{n_sweep}", got,
+                                plain())
+                    vs_k2 = max(vs_k2, float((got - hook(k2)).abs().max()))
+            if dtype == torch.float32 and lv is pst.mvs[0]:
+                uo = torch.empty_like(b)
+                rec.set_work([lv.coef, b, uo, uo], (2 + 2 * 16) * n)
+                rec.ms = cuda_ms(lambda: lv.presmooth_residual(b, om, 2))
+                rec.graph_ms = graph_ms(
+                    lambda: lv.presmooth_residual(b, om, 2))
+                rec.plain_ms = cuda_ms(lambda: SK.scalar_jacobi_phase_plain(
+                    lv.coef, b, None, om, 2, True, lv.L))
+                rec.extra["k2_chain_ms"] = cuda_ms(
+                    lambda: k2.presmooth_residual(b, om, 2))
+                rec.extra["k2_chain_graph_ms"] = graph_ms(
+                    lambda: k2.presmooth_residual(b, om, 2))
+                rec.extra["timed"] = "presmooth_residual(n_sweep=2), fine level"
+        del B, pst
+        torch.cuda.empty_cache()
+    rec.extra["max_abs_diff_vs_k2_chain"] = vs_k2
+    log(f"  K5 vs the K2 chain on the card: max |diff| {vs_k2:.3e}")
+
+
+def phase_kernels_krylov(records):
+    """K6/K7 at the Schur system's 2 x 1,048,576 values against their
+    plain versions, and against a second call on the same inputs, bitwise
+    (the sums have a fixed order)."""
+    from jutul.jl_tpu_torch.ops.cuda import krylov_kernels as KK
+
+    n = 2 * GRID[0] * GRID[1] * GRID[2]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in (torch.float32, torch.float64):
+        log(f"# K6/K7 vs plain, {dtype}, n={n}")
+        vec = lambda: torch.randn(n, generator=gen, device="cuda",  # noqa: E731
+                                  dtype=dtype)
+        rhat, r, v = vec(), vec(), vec()
+        rho = torch.dot(rhat, r)
+        s, alpha = KK.fused_alpha_s(rhat, r, v, rho)
+        s_p, alpha_p = KK.fused_alpha_s_plain(rhat, r, v, rho)
+        rec6 = records["fused_alpha_s"]
+        rec6.compare(dtype, "K6 s", s, s_p)
+        rec6.compare(dtype, "K6 alpha", alpha, alpha_p)
+        s2, alpha2 = KK.fused_alpha_s(rhat, r, v, rho)
+        if not (torch.equal(s, s2) and torch.equal(alpha, alpha2)):
+            raise RuntimeError("K6: a second call on the same inputs differs")
+        t, phat, shat, x, p = (vec() for _ in range(5))
+        args = (rhat, t, s, phat, shat, x, p, v, rho, alpha)
+        got = KK.fused_omega_update(*args)
+        ref = KK.fused_omega_update_plain(*args)
+        rec7 = records["fused_omega_update"]
+        for name, g, w in zip(("x", "r", "p", "omega", "rho", "res2"), got,
+                              ref):
+            rec7.compare(dtype, f"K7 {name}", g, w)
+        again = KK.fused_omega_update(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError("K7: a second call on the same inputs differs")
+        log("  K6/K7: second calls bitwise equal")
+        if dtype == torch.float32:
+            rec6.set_work([rhat, r, v, s], 4 * n)
+            rec7.set_work([rhat, t, s, phat, shat, x, p, v] + list(got[:3]),
+                          18 * n)
+            for rec, fn, plain in (
+                    (rec6, lambda: KK.fused_alpha_s(rhat, r, v, rho),
+                     lambda: KK.fused_alpha_s_plain(rhat, r, v, rho)),
+                    (rec7, lambda: KK.fused_omega_update(*args),
+                     lambda: KK.fused_omega_update_plain(*args))):
+                rec.ms = cuda_ms(fn)
+                rec.graph_ms = graph_ms(fn)
+                rec.plain_ms = cuda_ms(plain)
+        torch.cuda.empty_cache()
+
+
 def phase_warm_up():
-    """Both slices at 16x16x8 in float32 on the card, 2 report steps: the
-    first use of each PyTorch op in a process loads its CUDA module
+    """The three slices at 16x16x8 in float32 on the card, 2 report steps:
+    the first use of each PyTorch op in a process loads its CUDA module
     (~12 s for the wells path), which the timed slices should not
     measure."""
     from jutul.jl_tpu_torch import Simulator
 
     t0 = time.perf_counter()
-    for build, smoother in ((build_flagship, "jacobi"),
-                            (build_well_flagship, "chebyshev")):
+    for build, smoother, fused in ((build_flagship, "jacobi", False),
+                                   (build_well_flagship, "chebyshev", False),
+                                   (build_well_flagship, "jacobi", True)):
         model, state0, params, forces = build(*SMALL)
         Simulator(model, state0, params, device="cuda").simulate(
             [DT] * 2, forces=rate_schedule(forces, 2),
-            **sim_config(64, smoother))
+            **sim_config(64, smoother, fused))
     torch.cuda.synchronize()
-    log(f"# warm-up (both slices at 16x16x8): "
+    log(f"# warm-up (the three slices at 16x16x8): "
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def phase_slice(case, name, smoother):
+def phase_slice(case, name, smoother, fused=False):
     """One slice at full size in float32, 3 report steps; the kernels of
-    ``SLICE_KERNELS[name]`` must launch in it."""
+    ``SLICE_KERNELS[name]`` must launch in it, those of
+    ``SLICE_FORBIDDEN[name]`` never; with ``fused``, K6 and K7 launch once
+    per linear iteration."""
     from jutul.jl_tpu_torch import Simulator, report_stats
     from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     model, state0, params, forces = case
     nc = model.number_of_cells()
-    sim = Simulator(model, state0, params, use_stencil=True, device="cuda")
+    sim = Simulator(model, state0, params, use_stencil=True)  # the card
     schedule = rate_schedule(forces, 3)
-    cfg = sim_config(16384, smoother)
+    cfg = sim_config(16384, smoother, fused)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -570,9 +809,16 @@ def phase_slice(case, name, smoother):
     if missing:
         raise RuntimeError(f"{name} slice: {missing} never launched: "
                            f"{launches}")
+    stray = [k for k in SLICE_FORBIDDEN.get(name, ()) if launches[k]]
+    if stray:
+        raise RuntimeError(f"{name} slice: {stray} launched: {launches}")
     newtons, lin = stats["newtons"], stats["linear_iterations"]
+    if fused and not (launches["fused_alpha_s"] == lin
+                      == launches["fused_omega_update"]):
+        raise RuntimeError(f"{name} slice: K6/K7 launches {launches} differ "
+                           f"from the {lin} linear iterations")
     out = {
-        "slice": name, "smoother": smoother, "cells": nc,
+        "slice": name, "smoother": smoother, "fused": fused, "cells": nc,
         "dtype": "float32", "report_steps": 3,
         "ministeps": stats["ministeps"], "newtons": newtons,
         "failed_ministeps": stats["failed_ministeps"],
@@ -612,9 +858,76 @@ def phase_f64_verify(sim, res, forces, name):
     return out
 
 
-def phase_cross_check(build, dims, smoother, name):
+def phase_ab(case_small):
+    """The well flagship at AB_GRID with Jacobi GMG on the card, float32,
+    3 report steps, in four runs: both opt-ins ("fused": K5 phases and the
+    K6/K7 body), the K5 phases alone ("phases"), neither (K2 chains, the
+    plain BiCGStab chain), and neither again from an initial pressure
+    scaled by 1 + 2^-22 (two float32 ulps: "neither_perturbed").
+
+    - "phases" against "neither" must match exactly — the same counts in
+      every ministep, bitwise-equal states — because K5 computes the K2
+      chain's values bit for bit;
+    - "fused" sums its dot products in another order than the plain chain,
+      and on this float32 Schur system Krylov and Newton counts move with
+      any roundoff: the "neither_perturbed" run shows how far. So "fused"
+      is held to what its answer must satisfy — every report step
+      succeeds and the final ministep passes the float64 verify — and its
+      counts and state deviations are reported beside the perturbed run's."""
+    from jutul.jl_tpu_torch import Simulator, report_stats
+
+    model, state0, params, forces = case_small
+    schedule = rate_schedule(forces, 3)
+    runs, out = {}, {"cells": model.number_of_cells()}
+    for tag, fused, phases, scale in (
+            ("fused", True, True, 1.0), ("phases", False, True, 1.0),
+            ("neither", False, False, 1.0),
+            ("neither_perturbed", False, False, 1.0 + 2.0 ** -22)):
+        st0 = {**state0, "Pressure": state0["Pressure"] * scale}
+        sim = Simulator(model, st0, params, use_stencil=True)
+        cfg = sim_config(16384, "jacobi", fused)
+        cfg["linear_solver"].preconditioner.gmg.slab_double_buffer = phases
+        t0 = time.perf_counter()
+        res = sim.simulate([DT] * 3, forces=schedule, **cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not all(r["success"] for r in res.reports) or len(res.reports) != 3:
+            raise RuntimeError(f"A/B {tag}: a report step failed")
+        st = report_stats(res.reports)
+        runs[tag] = res
+        out[tag] = {k: st[k] for k in ("ministeps", "newtons",
+                                       "linear_iterations")}
+        out[tag]["wall_s"] = wall
+        out[tag]["per_ministep"] = [[m["iterations"], m["linear_iterations"]]
+                                    for r in res.reports
+                                    for m in r["ministeps"]]
+        if tag in ("fused", "neither"):
+            out[tag]["f64_verify"] = phase_f64_verify(sim, res, schedule[-1],
+                                                      f"A/B {tag}")
+        del sim
+    ref = runs["neither"].states
+    for tag in ("fused", "phases", "neither_perturbed"):
+        out[tag]["max_rel_dev_pressure"] = max(
+            float(np.max(np.abs(a["Pressure"] / b["Pressure"] - 1)))
+            for a, b in zip(runs[tag].states, ref))
+        out[tag]["max_abs_dev_saturations"] = max(
+            float(np.max(np.abs(a["Saturations"] - b["Saturations"])))
+            for a, b in zip(runs[tag].states, ref))
+    log(f"# A/B ({'x'.join(map(str, AB_GRID))}, f32, card): "
+        + json.dumps(out))
+    if out["phases"]["per_ministep"] != out["neither"]["per_ministep"] or \
+            out["phases"]["max_rel_dev_pressure"] != 0.0 or \
+            out["phases"]["max_abs_dev_saturations"] != 0.0:
+        raise RuntimeError("A/B: the K5 phases change the run: "
+                           + json.dumps(out))
+    return out
+
+
+def phase_cross_check(build, dims, smoother, name, phases=False):
     """The slice at ``dims`` in float64, 2 report steps, on the card and
-    on the CPU: identical counts, states within 1e-9."""
+    on the CPU: identical counts, states within 1e-9. ``phases``: Jacobi
+    phases through K5 (``slab_double_buffer``; the fused body is float32
+    only and stays off)."""
     from jutul.jl_tpu_torch import Simulator
 
     model, state0, params, forces = build(*dims)
@@ -622,8 +935,9 @@ def phase_cross_check(build, dims, smoother, name):
     for dev in ("cuda", "cpu"):
         sim = Simulator(model, state0, params, device=dev,
                         dtype=torch.float64)
-        res = sim.simulate([DT] * 2, forces=rate_schedule(forces, 2),
-                           **sim_config(64, smoother))
+        cfg = sim_config(64, smoother)
+        cfg["linear_solver"].preconditioner.gmg.slab_double_buffer = phases
+        res = sim.simulate([DT] * 2, forces=rate_schedule(forces, 2), **cfg)
         minis = [m for r in res.reports for m in r["ministeps"]]
         runs[dev] = (res, [(m["iterations"], m["linear_iterations"],
                             m["success"]) for m in minis])
@@ -655,32 +969,55 @@ def main():
     log(f"# flagship cases built on the host in "
         f"{time.perf_counter() - t0:.1f} s")
     records = {name: KernelRecord() for name in KERNEL_INFO}
+    t0 = time.perf_counter()
     phase_kernels(case, records)
     phase_kernels_cheby(case_w, records)
+    phase_kernels_phase(case_w, records)
+    phase_kernels_krylov(records)
+    log(f"# kernel phases: {time.perf_counter() - t0:.1f} s")
     phase_warm_up()
     slices = {}
-    for name, c, smoother in (("srcwells", case, "jacobi"),
-                              ("wells", case_w, "chebyshev")):
-        sim, res, last_forces, slices[name] = phase_slice(c, name, smoother)
-        phase_f64_verify(sim, res, last_forces, name)
+    for name, c, smoother, fused in (
+            ("srcwells", case, "jacobi", False),
+            ("wells", case_w, "chebyshev", False),
+            ("wells-jacobi-fused", case_w, "jacobi", True)):
+        sim, res, last_forces, slices[name] = phase_slice(c, name, smoother,
+                                                          fused)
+        slices[name]["f64_verify"] = phase_f64_verify(sim, res, last_forces,
+                                                      name)
         del sim, res
         torch.cuda.empty_cache()
+    del case, case_w
+    t0 = time.perf_counter()
+    ab = phase_ab(build_well_flagship(*AB_GRID))
+    log(f"# A/B: {time.perf_counter() - t0:.1f} s")
     phase_cross_check(build_flagship, SMALL, "jacobi", "srcwells")
     phase_cross_check(build_well_flagship, WELL_SMALL, "chebyshev", "wells")
+    phase_cross_check(build_well_flagship, WELL_SMALL, "jacobi",
+                      "wells-jacobi-phases", phases=True)
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         rec = records[name]
+        bound_ms, bound_by = rec.bound()
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": slices["wells"]["launches"][name],
-            "launches_srcwells": slices["srcwells"]["launches"][name],
+            "launches": slices[MAIN_SLICE[name]]["launches"][name],
+            "main_slice": MAIN_SLICE[name],
+            "launches_by_slice": {k: v["launches"][name]
+                                  for k, v in slices.items()},
             "max_abs_err": rec.max_abs["float32"],
             "max_rel_err_f32": rec.max_rel["float32"],
             "max_abs_err_f64": rec.max_abs["float64"],
             "max_rel_err_f64": rec.max_rel["float64"],
             "ms": rec.ms, "plain_ms": rec.plain_ms,
-            "graph_ms": rec.graph_ms})
+            "graph_ms": rec.graph_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": rec.bytes, "bound_ops": rec.ops,
+            "library_ms": rec.library_ms, **rec.extra})
+    log("# slices " + json.dumps({k: {q: v[q] for q in (
+        "ministeps", "newtons", "linear_iterations", "wall_s")}
+        for k, v in slices.items()}) + " A/B " + json.dumps(ab))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -689,5 +1026,62 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def profile(name):
+    """``python3 chip_smoke.py --profile NAME``: one slice (``srcwells``,
+    ``wells`` or ``wells-jacobi-fused``) at full size under
+    torch.profiler after a 16x16x8 warm-up — its wall, the card's busy
+    share and device time by operation. Not a check: it prints no result
+    line."""
+    from jutul.jl_tpu_torch import Simulator, report_stats
+
+    build, smoother, fused = {
+        "srcwells": (build_flagship, "jacobi", False),
+        "wells": (build_well_flagship, "chebyshev", False),
+        "wells-jacobi-fused": (build_well_flagship, "jacobi", True)}[name]
+    smi = phase_device()
+    phase_build()
+
+    def run(dims, n_step, min_cells):
+        model, state0, params, forces = build(*dims)
+        sim = Simulator(model, state0, params, use_stencil=True)
+        return lambda: sim.simulate(
+            [DT] * n_step, forces=rate_schedule(forces, n_step),
+            **sim_config(min_cells, smoother, fused))
+
+    run(SMALL, 2, 64)()  # warm-up: the first use of each op
+    slice_run = run(GRID, 3, 16384)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res = slice_run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    st = report_stats(res.reports)
+    rows = []  # device-side events only (kernels, copies, memsets): the
+    # host-side ops' rows repeat their kernels' time
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = e.self_cuda_time_total
+        rows.append((dev / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    out = {"slice": name, "wall_s_profiled": wall,
+           "ministeps": st["ministeps"], "newtons": st["newtons"],
+           "linear_iterations": st["linear_iterations"],
+           "device_busy_ms": busy, "busy_share": busy / 1e3 / wall,
+           "device_ops": sum(r[1] for r in rows),
+           "top": [[round(ms, 3), n, key[:60]] for ms, n, key in rows[:16]]}
+    print(json.dumps(out))
+    print(smi)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile":
+        profile(sys.argv[2])
+    else:
+        main()

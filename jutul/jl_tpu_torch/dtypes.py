@@ -8,6 +8,8 @@ take an explicit ``device`` and ``dtype``, and tensors carry both.
 - On the CPU the working dtype defaults to float64, the reference's
   precision, which the conformance tests compare at.
 - On a CUDA card it defaults to float32, the product precision.
+- With no device given, everything runs on the card; without one it
+  raises (pass ``device="cpu"`` for the CPU).
 
 TF32 is switched off for every float32 matrix product and convolution.
 Every contraction in this package sits on a Jacobian or preconditioner
@@ -28,10 +30,17 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:
-    """The torch device for ``device`` (None -> CPU). Asking for CUDA on
-    a machine without it raises: no path silently falls back to the
-    CPU."""
-    dev = torch.device("cpu" if device is None else device)
+    """The torch device for ``device``. ``None`` means the CUDA card: the
+    port's entry points run on the card unless the caller asks for the
+    CPU, and with no card they raise rather than fall back quietly.
+    Asking for CUDA on a machine without it raises too."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card (torch.cuda.is_available() is False) and no "
+                "device given: pass device=\"cpu\" to run on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
@@ -40,7 +49,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def float_type(device=None) -> torch.dtype:
-    """Default working float dtype on ``device``: float64 on the CPU,
-    float32 on a CUDA card."""
+    """Default working float dtype on ``device`` (``None``: the card, as
+    ``resolve_device``): float64 on the CPU, float32 on a CUDA card."""
     return torch.float32 if resolve_device(device).type == "cuda" \
         else torch.float64

@@ -1,4 +1,5 @@
-"""Krylov solver: right-preconditioned BiCGStab.
+"""Krylov solver: right-preconditioned BiCGStab, and the choice between its
+plain chain and the fused body (``resolve_bicgstab``).
 
 Port of the JAX package's ``linsolve/krylov.py`` ``bicgstab`` (reference:
 src/linsolve/krylov.jl ``linear_solve!`` with Krylov.jl's BiCGStab). The
@@ -72,3 +73,22 @@ def bicgstab(matvec: Callable, b, maxiter: int = 200, rtol: float = 1e-8,
         it += 1
     return x, {"iterations": it, "residual": res,
                "converged": float(res) <= tol}
+
+
+def resolve_bicgstab(dtype, use_fused: bool | None):
+    """The BiCGStab implementation: the fused body on K6/K7
+    (``ops/cuda/krylov_kernels.py`` ``bicgstab_fused``) or the plain
+    chain. Counterpart of the JAX package's ``resolve_bicgstab``, with its
+    auto rule: ``None`` is always the plain chain. Forcing the fused body
+    on a non-float32 system raises — it computes in float32 and would
+    silently lose the precision the float64 paths rely on."""
+    if use_fused and dtype != torch.float32:
+        raise ValueError(
+            "use_fused_body=True requires a float32 system (the fused body "
+            "computes in float32 and would silently downcast); cast the "
+            "system or leave use_fused_body=None")
+    if use_fused:
+        from ..ops.cuda.krylov_kernels import bicgstab_fused
+
+        return bicgstab_fused
+    return bicgstab

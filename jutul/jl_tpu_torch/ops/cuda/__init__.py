@@ -5,11 +5,13 @@ version on CPU tensors, and counts its launches in ``<wrapper>.launches``.
 """
 
 from .assembly_kernels import darcy_flux_jacobian  # noqa: F401
+from .krylov_kernels import fused_alpha_s, fused_omega_update  # noqa: F401
 from .stencil_kernels import (  # noqa: F401
     ScalarLevel,
     StencilMatvec,
     scalar_chebyshev,
     scalar_jacobi,
+    scalar_jacobi_phase,
     stencil_matvec,
 )
 
@@ -18,6 +20,9 @@ KERNELS = {
     "scalar_jacobi": scalar_jacobi,
     "darcy_flux_jacobian": darcy_flux_jacobian,
     "scalar_chebyshev": scalar_chebyshev,
+    "scalar_jacobi_phase": scalar_jacobi_phase,
+    "fused_alpha_s": fused_alpha_s,
+    "fused_omega_update": fused_omega_update,
 }
 
 

@@ -38,6 +38,10 @@ _SIGNATURES = {
     "jt_scalar_chebyshev": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P],
     "jt_darcy_flux_jacobian": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "jt_scalar_jacobi_phase": [_P, _P, _P, _P, _P, _D, _I, _I, _I, _I, _I,
+                               _P],
+    "jt_fused_alpha_s": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "jt_fused_omega_update": [_P] * 15 + [_I, _I, _P],
 }
 
 

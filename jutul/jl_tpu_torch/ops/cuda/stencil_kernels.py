@@ -1,5 +1,5 @@
-"""Stencil kernels K1 (block-stencil SpMV), K2 (scalar Jacobi pass) and K4
-(scalar Chebyshev step).
+"""Stencil kernels K1 (block-stencil SpMV), K2 (scalar Jacobi pass), K4
+(scalar Chebyshev step) and K5 (a whole scalar Jacobi smoothing phase).
 
 Wrappers around ``csrc/stencil_kernels.cu``, with the plain PyTorch version
 of each kernel beside it and a launch counter on each wrapper. A wrapper
@@ -25,6 +25,14 @@ the kernel or raises — there is no fallback.
   recurrence on a scalar stencil, per-step scalars read from a small
   device table. Bound by HBM bytes as K2 (plus the direction vector d in
   and out); one launch per step, so the coefficients stream once per step.
+- K5 ``scalar_jacobi_phase`` replaces ``_kernel_slab_sweeps_db`` (B8, the
+  double-buffered deep-halo slab kernel): a whole weighted-Jacobi phase
+  (up to ``PHASE_MAX_DEPTH`` stencil applications: the sweeps from zero
+  or from u, plus an optional residual) in one launch, by 2.5-D
+  z-marching with a register wavefront, so the coefficients stream once
+  per phase. Its plain version is K2's plain loop; it keeps K2's per-cell
+  arithmetic. ``ScalarLevel(phase_kernel=True)`` runs its Jacobi hooks on
+  it (``GMG.slab_double_buffer``).
 
 The lattice is the natural contiguous (nz, ny, nx) one: coefficients are
 embedded once per matrix as ``(7, C·K, n)`` with zero boundary entries
@@ -222,6 +230,76 @@ scalar_jacobi.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K5: a whole weighted-Jacobi smoothing phase on a scalar stencil
+# ---------------------------------------------------------------------------
+PHASE_MAX_DEPTH = 4  # stencil applications per K5 launch (csrc kPhaseMaxDepth)
+
+
+def _phase_depth(u, n_sweep: int, emit_residual: bool) -> int:
+    """Stencil applications of a phase: the sweeps (the first one from
+    zero is elementwise) plus the residual."""
+    return (n_sweep - 1 if u is None else n_sweep) + int(emit_residual)
+
+
+def scalar_jacobi_phase_plain(coef, b, u, omega: float, n_sweep: int,
+                              emit_residual: bool, L):
+    """Plain version of K5: K2's plain loop — ``n_sweep`` weighted-Jacobi
+    sweeps from ``u`` (None: from zero, the first sweep ``omega*b*dinv``),
+    then the residual ``b - A u`` if asked. Returns (u, r or None)."""
+    if u is None:
+        u = scalar_jacobi_plain(coef, b, None, omega, MODE_INIT, L)
+        n_sweep -= 1
+    for _ in range(n_sweep):
+        u = scalar_jacobi_plain(coef, b, u, omega, MODE_SMOOTH, L)
+    r = scalar_jacobi_plain(coef, b, u, 0.0, MODE_RESIDUAL, L) \
+        if emit_residual else None
+    return u, r
+
+
+def scalar_jacobi_phase(coef, b, u, omega: float, n_sweep: int,
+                        emit_residual: bool, L):
+    """K5 wrapper: one smoothing phase (see ``scalar_jacobi_phase_plain``)
+    of at most ``PHASE_MAX_DEPTH`` stencil applications. Returns
+    (u, r or None)."""
+    if _is_cpu(b):
+        return scalar_jacobi_phase_plain(coef, b, u, omega, n_sweep,
+                                         emit_residual, L)
+    nz, ny, nx = L
+    n = nz * ny * nx
+    depth = _phase_depth(u, n_sweep, emit_residual)
+    if not 0 <= depth <= PHASE_MAX_DEPTH:
+        raise ValueError(f"scalar_jacobi_phase: {depth} stencil applications "
+                         f"(n_sweep={n_sweep}, residual={emit_residual}); "
+                         f"one launch takes 0..{PHASE_MAX_DEPTH}")
+    b = b.contiguous()
+    _require(coef, b, "scalar_jacobi_phase coef")
+    if b.shape != (n,) or coef.shape != (TERMS, 1, n):
+        raise ValueError(f"scalar_jacobi_phase: bad shapes b {tuple(b.shape)},"
+                         f" coef {tuple(coef.shape)} for L={L}")
+    u_ptr = None
+    if u is not None:
+        u = u.contiguous()
+        _require(u, b, "scalar_jacobi_phase u")
+        if u.shape != (n,):
+            raise ValueError(f"scalar_jacobi_phase: bad shape u "
+                             f"{tuple(u.shape)}")
+        u_ptr = u.data_ptr()
+    u_out = torch.empty_like(b)
+    r_out = torch.empty_like(b) if emit_residual else None
+    lib = load_library()
+    check(lib.fn("jt_scalar_jacobi_phase", dtype_suffix(b))(
+        coef.data_ptr(), b.data_ptr(), u_ptr, u_out.data_ptr(),
+        None if r_out is None else r_out.data_ptr(), float(omega),
+        int(n_sweep), int(u is None), nz, ny, nx, stream_handle()),
+        "scalar_jacobi_phase")
+    scalar_jacobi_phase.launches += 1
+    return u_out, r_out
+
+
+scalar_jacobi_phase.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K4: one Chebyshev step on a scalar stencil
 # ---------------------------------------------------------------------------
 CHEB_ZERO, CHEB_FIRST, CHEB_STEP = 0, 1, 2
@@ -291,20 +369,26 @@ scalar_chebyshev.launches = 0
 
 
 class ScalarLevel:
-    """GMG level ops for a ScalarStencil through K2 and K4 — the JAX
+    """GMG level ops for a ScalarStencil through K2, K4 and K5 — the JAX
     package's level interface (``smooth0``/``smooth``/``residual``, the
     fused Jacobi phase hooks ``presmooth_residual``/``postsmooth``/
-    ``sweep_n`` and their Chebyshev variants ``*_cheby``), each phase a
-    loop of single-pass launches.
+    ``sweep_n`` and their Chebyshev variants ``*_cheby``).
+
+    The Jacobi phase hooks are a loop of single-pass K2 launches, or with
+    ``phase_kernel`` (``GMG.slab_double_buffer``) K5 launches of whole
+    phases, chunked to ``PHASE_MAX_DEPTH`` stencil applications as the JAX
+    slab level chunks ``sweep_n`` to its halo depth. Both give the same
+    values: K5 keeps K2's arithmetic.
 
     The Chebyshev hooks take the level's per-step scalar table
     (``linsolve.cheby.chebyshev_steps``, built once per CPR update) where
     the JAX hooks take ``lmax`` and ``lower``; the residual after a
     Chebyshev presmooth is K2's residual pass."""
 
-    def __init__(self, A):
+    def __init__(self, A, phase_kernel: bool = False):
         self.L = tuple(A.L)
         _, _, self.coef = embed(A)  # (7, 1, n)
+        self.phase_kernel = bool(phase_kernel)
 
     def _pass(self, b, u, omega, mode):
         return scalar_jacobi(self.coef, b, u, omega, mode, self.L)
@@ -319,17 +403,41 @@ class ScalarLevel:
     def residual(self, u, b):
         return self._pass(b, u, 0.0, MODE_RESIDUAL)
 
+    def _phase(self, b, u, omega, n_sweep, emit_residual):
+        """``n_sweep`` sweeps from ``u`` (None: zero), then the residual if
+        asked, in K5 launches of at most PHASE_MAX_DEPTH applications."""
+        r = None
+        while True:
+            k = min(n_sweep, PHASE_MAX_DEPTH + int(u is None))
+            n_sweep -= k
+            res = emit_residual and n_sweep == 0 and \
+                _phase_depth(u, k, True) <= PHASE_MAX_DEPTH
+            u, r = scalar_jacobi_phase(self.coef, b, u, omega, k, res,
+                                       self.L)
+            if n_sweep == 0:
+                break
+        if emit_residual and r is None:
+            u, r = scalar_jacobi_phase(self.coef, b, u, omega, 0, True,
+                                       self.L)
+        return u, r
+
     def sweep_n(self, b, omega, n_sweep):
+        if self.phase_kernel:
+            return self._phase(b, None, omega, n_sweep, False)[0]
         u = self.smooth0(b, omega)
         for _ in range(n_sweep - 1):
             u = self.smooth(u, b, omega)
         return u
 
     def presmooth_residual(self, b, omega, n_sweep):
+        if self.phase_kernel:
+            return self._phase(b, None, omega, n_sweep, True)
         u = self.sweep_n(b, omega, n_sweep)
         return u, self.residual(u, b)
 
     def postsmooth(self, u, b, omega, n_sweep):
+        if self.phase_kernel:
+            return self._phase(b, u, omega, n_sweep, False)[0]
         for _ in range(n_sweep):
             u = self.smooth(u, b, omega)
         return u

@@ -9,8 +9,9 @@ Counterpart of the reference's hard-coded TPFA assembly path
 (src/conservation/conservation.jl:101-484).
 
 The hot operations run through the CUDA kernels of ``ops/cuda``: the
-face flux + Jacobian blocks (K3), the block-stencil SpMV (K1) and the GMG
-level passes (K2 Jacobi/residual, K4 Chebyshev). On CPU tensors those
+face flux + Jacobian blocks (K3), the block-stencil SpMV (K1), the GMG
+level passes (K2 Jacobi/residual, K4 Chebyshev, K5 whole Jacobi phases)
+and, opted in, the fused BiCGStab body (K6/K7). On CPU tensors those
 wrappers run their plain PyTorch versions. Well models ride this engine
 through ``ops/stencil_wells.py`` (bordered matrix, Schur-eliminated
 wellbores), which ``StencilKrylovSolver.solve`` dispatches to.
@@ -345,7 +346,13 @@ class GMG:
 
     ``smoother``: "jacobi" (weighted Jacobi through the K2 level kernel)
     or "chebyshev" (polynomial smoothing on [cheby_lower*lmax, lmax]
-    through K4; no dot products)."""
+    through K4; no dot products).
+
+    ``slab_double_buffer`` (an attribute, default False, set after
+    construction as in the JAX package, where it selects the pipelined
+    slab kernel B8): the Jacobi phases run as whole-phase K5 launches
+    instead of K2 sweep chains — the same values, fewer coefficient
+    reads."""
 
     def __init__(self, omega: float = 0.8, n_smooth: int = 2,
                  n_coarse_sweeps: int = 40, min_cells: int = 32,
@@ -360,6 +367,7 @@ class GMG:
             raise ValueError(f"unknown smoother {smoother!r}")
         self.smoother = smoother
         self.cheby_lower = cheby_lower
+        self.slab_double_buffer = False
 
     def hierarchy(self, A: ScalarStencil) -> list:
         ops = [A]
@@ -371,7 +379,8 @@ class GMG:
 
     def matvecs(self, ops: list) -> list:
         """Per-level fused level ops, built once per update."""
-        return [ScalarLevel(A) for A in ops]
+        return [ScalarLevel(A, phase_kernel=self.slab_double_buffer)
+                for A in ops]
 
     def cheby_data(self, ops: list) -> list | None:
         """Per-level Chebyshev step tables (``chebyshev_steps``, enough
@@ -489,15 +498,21 @@ class StencilCPR:
 
 class StencilKrylovSolver:
     """Linear-solver adapter for the stencil fast path: BiCGStab with
-    StencilCPR, vectors in the operators' native (n, neq) layout."""
+    StencilCPR, vectors in the operators' native (n, neq) layout.
+
+    ``use_fused_body``: True runs BiCGStab on the fused body (K6/K7,
+    float32 systems only); None/False the plain chain (the JAX package's
+    auto rule: always the chain)."""
 
     def __init__(self, preconditioner: StencilCPR | None = None,
                  rtol: float = 1e-6, atol: float = 0.0,
-                 max_iterations: int = 100):
+                 max_iterations: int = 100,
+                 use_fused_body: bool | None = None):
         self.preconditioner = preconditioner or StencilCPR()
         self.rtol = rtol
         self.atol = atol
         self.max_iterations = max_iterations
+        self.use_fused_body = use_fused_body
 
     def solve(self, A, r, rtol=None):
         """``A`` a StencilMatrix, or a BorderedStencilMatrix (well models),
@@ -510,13 +525,27 @@ class StencilKrylovSolver:
         return self._bicgstab(pstate, A, pstate.mv_A, r, rtol)
 
     def _bicgstab(self, pstate, A, matvec, r, rtol):
-        from ..linsolve.krylov import bicgstab
+        """BiCGStab on ``matvec`` for the lattice system's right-hand side
+        ``-r``, through ``resolve_bicgstab``: the plain chain on (n, neq)
+        blocks, or the fused body on their flat views (contiguous blocks,
+        so flattening copies nothing)."""
+        from ..linsolve.krylov import bicgstab, resolve_bicgstab
 
-        return bicgstab(
-            matvec, (-r).to(A.diag.dtype),
-            maxiter=self.max_iterations,
-            rtol=self.rtol if rtol is None else rtol, atol=self.atol,
-            precond=lambda x: self.preconditioner.apply(pstate, A, x))
+        fn = resolve_bicgstab(A.diag.dtype, self.use_fused_body)
+        b = (-r).to(A.diag.dtype).contiguous()
+        kw = dict(maxiter=self.max_iterations,
+                  rtol=self.rtol if rtol is None else rtol, atol=self.atol)
+
+        def precond(x):
+            return self.preconditioner.apply(pstate, A, x)
+
+        if fn is bicgstab:
+            return fn(matvec, b, precond=precond, **kw)
+        shape = b.shape
+        du, stats = fn(lambda x: matvec(x.view(shape)).reshape(-1),
+                       b.view(-1), precond=lambda x: precond(
+                           x.view(shape)).reshape(-1), **kw)
+        return du.view(shape), stats
 
     def _solve_bordered(self, B, r, rtol=None):
         """Bordered (well-model) system: Schur-eliminate the wellbore

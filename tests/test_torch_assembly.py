@@ -151,8 +151,8 @@ def test_assemble_matches_jax(kind):
 
     sc = StencilCompiledModel(compile_model(tmodel))
     tf = {"src": tdarcy.PhaseSourceTerm(cells, rates)}
-    r, A, _ = sc.assemble(merge_state(from_numpy(state), from_numpy(params)),
-                          merge_state(from_numpy(state0), from_numpy(params)),
+    r, A, _ = sc.assemble(merge_state(from_numpy(state, "cpu"), from_numpy(params, "cpu")),
+                          merge_state(from_numpy(state0, "cpu"), from_numpy(params, "cpu")),
                           DT, tf)
     assert r.dtype == torch.float64 and r.shape == tuple(r_ref.shape)
     assert_close(r.numpy(), r_ref, what="r")
@@ -189,8 +189,8 @@ def test_form_matches_equation_functions(kind):
     TwoPhaseDarcyEquation's dict-based functions exactly."""
     _, tmodel, state, _, params = darcy_case(kind)
     comp = compile_model(tmodel)
-    full = comp.evaluate_secondaries(merge_state(from_numpy(state),
-                                                 from_numpy(params)))
+    full = comp.evaluate_secondaries(merge_state(from_numpy(state, "cpu"),
+                                                 from_numpy(params, "cpu")))
     form = tmodel.system.scalar_assembly_form(tmodel)
     U = comp.get_dofs(full)
     u = tuple(U[:, j] for j in range(U.shape[1]))

@@ -59,8 +59,8 @@ def test_state0_and_forces_identical(cases):
 def test_from_numpy_carries_jax_dicts(cases):
     (_, _, jstate, jparams, _), _ = cases
     for d in (jstate, jparams):
-        t64 = from_numpy(d)
-        t32 = from_numpy(d, dtype=torch.float32)
+        t64 = from_numpy(d, "cpu")
+        t32 = from_numpy(d, "cpu", dtype=torch.float32)
         for k, v in d.items():
             assert t64[k].dtype == torch.float64
             assert t64[k].device.type == "cpu"
@@ -80,3 +80,26 @@ def test_cuda_device_raises_without_cuda(cases, monkeypatch):
         from_numpy(jstate, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         Simulator(tmodel, jstate, jparams, device="cuda")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device the entry points ask for the card: without one they
+    raise and say how to ask for the CPU; ``device="cpu"`` runs."""
+    import jutul.jl_tpu_torch as tpkg
+    from jutul.jl_tpu_torch.ops.stencil_wells import BorderedStencilModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, state0, params, forces = chip_smoke.build_flagship(4, 4, 2)
+    wmodel, *_ = chip_smoke.build_well_flagship(4, 4, 2)
+    for call in (lambda: tpkg.Simulator(model, state0, params),
+                 lambda: tpkg.simulate(state0, model, [60.0],
+                                       parameters=params),
+                 lambda: from_numpy(state0),
+                 lambda: BorderedStencilModel(tpkg.compile_model(wmodel))):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    sim = tpkg.Simulator(model, state0, params, device="cpu")
+    assert sim.device.type == "cpu" and sim.dtype == torch.float64
+    res = sim.simulate([60.0], forces=forces, info_level=-1)
+    assert res.reports[0]["success"]
+    assert np.all(np.isfinite(res.states[-1]["Pressure"]))

@@ -161,10 +161,83 @@ def test_wrappers_raise_on_mismatch(dev):
         mv(torch.zeros(5, 2, dtype=torch.float64, device=dev))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_matches_plain_and_k2_chain(dev, dtype):
+    diag, plus, minus = _random_matrix(1, 1, dtype, dev, seed=3)
+    A = ScalarStencil(L, diag.reshape(-1).abs() + 6.0,
+                      {a: -v[0, 0].abs() for a, v in plus.items()},
+                      {a: -v[0, 0].abs() for a, v in minus.items()})
+    k2 = SK.ScalarLevel(A)
+    k5 = SK.ScalarLevel(A, phase_kernel=True)
+    n = A.n
+    b = torch.randn(n, dtype=dtype, device=dev)
+    u = torch.randn(n, dtype=dtype, device=dev)
+    for u0 in (None, u):
+        for n_sweep in range(0 if u0 is not None else 1, 6):
+            for res in (False, True):
+                if SK._phase_depth(u0, n_sweep, res) > SK.PHASE_MAX_DEPTH:
+                    with pytest.raises(ValueError):
+                        SK.scalar_jacobi_phase(k5.coef, b, u0, 0.8, n_sweep,
+                                               res, L)
+                    continue
+                before = SK.scalar_jacobi_phase.launches
+                got = SK.scalar_jacobi_phase(k5.coef, b, u0, 0.8, n_sweep,
+                                             res, L)
+                assert SK.scalar_jacobi_phase.launches == before + 1
+                ref = SK.scalar_jacobi_phase_plain(k5.coef, b, u0, 0.8,
+                                                   n_sweep, res, L)
+                for g, r in zip(got, ref):
+                    if r is not None:
+                        assert _rel(g, r) <= TOL[dtype], (n_sweep, res)
+    # the level hooks against the K2 chain (the same arithmetic)
+    for n_sweep in (2, 12):
+        assert _rel(k5.sweep_n(b, 0.8, n_sweep),
+                    k2.sweep_n(b, 0.8, n_sweep)) <= TOL[dtype]
+        assert _rel(torch.stack(k5.presmooth_residual(b, 0.8, n_sweep)),
+                    torch.stack(k2.presmooth_residual(b, 0.8, n_sweep))) \
+            <= TOL[dtype]
+        assert _rel(k5.postsmooth(u, b, 0.8, n_sweep),
+                    k2.postsmooth(u, b, 0.8, n_sweep)) <= TOL[dtype]
+
+
+def _krylov_vectors(n, dtype, dev, count, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(n, generator=g, dtype=dtype).to(dev)
+            for _ in range(count)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [700, 300_001])
+def test_k6_k7_match_plain_and_repeat_bitwise(dev, dtype, n):
+    from jutul.jl_tpu_torch.ops.cuda import krylov_kernels as KK
+
+    rhat, r, v = _krylov_vectors(n, dtype, dev, 3, seed=4)
+    rho = torch.tensor(0.7, dtype=dtype, device=dev)
+    before = KK.fused_alpha_s.launches
+    s, alpha = KK.fused_alpha_s(rhat, r, v, rho)
+    assert KK.fused_alpha_s.launches == before + 1
+    s_p, alpha_p = KK.fused_alpha_s_plain(rhat, r, v, rho)
+    assert _rel(s, s_p) <= TOL[dtype] and _rel(alpha, alpha_p) <= TOL[dtype]
+    s2, alpha2 = KK.fused_alpha_s(rhat, r, v, rho)
+    assert torch.equal(s, s2) and torch.equal(alpha, alpha2)
+
+    vecs = _krylov_vectors(n, dtype, dev, 8, seed=5)
+    args = (*vecs, rho, alpha)
+    before = KK.fused_omega_update.launches
+    got = KK.fused_omega_update(*args)
+    assert KK.fused_omega_update.launches == before + 1
+    ref = KK.fused_omega_update_plain(*args)
+    for name, g, w in zip(("x", "r", "p", "omega", "rho", "res2"), got, ref):
+        assert g.ndim == w.ndim and _rel(g, w) <= TOL[dtype], name
+    again = KK.fused_omega_update(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_launch_counters_reset(dev):
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
     test_k1_matches_plain(dev, torch.float32, 2, 2)
     assert kernels.launch_counts() == {
         "stencil_matvec": 1, "scalar_jacobi": 0, "darcy_flux_jacobian": 0,
-        "scalar_chebyshev": 0}
+        "scalar_chebyshev": 0, "scalar_jacobi_phase": 0, "fused_alpha_s": 0,
+        "fused_omega_update": 0}

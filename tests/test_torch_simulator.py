@@ -65,7 +65,8 @@ def runs():
                          **_config(jpkg))
 
     tmodel, tstate, tparams, tforces = chip_smoke.build_flagship(*DIMS)
-    tsim = tpkg.Simulator(tmodel, tstate, tparams, use_stencil=True)
+    tsim = tpkg.Simulator(tmodel, tstate, tparams, use_stencil=True,
+                           device="cpu")
     tres = tsim.simulate([DT] * N_STEP,
                          forces=chip_smoke.rate_schedule(tforces, N_STEP),
                          **_config(tpkg))

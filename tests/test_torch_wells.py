@@ -104,10 +104,10 @@ def assembled(cases):
     jeng = JB(jcompile(jm))
     rj, Bj = jax.jit(lambda s, s0: jeng.assemble(s, s0, DT, jf)[:2])(
         jmerge(to_j(st), to_j(jp)), jmerge(to_j(js0), to_j(jp)))
-    eng = BorderedStencilModel(tpkg.compile_model(tm))
+    eng = BorderedStencilModel(tpkg.compile_model(tm), "cpu")
     rt, Bt, _ = eng.assemble(
-        tmerge(tpkg.from_numpy(st), tpkg.from_numpy(tp)),
-        tmerge(tpkg.from_numpy(ts0), tpkg.from_numpy(tp)), DT, tf)
+        tmerge(tpkg.from_numpy(st, "cpu"), tpkg.from_numpy(tp, "cpu")),
+        tmerge(tpkg.from_numpy(ts0, "cpu"), tpkg.from_numpy(tp, "cpu")), DT, tf)
     return (rj, Bj), (rt, Bt), eng
 
 
@@ -145,8 +145,8 @@ def test_pressure_bc_apply_and_diagonal_jacobian(cases):
     jc, tc = jcompile(jm), tpkg.compile_model(tm)
     to_j = lambda d: {k: jnp.asarray(v) for k, v in d.items()}  # noqa: E731
     sj = jc.evaluate_secondaries(jmerge(to_j(st), to_j(jp)))
-    stt = tc.evaluate_secondaries(tmerge(tpkg.from_numpy(st),
-                                         tpkg.from_numpy(tp)))
+    stt = tc.evaluate_secondaries(tmerge(tpkg.from_numpy(st, "cpu"),
+                                         tpkg.from_numpy(tp, "cpu")))
     eq_j = jm.equations["mass_conservation"]
     eq_t = tm.equations["mass_conservation"]
     r0 = np.random.default_rng(1).normal(size=(tc.n_cells, 2))
@@ -207,14 +207,14 @@ def test_lattice_assembly_with_pressure_bc_matches_jax():
                 jmerge(to_j(state0), to_j(params)))
         else:
             r, A, _ = sc.assemble(
-                tmerge(tpkg.from_numpy(state), tpkg.from_numpy(params)),
-                tmerge(tpkg.from_numpy(state0), tpkg.from_numpy(params)),
+                tmerge(tpkg.from_numpy(state, "cpu"), tpkg.from_numpy(params, "cpu")),
+                tmerge(tpkg.from_numpy(state0, "cpu"), tpkg.from_numpy(params, "cpu")),
                 DT, forces)
         out[name] = (np.asarray(r), np.asarray(A.diag))
         if name == "torch":  # the BC's blocks are on the diagonal
             _, A0, _ = sc.assemble(
-                tmerge(tpkg.from_numpy(state), tpkg.from_numpy(params)),
-                tmerge(tpkg.from_numpy(state0), tpkg.from_numpy(params)), DT)
+                tmerge(tpkg.from_numpy(state, "cpu"), tpkg.from_numpy(params, "cpu")),
+                tmerge(tpkg.from_numpy(state0, "cpu"), tpkg.from_numpy(params, "cpu")), DT)
             moved = np.flatnonzero(np.any(np.asarray(A.diag - A0.diag) != 0,
                                           axis=(0, 1)))
             np.testing.assert_array_equal(moved, cells)
@@ -323,7 +323,7 @@ def test_simulator_dispatches_wells_to_bordered_engine(cases):
     from jutul.jl_tpu_torch.ops.stencil_wells import BorderedStencilModel
 
     tm, _, tp, ts0, _ = cases["jutul.jl_tpu_torch"]
-    sim = tpkg.Simulator(tm, ts0, tp, use_stencil=True)
+    sim = tpkg.Simulator(tm, ts0, tp, use_stencil=True, device="cpu")
     assert isinstance(sim._stencil, BorderedStencilModel)
     assert isinstance(sim._stencil.lattice, StencilCompiledModel)
     assert sim._stencil.lattice.L == (4, 5, 6)

@@ -71,7 +71,8 @@ def runs(request):
                          **_config(jpkg, smoother))
 
     tmodel, tstate, tparams, tforces = chip_smoke.build_well_flagship(*DIMS)
-    tsim = tpkg.Simulator(tmodel, tstate, tparams, use_stencil=True)
+    tsim = tpkg.Simulator(tmodel, tstate, tparams, use_stencil=True,
+                           device="cpu")
     tres = tsim.simulate([DT] * N_STEP,
                          forces=chip_smoke.rate_schedule(tforces, N_STEP),
                          **_config(tpkg, smoother))
