@@ -14,10 +14,13 @@ failure (nothing is caught, so any failure exits non-zero):
    events — of eager calls, and of the kernel's device work alone in a
    CUDA-graph replay (K1 block-stencil SpMV, K2 Jacobi/residual pass on every GMG
    level, K3 Darcy flux + Jacobian on every axis incl. cells at S=0, S=1,
+   per axis and as the three-axis lattice launch, which must equal the
+   three per-axis launches bit for bit and is timed beside them in turns;
    K4 Chebyshev step — every mode and the 2- and 12-step level hooks — on
    every GMG level of the well-model flagship's pressure hierarchy; K5
-   whole Jacobi phases on every level of its Jacobi hierarchy, also against
-   the K2 chain; K6/K7 fused BiCGStab body at the Schur system's 2,097,152
+   whole Jacobi phases on every level of its Jacobi hierarchy, which must
+   equal the K2 chain bit for bit and is timed per level and hook beside
+   it; K6/K7 fused BiCGStab body at the Schur system's 2,097,152
    values, also against a second call, bitwise); beside each, its bound
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s, the larger) and, for
    K1, one cuSPARSE SpMV (torch.sparse.mm) of the same matrix in CSR;
@@ -25,14 +28,15 @@ failure (nothing is caught, so any failure exits non-zero):
    source-term slice: the bench flagship with source-term wells at
    256x64x64 = 1,048,576 cells in float32 through
    ``Simulator(use_stencil=True, device="cuda").simulate`` with the bench's
-   solver settings (Jacobi GMG), 3 report steps of 6 h; K1, K2 and K3 must
-   launch in this run and the final state be finite;
+   solver settings (Jacobi GMG), 3 report steps of 6 h; K1, K2 and the
+   lattice K3 must launch in this run and the final state be finite;
 5. its f64 verify: the final accepted ministep's residual re-assembled in
    float64 on the card; CNV and MB within 10x their tolerances;
 6. wells slice: the bench flagship with its 5 well models (1,048,576
    lattice + 5 wellbore cells, bordered stencil + Schur-eliminated wells)
    with the Chebyshev GMG smoother, otherwise as phase 4; K1, K2 (the
-   residual after a Chebyshev presmooth), K3 and K4 must launch;
+   residual after a Chebyshev presmooth), K3 (lattice and, for the
+   perforations, per axis) and K4 must launch;
 7. its f64 verify over all lattice and wellbore rows, as phase 5;
 8. wells-jacobi-fused slice: the same well flagship with the bench's
    default Jacobi smoother and both opt-ins of bench.py's BENCH_FUSED_BODY=1
@@ -91,6 +95,11 @@ KERNEL_INFO = {
                       "jutul/jl_tpu/ops/pallas/stencil_kernels.py:555"),
     "darcy_flux_jacobian": ("jutul/jl_tpu_torch/csrc/assembly_kernels.cu",
                             "jutul/jl_tpu/ops/pallas/assembly_kernels.py:57"),
+    "darcy_flux_jacobian_lattice": (
+        "jutul/jl_tpu_torch/csrc/assembly_kernels.cu",
+        "jutul/jl_tpu/ops/pallas/assembly_kernels.py:57 (B5 _kernel_axis, "
+        "called per axis by axis_flux_jacobian :105): the three axes in one "
+        "launch"),
     "scalar_chebyshev": (
         "jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
         "jutul/jl_tpu/ops/pallas/stencil_kernels.py:431 (B6 "
@@ -106,11 +115,14 @@ KERNEL_INFO = {
                            "jutul/jl_tpu/ops/pallas/krylov_kernels.py:130 "
                            "(B11 _kernel_omega_update)"),
 }
-SLICE_KERNELS = {  # kernels each slice must launch
-    "srcwells": ("stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian"),
+SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
+    # the well perforations; the lattice's three axes go through one launch)
+    "srcwells": ("stencil_matvec", "scalar_jacobi",
+                 "darcy_flux_jacobian_lattice"),
     "wells": ("stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian",
-              "scalar_chebyshev"),
+              "darcy_flux_jacobian_lattice", "scalar_chebyshev"),
     "wells-jacobi-fused": ("stencil_matvec", "darcy_flux_jacobian",
+                           "darcy_flux_jacobian_lattice",
                            "scalar_jacobi_phase", "fused_alpha_s",
                            "fused_omega_update"),
 }
@@ -121,6 +133,7 @@ SLICE_FORBIDDEN = {  # kernels a slice must never launch
 MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
               "scalar_jacobi": "srcwells",
               "darcy_flux_jacobian": "wells-jacobi-fused",
+              "darcy_flux_jacobian_lattice": "wells-jacobi-fused",
               "scalar_chebyshev": "wells",
               "scalar_jacobi_phase": "wells-jacobi-fused",
               "fused_alpha_s": "wells-jacobi-fused",
@@ -471,27 +484,52 @@ def phase_kernels(case, records):
         U = comp.get_dofs(full).contiguous()
         faces = comp._face_entries(full)
         rec = records["darcy_flux_jacobian"]
-        calls = []
+        rec_l = records["darcy_flux_jacobian_lattice"]
+        calls, fps = [], []
         for a in range(3):
             fs = sc._axis_face_state(faces, a)
-            args = (sc.form, U, *(fs[nm] for nm in sc.form.face_params),
-                    L, a)
+            fps.append(tuple(fs[nm] for nm in sc.form.face_params))
+            args = (sc.form, U, *fps[a], L, a)
             rec.compare(dtype, f"K3 axis {a}", AK.darcy_flux_jacobian(*args),
                         AK.darcy_flux_jacobian_plain(*args))
             calls.append(args)
+        lat = AK.darcy_flux_jacobian_lattice(sc.form, U, fps, L)
+        lat_plain = AK.darcy_flux_jacobian_lattice_plain(sc.form, U, fps, L)
+        for a in range(3):
+            rec_l.compare(dtype, f"K3 lattice axis {a}", lat[a], lat_plain[a])
+            if not torch.equal(lat[a], AK.darcy_flux_jacobian(*calls[a])):
+                raise RuntimeError(f"K3 lattice axis {a} [{dtype}]: differs "
+                                   "from the per-axis kernel")
+        log(f"  K3 lattice = three per-axis launches, bitwise [{dtype}]")
         if dtype == torch.float32:
-            outs = [AK.darcy_flux_jacobian(*c) for c in calls]
-            faces_n = sum(o.shape[-1] for o in outs)
+            faces_n = sum(o.shape[-1] for o in lat)
             # U once, each axis's face parameters, the 3 outputs; ~150
             # flops per face (the kernel source's count)
-            rec.set_work([U] + [t for c in calls for t in c[2:-2]] + outs,
-                         150 * faces_n)
-            rec.ms = cuda_ms(
-                lambda: [AK.darcy_flux_jacobian(*c) for c in calls])
-            rec.graph_ms = graph_ms(
-                lambda: [AK.darcy_flux_jacobian(*c) for c in calls])
+            work = [U] + [t for fp in fps for t in fp] + lat
+            rec.set_work(work, 150 * faces_n)
+            rec_l.set_work(work, 150 * faces_n)
+            per_axis = lambda: [AK.darcy_flux_jacobian(*c) for c in calls]  # noqa: E731
+            lattice = lambda: AK.darcy_flux_jacobian_lattice(  # noqa: E731
+                sc.form, U, fps, L)
+            # in turns within this call: per-axis, lattice, lattice, per-axis
+            turns = [graph_ms(per_axis), graph_ms(lattice), graph_ms(lattice),
+                     graph_ms(per_axis)]
+            rec.graph_ms = (turns[0] + turns[3]) / 2
+            rec_l.graph_ms = (turns[1] + turns[2]) / 2
+            rec_l.extra["graph_ms_turns_per_axis_lattice_lattice_per_axis"] = \
+                turns
+            rec_l.extra["per_axis_3_calls_graph_ms"] = rec.graph_ms
+            rec.extra["timed"] = "the lattice's three axes, one call each"
+            rec.ms = cuda_ms(per_axis)
+            rec_l.ms = cuda_ms(lattice)
             rec.plain_ms = cuda_ms(
-                lambda: [AK.darcy_flux_jacobian_plain(*c) for c in calls])
+                lambda: [AK.darcy_flux_jacobian_plain(*c) for c in calls],
+                reps=5)
+            rec_l.plain_ms = cuda_ms(
+                lambda: AK.darcy_flux_jacobian_lattice_plain(sc.form, U, fps,
+                                                             L), reps=5)
+            log(f"  K3 graph ms: per-axis x3 {rec.graph_ms:.4f}, lattice "
+                f"{rec_l.graph_ms:.4f} (turns {turns})")
 
         _, A, _ = sc.assemble(merge_state(st, pr), merge_state(st, pr), DT)
         rec = records["stencil_matvec"]
@@ -638,13 +676,58 @@ def phase_kernels_cheby(case, records):
         torch.cuda.empty_cache()
 
 
+def _phase_level_rows(pst, om, gen):
+    """K5 on every level of a Jacobi hierarchy, float32, timed as the
+    V-cycle calls it (fine and mid: presmooth+residual and postsmooth at
+    2 sweeps; coarse: the 12-sweep solve in all its launches) beside the
+    K2 chain of the same hook, in turns (K5, K2, K2, K5) in this call; each
+    with its bound (the hook's bytes: 7 coefficient streams and b, u in
+    where given; u, r out where made) and the planner's z-chunk depth per
+    launch."""
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+
+    rows = []
+    for op, lv in zip(pst.ops, pst.mvs):
+        k2 = SK.ScalarLevel(op)
+        n = int(np.prod(lv.L))
+        b, u = (torch.randn(n, generator=gen, device="cuda",
+                            dtype=torch.float32) for _ in range(2))
+        if lv is pst.mvs[-1]:
+            hooks = [("sweep_n x12", lambda l_: l_.sweep_n(b, om, 12), 9,
+                      [(5, True, False), (4, False, False),
+                       (3, False, False)])]
+        else:
+            hooks = [("presmooth+residual x2",
+                      lambda l_: l_.presmooth_residual(b, om, 2), 10,
+                      [(2, True, True)]),
+                     ("postsmooth x2", lambda l_: l_.postsmooth(u, b, om, 2),
+                      10, [(2, False, False)])]
+        for what, hook, streams, launches in hooks:
+            before = SK.scalar_jacobi_phase.launches
+            hook(lv)
+            n_launch = SK.scalar_jacobi_phase.launches - before
+            turns = [graph_ms(lambda: hook(lv)), graph_ms(lambda: hook(k2)),
+                     graph_ms(lambda: hook(k2)), graph_ms(lambda: hook(lv))]
+            row = {"L": list(lv.L), "hook": what, "k5_launches": n_launch,
+                   "k5_graph_ms": (turns[0] + turns[3]) / 2,
+                   "k2_chain_graph_ms": (turns[1] + turns[2]) / 2,
+                   "bound_ms": streams * n * 4 / HBM_BYTES_PER_S * 1e3,
+                   "plans_tz_blocks_per_sm": [
+                       SK.phase_plan(torch.float32, *p, lv.L)
+                       for p in launches]}
+            row["share_of_bound"] = row["bound_ms"] / row["k5_graph_ms"]
+            log(f"  K5 {lv.L} {what}: " + json.dumps(row))
+            rows.append(row)
+    return rows
+
+
 def phase_kernels_phase(case, records):
     """K5 (whole Jacobi phases) on every level of the well flagship's
     Jacobi GMG hierarchy, against its plain version (K2's plain loop) and
-    against the K2 chain on the card (the same arithmetic: the difference
-    is reported, bitwise equality expected), for every hook at 2 and 12
-    sweeps; timed on the fine level's presmooth + residual beside the
-    three-launch K2 chain it replaces."""
+    against the K2 chain on the card (the same arithmetic: bitwise
+    equality required), for every hook at 2 and 12 sweeps; timed on every
+    level beside the K2 chain (``_phase_level_rows``), the fine level's
+    presmooth + residual also eagerly."""
     from jutul.jl_tpu_torch import compile_model, from_numpy
     from jutul.jl_tpu_torch.models.setup import merge_state
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
@@ -655,7 +738,6 @@ def phase_kernels_phase(case, records):
     eng = BorderedStencilModel(compile_model(model), "cuda")
     rec = records["scalar_jacobi_phase"]
     gen = torch.Generator(device="cuda").manual_seed(3)
-    vs_k2 = 0.0
     for dtype in (torch.float32, torch.float64):
         full = merge_state(from_numpy(state0, "cuda", dtype),
                            from_numpy(params, "cuda", dtype))
@@ -688,24 +770,27 @@ def phase_kernels_phase(case, records):
                     got = hook(lv)
                     rec.compare(dtype, f"K5 {lv.L} {what} x{n_sweep}", got,
                                 plain())
-                    vs_k2 = max(vs_k2, float((got - hook(k2)).abs().max()))
+                    if not torch.equal(got, hook(k2)):
+                        raise RuntimeError(
+                            f"K5 {lv.L} {what} x{n_sweep} [{dtype}]: differs "
+                            "from the K2 chain")
             if dtype == torch.float32 and lv is pst.mvs[0]:
                 uo = torch.empty_like(b)
                 rec.set_work([lv.coef, b, uo, uo], (2 + 2 * 16) * n)
                 rec.ms = cuda_ms(lambda: lv.presmooth_residual(b, om, 2))
-                rec.graph_ms = graph_ms(
-                    lambda: lv.presmooth_residual(b, om, 2))
                 rec.plain_ms = cuda_ms(lambda: SK.scalar_jacobi_phase_plain(
                     lv.coef, b, None, om, 2, True, lv.L))
                 rec.extra["k2_chain_ms"] = cuda_ms(
                     lambda: k2.presmooth_residual(b, om, 2))
-                rec.extra["k2_chain_graph_ms"] = graph_ms(
-                    lambda: k2.presmooth_residual(b, om, 2))
                 rec.extra["timed"] = "presmooth_residual(n_sweep=2), fine level"
+        if dtype == torch.float32:
+            rec.extra["levels"] = _phase_level_rows(pst, om, gen)
+            fine = rec.extra["levels"][0]
+            rec.graph_ms = fine["k5_graph_ms"]
+            rec.extra["k2_chain_graph_ms"] = fine["k2_chain_graph_ms"]
         del B, pst
         torch.cuda.empty_cache()
-    rec.extra["max_abs_diff_vs_k2_chain"] = vs_k2
-    log(f"  K5 vs the K2 chain on the card: max |diff| {vs_k2:.3e}")
+    log("  K5 = the K2 chain on the card, bitwise, on every level and hook")
 
 
 def phase_kernels_krylov(records):

@@ -4,7 +4,10 @@ Each wrapper launches its kernel on CUDA tensors, runs its plain PyTorch
 version on CPU tensors, and counts its launches in ``<wrapper>.launches``.
 """
 
-from .assembly_kernels import darcy_flux_jacobian  # noqa: F401
+from .assembly_kernels import (  # noqa: F401
+    darcy_flux_jacobian,
+    darcy_flux_jacobian_lattice,
+)
 from .krylov_kernels import fused_alpha_s, fused_omega_update  # noqa: F401
 from .stencil_kernels import (  # noqa: F401
     ScalarLevel,
@@ -19,6 +22,7 @@ KERNELS = {
     "stencil_matvec": stencil_matvec,
     "scalar_jacobi": scalar_jacobi,
     "darcy_flux_jacobian": darcy_flux_jacobian,
+    "darcy_flux_jacobian_lattice": darcy_flux_jacobian_lattice,
     "scalar_chebyshev": scalar_chebyshev,
     "scalar_jacobi_phase": scalar_jacobi_phase,
     "fused_alpha_s": fused_alpha_s,

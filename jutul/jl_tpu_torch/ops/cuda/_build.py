@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources are ``jutul/jl_tpu_torch/csrc/*.cu``: CUDA C++ with a plain C
-interface, compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library and loaded with ``ctypes``. The library is built at first use into
+interface, compiled by ``nvcc`` for Hopper (``sm_90a``), one process per
+source started together, linked into one shared library and loaded with
+``ctypes``. The library is built at first use into
 ``jutul/jl_tpu_torch/build/`` under a name keyed on a hash of the sources
 and flags, so an edited kernel rebuilds and an unchanged one loads at once.
 Nothing here runs at import.
@@ -38,8 +39,10 @@ _SIGNATURES = {
     "jt_scalar_chebyshev": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P],
     "jt_darcy_flux_jacobian": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "jt_darcy_flux_jacobian_lattice": [_P] * 10 + [_I, _I, _I, _P, _P],
     "jt_scalar_jacobi_phase": [_P, _P, _P, _P, _P, _D, _I, _I, _I, _I, _I,
-                               _P],
+                               _I, _P],
+    "jt_scalar_jacobi_phase_plan": [_I, _I, _I, _I, _I, _I, _P],
     "jt_fused_alpha_s": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "jt_fused_omega_update": [_P] * 15 + [_I, _I, _P],
 }
@@ -79,6 +82,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libjutul_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile_and_link(target: Path) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link
+    into ``target``. Returns the compiler output; raises on any failure."""
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in _sources():
+        obj = target.with_name(f"{target.name}.{src.stem}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    log, failed = "", []
+    for src, proc in zip(_sources(), procs):
+        out, _ = proc.communicate()
+        log += f"== {src.name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{log}")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(target), *(str(o) for o in objs)],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
+
+
 @functools.cache
 def load_library() -> KernelLibrary:
     """The kernel library, built first if no up-to-date build exists.
@@ -88,14 +124,9 @@ def load_library() -> KernelLibrary:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile_and_link(tmp)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, out)  # atomic: a concurrent process sees all or none
     cdll = ctypes.CDLL(str(out))
     for base, argtypes in _SIGNATURES.items():

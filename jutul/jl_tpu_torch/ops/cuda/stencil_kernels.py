@@ -30,7 +30,10 @@ the kernel or raises — there is no fallback.
   (up to ``PHASE_MAX_DEPTH`` stencil applications: the sweeps from zero
   or from u, plus an optional residual) in one launch, by 2.5-D
   z-marching with a register wavefront, so the coefficients stream once
-  per phase. Its plain version is K2's plain loop; it keeps K2's per-cell
+  per phase. A ring of plane stages in shared memory, filled by
+  ``cp.async`` several planes ahead, hides the per-step HBM latency, and
+  the z-chunk depth is chosen per level (``phase_plan``) for the least
+  work on the busiest SM. Its plain version is K2's plain loop; it keeps K2's per-cell
   arithmetic. ``ScalarLevel(phase_kernel=True)`` runs its Jacobi hooks on
   it (``GMG.slab_double_buffer``).
 
@@ -41,6 +44,8 @@ by bounds checks — no lane padding, no wrapped reads.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -264,6 +269,13 @@ def scalar_jacobi_phase(coef, b, u, omega: float, n_sweep: int,
     if _is_cpu(b):
         return scalar_jacobi_phase_plain(coef, b, u, omega, n_sweep,
                                          emit_residual, L)
+    return _launch_phase(coef, b, u, omega, n_sweep, emit_residual, L)
+
+
+def _launch_phase(coef, b, u, omega, n_sweep, emit_residual, L, tz=0):
+    """K5's launch on CUDA tensors. ``tz`` pins the z-chunk depth the
+    kernel's planner otherwise picks (0): the card tests use it to reach
+    ragged chunkings."""
     nz, ny, nx = L
     n = nz * ny * nx
     depth = _phase_depth(u, n_sweep, emit_residual)
@@ -290,10 +302,22 @@ def scalar_jacobi_phase(coef, b, u, omega: float, n_sweep: int,
     check(lib.fn("jt_scalar_jacobi_phase", dtype_suffix(b))(
         coef.data_ptr(), b.data_ptr(), u_ptr, u_out.data_ptr(),
         None if r_out is None else r_out.data_ptr(), float(omega),
-        int(n_sweep), int(u is None), nz, ny, nx, stream_handle()),
+        int(n_sweep), int(u is None), nz, ny, nx, int(tz), stream_handle()),
         "scalar_jacobi_phase")
     scalar_jacobi_phase.launches += 1
     return u_out, r_out
+
+
+def phase_plan(dtype, n_sweep: int, from_zero: bool, emit_residual: bool, L):
+    """(z-chunk depth tz, blocks, resident blocks per SM) of the plan K5's
+    planner picks for a phase on the card (csrc ``choose_phase_plan``), for
+    reports."""
+    out = (ctypes.c_int * 3)()
+    check(load_library().fn("jt_scalar_jacobi_phase_plan",
+                            dtype_suffix(torch.empty(0, dtype=dtype)))(
+        int(n_sweep), int(from_zero), int(emit_residual), *L,
+        ctypes.cast(out, ctypes.c_void_p)), "phase_plan")
+    return tuple(out)
 
 
 scalar_jacobi_phase.launches = 0

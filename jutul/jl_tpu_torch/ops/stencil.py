@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch.func import jvp
 
 from ..models.equations import AccumulationContribution, FaceFluxContribution
-from .cuda import ScalarLevel, StencilMatvec, darcy_flux_jacobian
+from .cuda import ScalarLevel, StencilMatvec, darcy_flux_jacobian_lattice
 from .cuda.stencil_kernels import AXIS_SLICES
 
 # F.pad widths (x0, x1, y0, y1, z0, z1) placing a face lattice onto the
@@ -154,8 +154,8 @@ class StencilCompiledModel:
         """Residual (n, neq) and StencilMatrix from secondary-evaluated
         states — the fused-form assembly of the JAX package's
         ``_assemble_fused``: the accumulation term in torch, then one
-        flux + Jacobian kernel call per axis, then the forces' residuals
-        and state-dependent diagonal blocks. ``acc``: this lattice's
+        flux + Jacobian kernel call for the three axes, then the forces'
+        residuals and state-dependent diagonal blocks. ``acc``: this lattice's
         ``accumulation`` result when the caller has it already (the
         bordered engine evaluates lattice and wellbore cells at once)."""
         comp = self.comp
@@ -163,20 +163,22 @@ class StencilCompiledModel:
         r, diag, U = acc if acc is not None else self.accumulation(
             state, state0, dt)
 
-        # --- flux + Jacobian blocks: one fused kernel per axis --------
+        # --- flux + Jacobian blocks: one fused kernel for all axes ---
         plus, minus = {}, {}
         r_lat = r.reshape((neq,) + self.L)
         diag_lat = diag.reshape((neq, ndof) + self.L)
         if self.flux_con is not None:
             face_state = comp._face_entries(state)
+            outs = darcy_flux_jacobian_lattice(
+                self.form, U,
+                [tuple(self._axis_face_state(face_state, a)[nm]
+                       for nm in self.form.face_params) for a in range(3)],
+                self.L)
             for a in range(3):
                 fl = self.face_lat[a]
                 if fl is None:
                     continue
-                fs = self._axis_face_state(face_state, a)
-                out = darcy_flux_jacobian(
-                    self.form, U, *(fs[nm] for nm in self.form.face_params),
-                    self.L, a)
+                out = outs[a]
                 F_a = out[:neq].reshape((neq,) + fl)
                 JL = out[neq:neq + ndof * neq].reshape(
                     (ndof, neq) + fl).transpose(0, 1)  # (neq, ndof, *fl)

@@ -200,6 +200,83 @@ def test_k5_matches_plain_and_k2_chain(dev, dtype):
                     k2.postsmooth(u, b, 0.8, n_sweep)) <= TOL[dtype]
 
 
+def _k2_chain(coef, b, u, omega, n_sweep, residual, L_):
+    """The phase as a chain of K2 launches (the arithmetic K5 keeps)."""
+    if u is None:
+        u = SK.scalar_jacobi(coef, b, None, omega, SK.MODE_INIT, L_)
+        n_sweep -= 1
+    for _ in range(n_sweep):
+        u = SK.scalar_jacobi(coef, b, u, omega, SK.MODE_SMOOTH, L_)
+    r = SK.scalar_jacobi(coef, b, u, 0.0, SK.MODE_RESIDUAL, L_) \
+        if residual else None
+    return u, r
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L_", [(9, 13, 37), (16, 16, 64)])
+def test_k5_equals_k2_chain_bitwise_at_every_depth_and_tiling(dev, dtype, L_):
+    """Every depth 0-4, from zero and from u, with and without the
+    residual, under the planner's z-chunk depth and under pinned ones that
+    do not divide nz: equal to the K2 chain bit for bit."""
+    g = torch.Generator().manual_seed(7)
+    nz, ny, nx = L_
+    n = nz * ny * nx
+    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype)  # noqa: E731
+    A = ScalarStencil(L_, (rnd(n).abs() + 6.0).to(dev),
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()},
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()})
+    coef = SK.ScalarLevel(A).coef
+    b, u = rnd(n).to(dev), rnd(n).to(dev)
+    for u0 in (None, u):
+        for n_sweep in range(0 if u0 is not None else 1, 6):
+            for res in (False, True):
+                if SK._phase_depth(u0, n_sweep, res) > SK.PHASE_MAX_DEPTH:
+                    continue
+                want = _k2_chain(coef, b, u0, 0.8, n_sweep, res, L_)
+                for tz in (0, 1, 3, 5, 7, nz):
+                    got = SK._launch_phase(coef, b, u0, 0.8, n_sweep, res, L_,
+                                           tz)
+                    for gv, wv in zip(got, want):
+                        assert (gv is None) == (wv is None)
+                        if wv is not None:
+                            assert torch.equal(gv, wv), (u0 is None, n_sweep,
+                                                         res, tz)
+    with pytest.raises(RuntimeError):  # a chunk depth below 1 is refused
+        SK._launch_phase(coef, b, None, 0.8, 2, True, L_, -1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dims", [(37, 13, 9), (63, 15, 4)])
+def test_k3_lattice_equals_per_axis_bitwise(dev, dtype, dims):
+    """The three-axis launch against three per-axis launches, bit for bit,
+    at ragged extents with saturations exactly on 0 and 1; and against
+    the plain version within TOL."""
+    import chip_smoke
+
+    model, state, params, _ = chip_smoke.build_flagship(*dims)
+    s = state["Saturations"].copy()
+    s[::7] = (0.0, 1.0)
+    s[::5] = (1.0, 0.0)
+    state = {**state, "Saturations": s}
+    sc = StencilCompiledModel(compile_model(model))
+    full = sc.comp.evaluate_secondaries(merge_state(
+        from_numpy(state, dev, dtype), from_numpy(params, dev, dtype)))
+    U = sc.comp.get_dofs(full).contiguous()
+    faces = sc.comp._face_entries(full)
+    fps = [tuple(sc._axis_face_state(faces, a)[nm]
+                 for nm in sc.form.face_params) for a in range(3)]
+    before = AK.darcy_flux_jacobian_lattice.launches
+    got = AK.darcy_flux_jacobian_lattice(sc.form, U, fps, sc.L)
+    assert AK.darcy_flux_jacobian_lattice.launches == before + 1
+    ref = AK.darcy_flux_jacobian_lattice_plain(sc.form, U, fps, sc.L)
+    for a in range(3):
+        per_axis = AK.darcy_flux_jacobian(sc.form, U, *fps[a], sc.L, a)
+        assert torch.equal(got[a], per_axis), a
+        for q in range(10):
+            assert _rel(got[a][q], ref[a][q]) <= TOL[dtype], (a, q)
+
+
 def _krylov_vectors(n, dtype, dev, count, seed):
     g = torch.Generator().manual_seed(seed)
     return [torch.randn(n, generator=g, dtype=dtype).to(dev)
@@ -239,5 +316,5 @@ def test_launch_counters_reset(dev):
     test_k1_matches_plain(dev, torch.float32, 2, 2)
     assert kernels.launch_counts() == {
         "stencil_matvec": 1, "scalar_jacobi": 0, "darcy_flux_jacobian": 0,
-        "scalar_chebyshev": 0, "scalar_jacobi_phase": 0, "fused_alpha_s": 0,
-        "fused_omega_update": 0}
+        "darcy_flux_jacobian_lattice": 0, "scalar_chebyshev": 0,
+        "scalar_jacobi_phase": 0, "fused_alpha_s": 0, "fused_omega_update": 0}
