@@ -43,6 +43,21 @@ failure (nothing is caught, so any failure exits non-zero):
    BENCH_GMG_DB=1 (``StencilKrylovSolver(use_fused_body=True)``,
    ``gmg.slab_double_buffer = True``); K1, K3, K5, K6 and K7 must launch,
    K2 and K4 never, K6 and K7 once per linear iteration; its f64 verify;
+8b. the schedule path, as bench.py's run_product runs it
+   (``sim.lower_schedule(...)`` then ``post(*run(*args))``:
+   check-before-solve Newton, Eisenstat-Walker forcing, ``pick_next`` dt
+   selection), on the well flagship at full width, 3 report steps:
+   ``wells-product`` (Jacobi GMG on the K2 chain, plain BiCGStab chain —
+   the bench's defaults) and ``wells-product-bf16`` (the same with
+   ``GMG(coef_dtype="bf16")``: the bfloat16 entries of K2 and of K1's
+   stage-2 matvec must launch, K2's float32 entry never), each with its f64
+   verify; ``wells-jacobi-eager`` (the eager loop at a fixed Krylov rtol on
+   the same kernels) beside them; two 2-step runs of the schedule path that
+   put the bfloat16 entries of K4 (Chebyshev smoother) and K5 (Jacobi
+   phases) on a full-width path; then ``refine_solution`` on
+   ``wells-product``'s last accepted ministep with the bench's settings
+   (float64 polish, tol 1e-8), all on the card: the final max|r| must be
+   finite and below the start's;
 9. A/B at 64x32x32 on the card, float32: both opt-ins, the K5 phases
    alone, neither, and neither from a 2-ulp perturbed initial pressure.
    The phases alone must reproduce "neither" bit for bit; the fused body
@@ -52,7 +67,8 @@ failure (nothing is caught, so any failure exits non-zero):
 10. cross-checks: each slice on a small grid in float64 on the card
    (kernels) against the CPU (plain versions): identical ministep, Newton
    and linear-iteration counts, states within 1e-9 (the Jacobi-phase one
-   without the float32-only fused body).
+   without the float32-only fused body); the schedule path with forcing at
+   8x8x6 likewise.
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
@@ -78,6 +94,11 @@ SMALL = (16, 16, 8)  # source-term cross-check
 # iterations in its second ministep there, and the card's FMAs give 53
 # against the CPU's 54); at 10x10x6 they do not
 WELL_SMALL = (10, 10, 6)
+# the same for the schedule path with Eisenstat-Walker forcing, whose looser
+# solves amplify roundoff further: at 10x10x6 the JAX package's Schur forms
+# take 25, 24 or 26 linear iterations in the eighth ministep and the card
+# gives 26 against the CPU's 25; at 8x8x6 (and 12x12x6) all agree
+WELL_SMALL_EW = (8, 8, 6)
 DT = 6 * 3600.0
 CNV_TOL, MB_TOL = 1e-3, 1e-6
 # kernel vs plain, max |kernel - plain| / max |plain| per output: float32
@@ -115,6 +136,15 @@ KERNEL_INFO = {
                            "jutul/jl_tpu/ops/pallas/krylov_kernels.py:130 "
                            "(B11 _kernel_omega_update)"),
 }
+_B9 = ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
+       "B9 (coef_dtype=bfloat16, jutul/jl_tpu/ops/pallas/stencil_kernels.py"
+       ":177-231) via ")
+KERNEL_INFO.update({
+    "stencil_matvec_bf16c": (_B9[0], _B9[1] + "B1 :83 _kernel"),
+    "scalar_jacobi_bf16c": (_B9[0], _B9[1] + "B2 :555, B3 :389, B4 :252"),
+    "scalar_chebyshev_bf16c": (_B9[0], _B9[1] + "B6 :431, B7 :716"),
+    "scalar_jacobi_phase_bf16c": (_B9[0], _B9[1] + "B8 :602"),
+})
 SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
     # the well perforations; the lattice's three axes go through one launch)
     "srcwells": ("stencil_matvec", "scalar_jacobi",
@@ -125,9 +155,27 @@ SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
                            "darcy_flux_jacobian_lattice",
                            "scalar_jacobi_phase", "fused_alpha_s",
                            "fused_omega_update"),
+    "wells-jacobi-eager": ("stencil_matvec", "scalar_jacobi",
+                           "darcy_flux_jacobian",
+                           "darcy_flux_jacobian_lattice"),
+    "wells-product": ("stencil_matvec", "scalar_jacobi",
+                      "darcy_flux_jacobian", "darcy_flux_jacobian_lattice"),
+    "wells-product-bf16": ("stencil_matvec", "stencil_matvec_bf16c",
+                           "scalar_jacobi_bf16c", "darcy_flux_jacobian",
+                           "darcy_flux_jacobian_lattice"),
+    "wells-product-bf16-cheby": ("stencil_matvec_bf16c",
+                                 "scalar_jacobi_bf16c",
+                                 "scalar_chebyshev_bf16c"),
+    "wells-product-bf16-phases": ("stencil_matvec_bf16c",
+                                  "scalar_jacobi_phase_bf16c"),
 }
+_F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", "scalar_jacobi_phase")
 SLICE_FORBIDDEN = {  # kernels a slice must never launch
     "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev"),
+    "wells-product": tuple(k for k in KERNEL_INFO if k.endswith("_bf16c")),
+    "wells-product-bf16": _F32_LEVEL,
+    "wells-product-bf16-cheby": _F32_LEVEL,
+    "wells-product-bf16-phases": _F32_LEVEL + ("scalar_jacobi_bf16c",),
 }
 # the slice whose launches a kernel's JSON entry reports as ``launches``
 MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
@@ -137,7 +185,11 @@ MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
               "scalar_chebyshev": "wells",
               "scalar_jacobi_phase": "wells-jacobi-fused",
               "fused_alpha_s": "wells-jacobi-fused",
-              "fused_omega_update": "wells-jacobi-fused"}
+              "fused_omega_update": "wells-jacobi-fused",
+              "stencil_matvec_bf16c": "wells-product-bf16",
+              "scalar_jacobi_bf16c": "wells-product-bf16",
+              "scalar_chebyshev_bf16c": "wells-product-bf16-cheby",
+              "scalar_jacobi_phase_bf16c": "wells-product-bf16-phases"}
 AB_GRID = (64, 32, 32)  # the A/B's 65,536 cells
 
 
@@ -284,11 +336,19 @@ def rate_schedule(forces, n_step):
         for i in range(n_step)]
 
 
-def sim_config(min_cells, smoother="jacobi", fused=False):
+def sim_config(min_cells, smoother="jacobi", fused=False, coef_dtype=None,
+               product=False):
     """The bench product path's solver and Newton settings
-    (bench.py:528-601) with eager semantics; ``fused``: bench.py's
-    BENCH_FUSED_BODY=1 and BENCH_GMG_DB=1 (the fused BiCGStab body K6/K7
-    and the whole-phase Jacobi kernel K5)."""
+    (bench.py:528-601). ``fused``: bench.py's BENCH_FUSED_BODY=1 and
+    BENCH_GMG_DB=1 (the fused BiCGStab body K6/K7 and the whole-phase Jacobi
+    kernel K5); ``coef_dtype``: its BENCH_GMG_COEF_DTYPE; ``product``: the
+    schedule path's own options (Eisenstat-Walker forcing, 16 ministep
+    records per report step) for ``lower_schedule`` / ``simulate_jit``.
+
+    The slices srcwells, wells, wells-jacobi-fused and wells-jacobi-eager
+    run these settings through ``Simulator.simulate`` — the eager loop:
+    solve, then check, at the fixed Krylov rtol. The wells-product slices
+    run them through the schedule path, as bench.py does."""
     from jutul.jl_tpu_torch import (
         GMG,
         IterationTimestepSelector,
@@ -298,9 +358,12 @@ def sim_config(min_cells, smoother="jacobi", fused=False):
     )
 
     gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=min_cells,
-              smoother=smoother)
+              smoother=smoother, coef_dtype=coef_dtype)
     gmg.slab_double_buffer = fused
+    extra = dict(linear_forcing="ew", jit_report_capacity=16) if product \
+        else {}
     return dict(
+        **extra,
         linear_solver=StencilKrylovSolver(
             preconditioner=StencilCPR(gmg=gmg), rtol=1e-3, max_iterations=25,
             use_fused_body=True if fused else None),
@@ -676,19 +739,23 @@ def phase_kernels_cheby(case, records):
         torch.cuda.empty_cache()
 
 
-def _phase_level_rows(pst, om, gen):
+def _phase_level_rows(pst, om, gen, coef_dtype=None):
     """K5 on every level of a Jacobi hierarchy, float32, timed as the
     V-cycle calls it (fine and mid: presmooth+residual and postsmooth at
     2 sweeps; coarse: the 12-sweep solve in all its launches) beside the
     K2 chain of the same hook, in turns (K5, K2, K2, K5) in this call; each
     with its bound (the hook's bytes: 7 coefficient streams and b, u in
     where given; u, r out where made) and the planner's z-chunk depth per
-    launch."""
+    launch. ``coef_dtype=torch.bfloat16``: both chains on bfloat16
+    coefficients (``pst`` built with ``GMG(coef_dtype="bf16")``), the bound
+    with 2-byte coefficient streams."""
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
 
     rows = []
+    csize = 2 if coef_dtype == torch.bfloat16 else 4
+    counter = "launches_bf16c" if csize == 2 else "launches"
     for op, lv in zip(pst.ops, pst.mvs):
-        k2 = SK.ScalarLevel(op)
+        k2 = SK.ScalarLevel(op, coef_dtype=coef_dtype)
         n = int(np.prod(lv.L))
         b, u = (torch.randn(n, generator=gen, device="cuda",
                             dtype=torch.float32) for _ in range(2))
@@ -703,17 +770,19 @@ def _phase_level_rows(pst, om, gen):
                      ("postsmooth x2", lambda l_: l_.postsmooth(u, b, om, 2),
                       10, [(2, False, False)])]
         for what, hook, streams, launches in hooks:
-            before = SK.scalar_jacobi_phase.launches
+            before = getattr(SK.scalar_jacobi_phase, counter)
             hook(lv)
-            n_launch = SK.scalar_jacobi_phase.launches - before
+            n_launch = getattr(SK.scalar_jacobi_phase, counter) - before
             turns = [graph_ms(lambda: hook(lv)), graph_ms(lambda: hook(k2)),
                      graph_ms(lambda: hook(k2)), graph_ms(lambda: hook(lv))]
             row = {"L": list(lv.L), "hook": what, "k5_launches": n_launch,
                    "k5_graph_ms": (turns[0] + turns[3]) / 2,
                    "k2_chain_graph_ms": (turns[1] + turns[2]) / 2,
-                   "bound_ms": streams * n * 4 / HBM_BYTES_PER_S * 1e3,
+                   "bound_ms": (7 * csize + (streams - 7) * 4) * n
+                   / HBM_BYTES_PER_S * 1e3,
                    "plans_tz_blocks_per_sm": [
-                       SK.phase_plan(torch.float32, *p, lv.L)
+                       SK.phase_plan(torch.float32, *p, lv.L,
+                                     coef_dtype=coef_dtype)
                        for p in launches]}
             row["share_of_bound"] = row["bound_ms"] / row["k5_graph_ms"]
             log(f"  K5 {lv.L} {what}: " + json.dumps(row))
@@ -793,6 +862,192 @@ def phase_kernels_phase(case, records):
     log("  K5 = the K2 chain on the card, bitwise, on every level and hook")
 
 
+def _in_turns(fn_a, fn_b):
+    """Graph ms of ``fn_a`` and ``fn_b`` measured a, b, b, a in this call:
+    (mean a, mean b, the four)."""
+    t = [graph_ms(fn_a), graph_ms(fn_b), graph_ms(fn_b), graph_ms(fn_a)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def phase_kernels_bf16(case, records):
+    """The bfloat16-coefficient entries of K1 (K=1: CPR's stage-2 matvec),
+    K2, K4 and K5 on every level of the well flagship's Jacobi and
+    Chebyshev hierarchies built with ``GMG(coef_dtype="bf16")``, float32
+    vectors. Each against the float32 entry on the same coefficients
+    rounded to bfloat16 and widened — bit for bit, or it raises: the
+    coefficient is widened at its load and nothing else changes — and
+    against its plain version; timed eagerly and as graph replays in turns
+    with the float32 entry; the bound counts 2-byte coefficients."""
+    from jutul.jl_tpu_torch import compile_model, from_numpy
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+    from jutul.jl_tpu_torch.ops.stencil import GMG, StencilCPR
+    from jutul.jl_tpu_torch.ops.stencil_wells import BorderedStencilModel
+
+    model, state0, params, forces = case
+    eng = BorderedStencilModel(compile_model(model), "cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    full = merge_state(from_numpy(state0, "cuda", f32),
+                       from_numpy(params, "cuda", f32))
+    _, B, _ = eng.assemble(full, full, DT, forces)
+    A = B.A
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda",  # noqa: E731
+                                 dtype=f32)
+
+    def same(what, got, want):
+        for g, w in zip(got, want):
+            if (g is None) != (w is None) or \
+                    (g is not None and not torch.equal(g, w)):
+                raise RuntimeError(
+                    f"{what}: the bfloat16 entry differs from the float32 "
+                    "entry on the rounded coefficients")
+
+    def wide(lv, op):
+        """``lv``'s level through the float32 entries on its coefficients
+        widened."""
+        lv32 = SK.ScalarLevel(op, phase_kernel=lv.phase_kernel)
+        lv32.coef = lv.coef.to(f32)
+        return lv32
+
+    def timings(rec, fn16, fn32, plain, what):
+        rec.graph_ms, g32, turns = _in_turns(fn16, fn32)
+        rec.ms, rec.plain_ms = cuda_ms(fn16), cuda_ms(plain)
+        rec.extra.update({
+            "timed": what, "f32_entry_graph_ms": g32,
+            "f32_entry_ms": cuda_ms(fn32),
+            "graph_ms_turns_bf16_f32_f32_bf16": turns})
+        log(f"  {what}: graph ms bf16 {rec.graph_ms:.4f} / f32 entry "
+            f"{g32:.4f} (turns {turns})")
+
+    # K1, K=1, C=2: the pressure-column matvec of CPR's stage 2
+    gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+              coef_dtype="bf16")
+    pst = StencilCPR(gmg=gmg).update(A)
+    log(f"# bf16 coefficients vs the f32 entries (bitwise) and vs plain, "
+        f"levels {[lv.L for lv in pst.mvs]}")
+    rec = records["stencil_matvec_bf16c"]
+    mv = pst.mv_Ap
+    if mv.coef.dtype != bf16 or pst.mv_A.coef.dtype != f32:
+        raise RuntimeError("CPR: mv_Ap must be bfloat16, mv_A float32")
+    c32 = mv.coef.to(f32)
+    x = rnd(A.n, 1)
+    y = mv(x)
+    same("K1 K=1", [y], [SK.stencil_matvec(c32, x, mv.L, 2, 1)])
+    rec.compare(f32, "K1 bf16 mv_Ap C=2,K=1", y,
+                SK.stencil_matvec_plain(mv.coef, x, mv.L, 2, 1))
+    rec.set_work([mv.coef, x, y], 2 * TERMS_K1 * 2 * A.n)
+    timings(rec, lambda: mv(x),
+            lambda: SK.stencil_matvec(c32, x, mv.L, 2, 1),
+            lambda: SK.stencil_matvec_plain(mv.coef, x, mv.L, 2, 1),
+            "K1 bf16 mv_Ap (C=2, K=1), fine level")
+
+    # K2 and K5 on every level of the Jacobi hierarchy
+    om = gmg.omega
+    rec2, rec5 = records["scalar_jacobi_bf16c"], \
+        records["scalar_jacobi_phase_bf16c"]
+    for op, lv in zip(pst.ops, pst.mvs):
+        if lv.coef.dtype != bf16:
+            raise RuntimeError("GMG(coef_dtype='bf16'): level not bfloat16")
+        n = int(np.prod(lv.L))
+        b, u = rnd(n), rnd(n)
+        lv32 = wide(lv, op)
+        for mode in (SK.MODE_INIT, SK.MODE_RESIDUAL, SK.MODE_SMOOTH):
+            got = SK.scalar_jacobi(lv.coef, b, u, om, mode, lv.L)
+            same(f"K2 {lv.L} mode {mode}", [got],
+                 [SK.scalar_jacobi(lv32.coef, b, u, om, mode, lv.L)])
+            rec2.compare(f32, f"K2 bf16 {lv.L} mode {mode}", got,
+                         SK.scalar_jacobi_plain(lv.coef, b, u, om, mode,
+                                                lv.L))
+        k5 = SK.ScalarLevel(op, phase_kernel=True, coef_dtype=bf16)
+        k5_32 = wide(k5, op)
+        for n_sweep in (2, 12):
+            hooks = (("presmooth+residual",
+                      lambda l_: l_.presmooth_residual(b, om, n_sweep),
+                      (None, n_sweep, True)),
+                     ("postsmooth",
+                      lambda l_: (l_.postsmooth(u, b, om, n_sweep), None),
+                      (u, n_sweep, False)),
+                     ("sweep_n", lambda l_: (l_.sweep_n(b, om, n_sweep), None),
+                      (None, n_sweep, False)))
+            for what, hook, (u0, ns, res) in hooks:
+                ref = SK.scalar_jacobi_phase_plain(lv.coef, b, u0, om, ns,
+                                                   res, lv.L)
+                for tag, l16, l32, r_ in (("K2", lv, lv32, rec2),
+                                          ("K5", k5, k5_32, rec5)):
+                    got = hook(l16)
+                    same(f"{tag} {lv.L} {what} x{n_sweep}", got, hook(l32))
+                    r_.compare(f32, f"{tag} bf16 {lv.L} {what} x{n_sweep}",
+                               torch.stack([g for g in got if g is not None]),
+                               torch.stack([g for g in ref if g is not None]))
+                same(f"K5 = K2 chain {lv.L} {what} x{n_sweep}", hook(k5),
+                     hook(lv))
+        if lv is pst.mvs[0]:
+            rec2.set_work([lv.coef, b, u, b], 18 * n)
+            timings(rec2, lambda: lv.smooth(u, b, om),
+                    lambda: lv32.smooth(u, b, om),
+                    lambda: SK.scalar_jacobi_plain(lv.coef, b, u, om,
+                                                   SK.MODE_SMOOTH, lv.L),
+                    "K2 bf16 smooth, fine level")
+            rec5.set_work([lv.coef, b, b, b], (2 + 2 * 16) * n)
+            timings(rec5, lambda: k5.presmooth_residual(b, om, 2),
+                    lambda: k5_32.presmooth_residual(b, om, 2),
+                    lambda: SK.scalar_jacobi_phase_plain(
+                        lv.coef, b, None, om, 2, True, lv.L),
+                    "K5 bf16 presmooth_residual(n_sweep=2), fine level")
+    gmg5 = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+               coef_dtype="bf16")
+    gmg5.slab_double_buffer = True
+    rec5.extra["levels"] = _phase_level_rows(
+        StencilCPR(gmg=gmg5).update(A), om, gen, coef_dtype=bf16)
+    del pst
+
+    # K4 on every level of the Chebyshev hierarchy
+    rec4 = records["scalar_chebyshev_bf16c"]
+    pst = StencilCPR(gmg=GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+                             smoother="chebyshev",
+                             coef_dtype="bf16")).update(A)
+    for op, lv, steps in zip(pst.ops, pst.mvs, pst.cheb):
+        n = int(np.prod(lv.L))
+        b, u, d = rnd(n), rnd(n), rnd(n)
+        lv32 = wide(lv, op)
+
+        def step(fn, coef, k, mode):
+            return fn(coef, b, u, d, steps, k, mode, lv.L)
+
+        for mode, k in ((SK.CHEB_ZERO, 0), (SK.CHEB_FIRST, 0),
+                        (SK.CHEB_STEP, 1), (SK.CHEB_STEP, 11)):
+            got = step(SK.scalar_chebyshev, lv.coef, k, mode)
+            same(f"K4 {lv.L} mode {mode} step {k}", got,
+                 step(SK.scalar_chebyshev, lv32.coef, k, mode))
+            rec4.compare(f32, f"K4 bf16 {lv.L} mode {mode} step {k}",
+                         torch.stack(got), torch.stack(step(
+                             SK.scalar_chebyshev_plain, lv.coef, k, mode)))
+        for n_sweep in (2, 12):
+            for what, hook in (
+                    ("presmooth+residual", lambda l_:
+                     l_.presmooth_residual_cheby(b, steps, n_sweep)),
+                    ("postsmooth", lambda l_:
+                     (l_.postsmooth_cheby(u, b, steps, n_sweep),)),
+                    ("sweep_n", lambda l_:
+                     (l_.sweep_n_cheby(b, steps, n_sweep),))):
+                same(f"K4 {lv.L} {what} x{n_sweep}", hook(lv), hook(lv32))
+        if lv is pst.mvs[0]:
+            rec4.set_work([lv.coef, b, u, d, steps[1], u, d], 21 * n)
+            timings(rec4,
+                    lambda: step(SK.scalar_chebyshev, lv.coef, 1,
+                                 SK.CHEB_STEP),
+                    lambda: step(SK.scalar_chebyshev, lv32.coef, 1,
+                                 SK.CHEB_STEP),
+                    lambda: step(SK.scalar_chebyshev_plain, lv.coef, 1,
+                                 SK.CHEB_STEP),
+                    "K4 bf16 step, fine level")
+    del B, A, pst
+    torch.cuda.empty_cache()
+    log("  bf16 entries = f32 entries on rounded coefficients, bitwise, on "
+        "every level, mode and hook")
+
+
 def phase_kernels_krylov(records):
     """K6/K7 at the Schur system's 2 x 1,048,576 values against their
     plain versions, and against a second call on the same inputs, bitwise
@@ -843,9 +1098,9 @@ def phase_kernels_krylov(records):
 
 
 def phase_warm_up():
-    """The three slices at 16x16x8 in float32 on the card, 2 report steps:
-    the first use of each PyTorch op in a process loads its CUDA module
-    (~12 s for the wells path), which the timed slices should not
+    """Every slice's path at 16x16x8 in float32 on the card, 2 report
+    steps: the first use of each PyTorch op in a process loads its CUDA
+    module (~12 s for the wells path), which the timed slices should not
     measure."""
     from jutul.jl_tpu_torch import Simulator
 
@@ -857,35 +1112,58 @@ def phase_warm_up():
         Simulator(model, state0, params, device="cuda").simulate(
             [DT] * 2, forces=rate_schedule(forces, 2),
             **sim_config(64, smoother, fused))
+    model, state0, params, forces = build_well_flagship(*SMALL)
+    for coef_dtype in (None, "bf16"):
+        sim = Simulator(model, state0, params, device="cuda")
+        res = sim.simulate_jit(
+            [DT] * 2, forces=rate_schedule(forces, 2),
+            **sim_config(64, coef_dtype=coef_dtype, product=True))
+    refine(sim, res, forces, 2, budget_s=20.0)
     torch.cuda.synchronize()
-    log(f"# warm-up (the three slices at 16x16x8): "
+    log(f"# warm-up (every slice's path at 16x16x8): "
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def phase_slice(case, name, smoother, fused=False):
-    """One slice at full size in float32, 3 report steps; the kernels of
-    ``SLICE_KERNELS[name]`` must launch in it, those of
+def phase_slice(case, name, smoother, fused=False, product=False,
+                coef_dtype=None, phases=None, n_step=3):
+    """One slice at full size in float32, ``n_step`` report steps; the
+    kernels of ``SLICE_KERNELS[name]`` must launch in it, those of
     ``SLICE_FORBIDDEN[name]`` never; with ``fused``, K6 and K7 launch once
-    per linear iteration."""
+    per linear iteration. ``product``: through the schedule path as
+    bench.py's run_product calls it — ``lower_schedule`` (timed apart: the
+    set-up), then ``post(*run(*args))`` — instead of the eager ``simulate``;
+    ``phases``: Jacobi phases through K5 whatever ``fused`` says."""
     from jutul.jl_tpu_torch import Simulator, report_stats
     from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     model, state0, params, forces = case
     nc = model.number_of_cells()
     sim = Simulator(model, state0, params, use_stencil=True)  # the card
-    schedule = rate_schedule(forces, 3)
-    cfg = sim_config(16384, smoother, fused)
+    schedule = rate_schedule(forces, n_step)
+    cfg = sim_config(16384, smoother, fused, coef_dtype, product)
+    if phases is not None:
+        cfg["linear_solver"].preconditioner.gmg.slab_double_buffer = phases
+    setup_s = None
+    if product:
+        t0 = time.perf_counter()
+        run, args, post = sim.lower_schedule([DT] * n_step, forces=schedule,
+                                             **cfg)
+        setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    res = sim.simulate([DT] * 3, forces=schedule, **cfg)
+    if product:
+        res = post(*run(*args))
+    else:
+        res = sim.simulate([DT] * n_step, forces=schedule, **cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
     stats = report_stats(res.reports)
     peak = torch.cuda.max_memory_allocated()
-    if not all(r["success"] for r in res.reports) or len(res.reports) != 3:
+    if not all(r["success"] for r in res.reports) or \
+            len(res.reports) != n_step:
         raise RuntimeError(f"{name} slice: a report step failed")
     for k, v in res.states[-1].items():
         if not np.all(np.isfinite(v)):
@@ -902,9 +1180,17 @@ def phase_slice(case, name, smoother, fused=False):
                       == launches["fused_omega_update"]):
         raise RuntimeError(f"{name} slice: K6/K7 launches {launches} differ "
                            f"from the {lin} linear iterations")
+    if coef_dtype == "bf16" and launches["stencil_matvec_bf16c"] != 2 * lin:
+        # CPR's stage 2 runs once per preconditioner application, two per
+        # linear iteration, and nothing else takes bfloat16 K1 coefficients
+        raise RuntimeError(f"{name} slice: the bf16 stage-2 matvec launched "
+                           f"{launches['stencil_matvec_bf16c']} times in "
+                           f"{lin} linear iterations")
     out = {
         "slice": name, "smoother": smoother, "fused": fused, "cells": nc,
-        "dtype": "float32", "report_steps": 3,
+        "path": "schedule (lower_schedule, EW forcing)" if product
+        else "eager (simulate, fixed rtol)", "coef_dtype": coef_dtype,
+        "dtype": "float32", "report_steps": n_step,
         "ministeps": stats["ministeps"], "newtons": newtons,
         "failed_ministeps": stats["failed_ministeps"],
         "linear_iterations": lin,
@@ -918,8 +1204,69 @@ def phase_slice(case, name, smoother, fused=False):
         "per_ministep": [[m["iterations"], m["linear_iterations"]]
                          for r in res.reports for m in r["ministeps"]],
     }
+    if product:
+        max_it = cfg["max_nonlinear_iterations"]
+        out.update({
+            "setup_s": setup_s,
+            # the Newton loop's device->host reads: one per assembly
+            # (each solve's, and each ministep's start state)
+            "host_reads": sim.host_reads,
+            "host_reads_per_newton": sim.host_reads / newtons,
+            # the Krylov loop's own: one per iteration and one per solve
+            "krylov_host_reads": lin + newtons,
+            "newtons_in_capped_ministeps": sum(
+                m["iterations"] for r in res.reports for m in r["ministeps"]
+                if m["iterations"] >= max_it)})
+        if sim.host_reads != newtons + stats["ministeps"]:
+            raise RuntimeError(f"{name} slice: {sim.host_reads} Newton host "
+                               f"reads for {newtons} solves in "
+                               f"{stats['ministeps']} ministeps")
     log(f"# {name} slice: " + json.dumps(out))
     return sim, res, schedule[-1], out
+
+
+def refine(sim, res, forces, n_lin_it, budget_s=None):
+    """``refine_solution`` on ``res``'s last accepted ministep with the
+    bench's settings (bench.py:418-456): corrections at ``rtol=0`` over
+    max(60, 2 n_lin_it) iterations, polish solver at ``rtol=1e-6``,
+    ``tol=1e-8``, 8 sweeps, straight to the float64 polish at >= 512k
+    cells. Everything on the simulator's device."""
+    from jutul.jl_tpu_torch import GMG, StencilCPR, StencilKrylovSolver
+
+    def solver(rtol):
+        return StencilKrylovSolver(
+            preconditioner=StencilCPR(gmg=GMG(
+                n_smooth=2, n_coarse_sweeps=12, min_cells=16384)),
+            rtol=rtol, max_iterations=max(60, 2 * n_lin_it))
+
+    prim = sim.model.primary_variables
+    final = {k: res.final_state_device[k] for k in prim}
+    start = {k: res.final_ministep_start_state[k] for k in prim}
+    nc = final["Pressure"].shape[0]
+    phase0 = "f64" if nc >= 512 * 1024 else "auto"
+    t0 = time.perf_counter()
+    _, info = sim.refine_solution(
+        final, start, res.final_ministep_dt, forces=forces, tol=1e-8,
+        max_refine=8, solver=solver(0.0), f64_solver=solver(1e-6),
+        info_level=1, phase0=phase0, time_budget_s=budget_s)
+    torch.cuda.synchronize()
+    return {**info, "phase0": phase0, "seconds": time.perf_counter() - t0}
+
+
+def phase_refine(sim, res, forces):
+    """The refinement of the wells-product slice's last accepted ministep
+    toward max|r| <= 1e-8, on the card. Held to a finite final max|r| below
+    the start's; reaching 1e-8 is reported."""
+    torch.cuda.reset_peak_memory_stats()
+    out = refine(sim, res, forces, 25, budget_s=240.0)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log("# refine (wells-product, last accepted ministep): "
+        + json.dumps(out))
+    hist = out["f64_residual_history"]
+    if not (np.isfinite(out["f64_max_abs_residual"]) and len(hist) >= 2
+            and out["f64_max_abs_residual"] < hist[0]):
+        raise RuntimeError(f"refine: no gain over the start: {out}")
+    return out
 
 
 def phase_f64_verify(sim, res, forces, name):
@@ -1008,11 +1355,13 @@ def phase_ab(case_small):
     return out
 
 
-def phase_cross_check(build, dims, smoother, name, phases=False):
+def phase_cross_check(build, dims, smoother, name, phases=False,
+                      product=False):
     """The slice at ``dims`` in float64, 2 report steps, on the card and
     on the CPU: identical counts, states within 1e-9. ``phases``: Jacobi
     phases through K5 (``slab_double_buffer``; the fused body is float32
-    only and stays off)."""
+    only and stays off). ``product``: through the schedule path with
+    Eisenstat-Walker forcing (``simulate_jit``; its final state)."""
     from jutul.jl_tpu_torch import Simulator
 
     model, state0, params, forces = build(*dims)
@@ -1020,9 +1369,10 @@ def phase_cross_check(build, dims, smoother, name, phases=False):
     for dev in ("cuda", "cpu"):
         sim = Simulator(model, state0, params, device=dev,
                         dtype=torch.float64)
-        cfg = sim_config(64, smoother)
+        cfg = sim_config(64, smoother, product=product)
         cfg["linear_solver"].preconditioner.gmg.slab_double_buffer = phases
-        res = sim.simulate([DT] * 2, forces=rate_schedule(forces, 2), **cfg)
+        run = sim.simulate_jit if product else sim.simulate
+        res = run([DT] * 2, forces=rate_schedule(forces, 2), **cfg)
         minis = [m for r in res.reports for m in r["ministeps"]]
         runs[dev] = (res, [(m["iterations"], m["linear_iterations"],
                             m["success"]) for m in minis])
@@ -1059,17 +1409,28 @@ def main():
     phase_kernels_cheby(case_w, records)
     phase_kernels_phase(case_w, records)
     phase_kernels_krylov(records)
+    phase_kernels_bf16(case_w, records)
     log(f"# kernel phases: {time.perf_counter() - t0:.1f} s")
     phase_warm_up()
     slices = {}
-    for name, c, smoother, fused in (
-            ("srcwells", case, "jacobi", False),
-            ("wells", case_w, "chebyshev", False),
-            ("wells-jacobi-fused", case_w, "jacobi", True)):
+    for name, c, smoother, kw in (
+            ("srcwells", case, "jacobi", {}),
+            ("wells", case_w, "chebyshev", {}),
+            ("wells-jacobi-fused", case_w, "jacobi", dict(fused=True)),
+            ("wells-jacobi-eager", case_w, "jacobi", {}),
+            ("wells-product", case_w, "jacobi", dict(product=True)),
+            ("wells-product-bf16", case_w, "jacobi",
+             dict(product=True, coef_dtype="bf16")),
+            ("wells-product-bf16-cheby", case_w, "chebyshev",
+             dict(product=True, coef_dtype="bf16", n_step=2)),
+            ("wells-product-bf16-phases", case_w, "jacobi",
+             dict(product=True, coef_dtype="bf16", phases=True, n_step=2))):
         sim, res, last_forces, slices[name] = phase_slice(c, name, smoother,
-                                                          fused)
+                                                          **kw)
         slices[name]["f64_verify"] = phase_f64_verify(sim, res, last_forces,
                                                       name)
+        if name == "wells-product":
+            slices[name]["refine"] = phase_refine(sim, res, last_forces)
         del sim, res
         torch.cuda.empty_cache()
     del case, case_w
@@ -1080,6 +1441,8 @@ def main():
     phase_cross_check(build_well_flagship, WELL_SMALL, "chebyshev", "wells")
     phase_cross_check(build_well_flagship, WELL_SMALL, "jacobi",
                       "wells-jacobi-phases", phases=True)
+    phase_cross_check(build_well_flagship, WELL_SMALL_EW, "jacobi",
+                      "wells-product", product=True)
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         rec = records[name]
@@ -1093,16 +1456,17 @@ def main():
                                   for k, v in slices.items()},
             "max_abs_err": rec.max_abs["float32"],
             "max_rel_err_f32": rec.max_rel["float32"],
-            "max_abs_err_f64": rec.max_abs["float64"],
-            "max_rel_err_f64": rec.max_rel["float64"],
+            # None: the bfloat16-coefficient entries take float32 vectors
+            "max_abs_err_f64": rec.max_abs.get("float64"),
+            "max_rel_err_f64": rec.max_rel.get("float64"),
             "ms": rec.ms, "plain_ms": rec.plain_ms,
             "graph_ms": rec.graph_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_bytes": rec.bytes, "bound_ops": rec.ops,
             "library_ms": rec.library_ms, **rec.extra})
     log("# slices " + json.dumps({k: {q: v[q] for q in (
-        "ministeps", "newtons", "linear_iterations", "wall_s")}
-        for k, v in slices.items()}) + " A/B " + json.dumps(ab))
+        "report_steps", "ministeps", "newtons", "linear_iterations",
+        "wall_s")} for k, v in slices.items()}) + " A/B " + json.dumps(ab))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1113,25 +1477,29 @@ def main():
 
 def profile(name):
     """``python3 chip_smoke.py --profile NAME``: one slice (``srcwells``,
-    ``wells`` or ``wells-jacobi-fused``) at full size under
+    ``wells``, ``wells-jacobi-fused`` or ``wells-product``) at full size
+    under
     torch.profiler after a 16x16x8 warm-up — its wall, the card's busy
     share and device time by operation. Not a check: it prints no result
     line."""
     from jutul.jl_tpu_torch import Simulator, report_stats
 
-    build, smoother, fused = {
-        "srcwells": (build_flagship, "jacobi", False),
-        "wells": (build_well_flagship, "chebyshev", False),
-        "wells-jacobi-fused": (build_well_flagship, "jacobi", True)}[name]
+    build, smoother, fused, product = {
+        "srcwells": (build_flagship, "jacobi", False, False),
+        "wells": (build_well_flagship, "chebyshev", False, False),
+        "wells-jacobi-fused": (build_well_flagship, "jacobi", True, False),
+        "wells-product": (build_well_flagship, "jacobi", False, True),
+    }[name]
     smi = phase_device()
     phase_build()
 
     def run(dims, n_step, min_cells):
         model, state0, params, forces = build(*dims)
         sim = Simulator(model, state0, params, use_stencil=True)
-        return lambda: sim.simulate(
+        entry = sim.simulate_jit if product else sim.simulate
+        return lambda: entry(
             [DT] * n_step, forces=rate_schedule(forces, n_step),
-            **sim_config(min_cells, smoother, fused))
+            **sim_config(min_cells, smoother, fused, product=product))
 
     run(SMALL, 2, 64)()  # warm-up: the first use of each op
     slice_run = run(GRID, 3, 16384)

@@ -5,8 +5,11 @@ the structured-grid main path — two-phase immiscible Darcy flow on a
 Cartesian lattice, with wells as source terms or as well models (bordered
 stencil + Schur-eliminated wellbores), through
 ``Simulator(use_stencil=True)``: fused-form stencil assembly,
-CPR(GMG)-preconditioned BiCGStab with a Jacobi or Chebyshev smoother,
-adaptive ministeps —
+CPR(GMG)-preconditioned BiCGStab with a Jacobi or Chebyshev smoother
+(optionally streaming its coefficients in bfloat16), adaptive ministeps
+through the eager loop (``simulate``) or the schedule path with
+Eisenstat-Walker forcing (``simulate_jit`` / ``lower_schedule``), and
+mixed-precision refinement of an accepted step (``refine_solution``) —
 in PyTorch, with hand-written CUDA kernels for Hopper (``ops/cuda``,
 sources in ``csrc/``) where the JAX package has Pallas kernels. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
@@ -33,6 +36,7 @@ from .models.wells import WellGraphMesh, WellSpec, setup_well_graph_model
 from .ops.assembly import CompiledModel, compile_model
 from .ops.stencil import GMG, StencilCPR, StencilKrylovSolver
 from .simulator.io import report_stats
+from .simulator.relaxation import NoRelaxation, SimpleRelaxation
 from .simulator.simulator import SimResult, Simulator, simulate, simulator_config
 from .simulator.timesteps import IterationTimestepSelector, TimestepSelector
 from .units import si_unit, si_units
@@ -40,8 +44,8 @@ from .units import si_unit, si_units
 __all__ = [
     "CartesianMesh", "CompiledModel", "DataDomain", "DiscretizedDomain",
     "GMG", "ImmiscibleFluid", "IterationTimestepSelector", "JutulConfig",
-    "PhaseSourceTerm", "PressureBoundaryCondition", "SimResult",
-    "SimulationModel", "Simulator", "StencilCPR", "StencilKrylovSolver",
+    "NoRelaxation", "PhaseSourceTerm", "PressureBoundaryCondition", "SimResult",
+    "SimpleRelaxation", "SimulationModel", "Simulator", "StencilCPR", "StencilKrylovSolver",
     "TimestepSelector", "WellGraphMesh", "WellSpec", "compile_model",
     "from_numpy", "report_stats", "setup_darcy_model", "setup_forces",
     "setup_parameters", "setup_state", "setup_well_graph_model", "si_unit",

@@ -15,7 +15,17 @@
 // bytes of coefficients per flop. K1, K2 and K4 keep one thread per output
 // value and rely on L1/L2 for the neighbour reuse; K5 blocks a whole Jacobi
 // smoothing phase in time (several sweeps per coefficient read).
+//
+// Coefficient type CT (replaces the coef_dtype=bfloat16 form of the TPU
+// kernels, stencil_kernels.py:177-231, 323, 819, 922-955): every kernel takes
+// its coefficient stream in the vector type T or in bfloat16. A bfloat16
+// coefficient is widened to T at its load (exact) and every operation after
+// the load is the same, in the same order, so the bfloat16 entry on
+// coefficients c equals the T entry on c rounded to bfloat16 and widened,
+// bit for bit; dinv comes from the WIDENED diagonal. Vectors, scalars and
+// outputs stay T. Only the coefficient bytes halve.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -39,12 +49,29 @@ __device__ __forceinline__ bool neighbour(int t, int z, int y, int x, int nz,
   }
 }
 
+// Coefficient i of a stream of type CT, as T.
+template <typename T, typename CT>
+struct Coef {
+  static __device__ __forceinline__ T load(const CT* __restrict__ p,
+                                           long long i) {
+    return p[i];
+  }
+};
+
+template <typename T>
+struct Coef<T, __nv_bfloat16> {
+  static __device__ __forceinline__ T load(
+      const __nv_bfloat16* __restrict__ p, long long i) {
+    return static_cast<T>(__bfloat162float(p[i]));
+  }
+};
+
 // K1 (replaces jutul/jl_tpu/ops/pallas/stencil_kernels.py:_kernel): the
 // C x K block-stencil SpMV y[i, c] = sum_t sum_k coef[t][c*K+k][i] x[j_t(i), k]
 // with x (n, K) and y (n, C) in the cell-major layout of the Krylov vectors.
 // One thread per cell and output component.
-template <typename T>
-__global__ void stencil_matvec_kernel(const T* __restrict__ coef,
+template <typename T, typename CT>
+__global__ void stencil_matvec_kernel(const CT* __restrict__ coef,
                                       const T* __restrict__ xv,
                                       T* __restrict__ yv, int C, int K,
                                       int nz, int ny, int nx) {
@@ -64,11 +91,63 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ coef,
     long long j;
     if (!neighbour(t, z, y, x, nz, ny, nx, i, &j)) continue;
     for (int k = 0; k < K; ++k) {
-      acc += coef[(static_cast<long long>(t) * CK + c * K + k) * n + i] *
+      acc += Coef<T, CT>::load(
+                 coef, (static_cast<long long>(t) * CK + c * K + k) * n + i) *
              xv[j * K + k];
     }
   }
   yv[tid] = acc;
+}
+
+// K1 with one thread per CELL, looping over the output components, and
+// the block shape (CC, KK) known at compile time (0: taken at run time): the
+// mapping of the bfloat16-coefficient entry. Measured on an H100 at the well
+// flagship's stage-2 matvec (C = 2, K = 1): stencil_matvec_kernel ran
+// SLOWER with bfloat16 coefficients than with float32 ones (0.053 against
+// 0.046 ms), and so did this mapping with run-time C and K (0.051) — the
+// loops over run-time bounds keep the loads behind the sums that use them,
+// so the kernel waits on latency, not on bytes, and halving the bytes buys
+// nothing. With constant bounds every loop unrolls and a thread's loads are
+// issued together, as in K2. A warp reads 32 consecutive coefficients of one
+// stream, neighbour indices are found once per cell, and a thread writes
+// its C outputs side by side. Each output is the same sum in the same order
+// as in stencil_matvec_kernel, so the two agree bit for bit.
+template <typename T, typename CT, int CC, int KK>
+__global__ void stencil_matvec_cell_kernel(const CT* __restrict__ coef,
+                                           const T* __restrict__ xv,
+                                           T* __restrict__ yv, int C_rt,
+                                           int K_rt, int nz, int ny, int nx) {
+  const int C = CC > 0 ? CC : C_rt;
+  const int K = KK > 0 ? KK : K_rt;
+  const long long n = static_cast<long long>(nz) * ny * nx;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int x = static_cast<int>(i % nx);
+  const int y = static_cast<int>((i / nx) % ny);
+  const int z = static_cast<int>(i / (static_cast<long long>(nx) * ny));
+  const int CK = C * K;
+  long long j[7];
+  bool ok[7];
+#pragma unroll
+  for (int t = 0; t < 7; ++t)
+    ok[t] = neighbour(t, z, y, x, nz, ny, nx, i, &j[t]);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    T acc = T(0);
+#pragma unroll
+    for (int t = 0; t < 7; ++t) {
+      if (!ok[t]) continue;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        acc += Coef<T, CT>::load(
+                   coef,
+                   (static_cast<long long>(t) * CK + c * K + k) * n + i) *
+               xv[j[t] * K + k];
+      }
+    }
+    yv[i * C + c] = acc;
+  }
 }
 
 // K2 (replaces stencil_kernels.py:_kernel_slab_sweeps/_slab_jacobi_compute,
@@ -77,8 +156,8 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ coef,
 //   mode 0: out = omega * b * dinv               (first sweep from u = 0)
 //   mode 1: out = b - A u                         (residual)
 //   mode 2: out = u + omega * (b - A u) * dinv    (weighted Jacobi)
-template <typename T>
-__global__ void scalar_jacobi_kernel(const T* __restrict__ coef,
+template <typename T, typename CT>
+__global__ void scalar_jacobi_kernel(const CT* __restrict__ coef,
                                      const T* __restrict__ b,
                                      const T* __restrict__ u,
                                      T* __restrict__ out, T omega, int mode,
@@ -87,7 +166,7 @@ __global__ void scalar_jacobi_kernel(const T* __restrict__ coef,
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const T d = coef[i];
+  const T d = Coef<T, CT>::load(coef, i);
   const T dinv = d != T(0) ? T(1) / d : T(0);
   if (mode == 0) {
     out[i] = omega * b[i] * dinv;
@@ -101,7 +180,7 @@ __global__ void scalar_jacobi_kernel(const T* __restrict__ coef,
   for (int t = 0; t < 7; ++t) {
     long long j;
     if (!neighbour(t, z, y, x, nz, ny, nx, i, &j)) continue;
-    acc += coef[static_cast<long long>(t) * n + i] * u[j];
+    acc += Coef<T, CT>::load(coef, static_cast<long long>(t) * n + i) * u[j];
   }
   const T res = b[i] - acc;
   out[i] = mode == 1 ? res : u[i] + omega * res * dinv;
@@ -124,8 +203,8 @@ __global__ void scalar_jacobi_kernel(const T* __restrict__ coef,
 // cell, one launch per step. The TPU kernels run a whole smoothing phase per
 // call; temporal blocking is later work here, as for K2. One kernel serves
 // every level: there is no slab/whole-level split and no halo limit.
-template <typename T>
-__global__ void scalar_chebyshev_kernel(const T* __restrict__ coef,
+template <typename T, typename CT>
+__global__ void scalar_chebyshev_kernel(const CT* __restrict__ coef,
                                         const T* __restrict__ b,
                                         const T* __restrict__ u,
                                         const T* __restrict__ d,
@@ -137,7 +216,7 @@ __global__ void scalar_chebyshev_kernel(const T* __restrict__ coef,
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const T d0 = coef[i];
+  const T d0 = Coef<T, CT>::load(coef, i);
   const T dinv = d0 != T(0) ? T(1) / d0 : T(0);
   if (mode == 0) {
     d_out[i] = (dinv * b[i]) / steps[0];
@@ -151,7 +230,7 @@ __global__ void scalar_chebyshev_kernel(const T* __restrict__ coef,
   for (int t = 0; t < 7; ++t) {
     long long j;
     if (!neighbour(t, z, y, x, nz, ny, nx, i, &j)) continue;
-    acc += coef[static_cast<long long>(t) * n + i] * u[j];
+    acc += Coef<T, CT>::load(coef, static_cast<long long>(t) * n + i) * u[j];
   }
   const T r = dinv * (b[i] - acc);
   const T dn = mode == 1 ? r / steps[0]
@@ -235,6 +314,43 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// K5's ring slot of one coefficient: a T-wide word per thread. A coefficient
+// of type T is copied as it is. A bfloat16 coefficient cannot be: cp.async
+// moves 4, 8 or 16 bytes from an address aligned alike, so each thread
+// copies the aligned 4-byte word that holds its element e (element e ^ 1
+// rides along; neighbouring threads ask for the same word and L1 merges
+// them, so HBM serves each word once), and picks its half — by e's parity —
+// when it reads the slot. The coefficient tensor starts on a 4-byte
+// boundary and an odd count is followed by one padding element (the
+// wrapper checks both), so every word lies inside its storage. Shared
+// memory stays T-wide; HBM bytes halve. K5 is bound by instructions per
+// thread and z-step, so the parity is kept to a few 32-bit operations.
+template <typename T, typename CT>
+struct RingCoef {
+  static __device__ __forceinline__ void fetch(T* slot, const CT* coef,
+                                               long long e) {
+    cp_async<sizeof(T)>(slot, coef + e);
+  }
+  static __device__ __forceinline__ T read(const T* slot, unsigned) {
+    return *slot;
+  }
+};
+
+template <typename T>
+struct RingCoef<T, __nv_bfloat16> {
+  static __device__ __forceinline__ void fetch(T* slot,
+                                               const __nv_bfloat16* coef,
+                                               long long e) {
+    cp_async<4>(slot, reinterpret_cast<const unsigned*>(coef) + (e >> 1));
+  }
+  // odd: e & 1. The bfloat16's two bytes become the float's high half.
+  static __device__ __forceinline__ T read(const T* slot, unsigned odd) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(slot);
+    return static_cast<T>(
+        __uint_as_float(__byte_perm(w, 0u, 0x1044u + odd * 0x2200u)));
+  }
+};
+
 // Dynamic shared memory of one block: the double-buffered sweep planes
 // [2][max(NAPP, 1)][threads] and the ring [kPhaseStages][nstream][threads].
 template <typename T>
@@ -244,10 +360,10 @@ size_t phase_smem_bytes(int napp, int threads, int nstream) {
          threads * sizeof(T);
 }
 
-template <typename T, int NAPP>
+template <typename T, typename CT, int NAPP>
 __global__ void __launch_bounds__(kPhaseThreads,
                                   (sizeof(T) == 4 && NAPP <= 2) ? 2 : 1)
-scalar_jacobi_phase_kernel(const T* __restrict__ coef, const T* __restrict__ b,
+scalar_jacobi_phase_kernel(const CT* __restrict__ coef, const T* __restrict__ b,
                            const T* __restrict__ u0, T* __restrict__ u_out,
                            T* __restrict__ r_out, T omega, int init_zero,
                            int nz, int ny, int nx, int tz) {
@@ -268,6 +384,9 @@ scalar_jacobi_phase_kernel(const T* __restrict__ coef, const T* __restrict__ b,
   const long long plane = static_cast<long long>(ny) * nx;
   const long long n = plane * nz;
   const long long col = in_lat ? static_cast<long long>(gy) * nx + gx : 0;
+  const unsigned n_odd = static_cast<unsigned>(n) & 1u;
+  const unsigned plane_odd = static_cast<unsigned>(plane) & 1u;
+  const unsigned col_odd = static_cast<unsigned>(col) & 1u;
   // lattice neighbours (else the term is skipped, as in K2); their values
   // come from the tile, clamped at its edge (edge values are never used by
   // an owner)
@@ -289,7 +408,7 @@ scalar_jacobi_phase_kernel(const T* __restrict__ coef, const T* __restrict__ b,
       T* slot = ring + ((s - zs) % S) * nstream * NT + lt;
 #pragma unroll
       for (int t = 0; t < 7; ++t)
-        cp_async<sizeof(T)>(slot + t * NT, coef + t * n + i);
+        RingCoef<T, CT>::fetch(slot + t * NT, coef, t * n + i);
       cp_async<sizeof(T)>(slot + 7 * NT, b + i);
       if (!init_zero) cp_async<sizeof(T)>(slot + 8 * NT, u0 + i);
     }
@@ -330,7 +449,11 @@ scalar_jacobi_phase_kernel(const T* __restrict__ coef, const T* __restrict__ b,
         if (in_lat) {
           const T* slot = ring + (q % S) * nstream * NT + lt;
 #pragma unroll
-          for (int t = 0; t < 7; ++t) cf[r][t] = slot[t * NT];
+          for (int t = 0; t < 7; ++t)  // parity of t * n + s * plane + col
+            cf[r][t] = RingCoef<T, CT>::read(
+                slot + t * NT,
+                ((t & n_odd) ^ (static_cast<unsigned>(s) & plane_odd) ^
+                 col_odd) & 1u);
           bv[r] = slot[7 * NT];
           if (!init_zero) nu = slot[8 * NT];
         } else {
@@ -407,12 +530,12 @@ int multiprocessors() {
 
 // Resident blocks per SM of one instantiation at its shared-memory size
 // (0: it cannot launch). Raises the dynamic shared-memory limit first.
-template <typename T, int NAPP>
+template <typename T, typename CT, int NAPP>
 int phase_blocks_per_sm(int nstream) {
   static int cached[2] = {-1, -1};  // nstream 8, 9
   int& c = cached[nstream - 8];
   if (c < 0) {
-    auto kern = scalar_jacobi_phase_kernel<T, NAPP>;
+    auto kern = scalar_jacobi_phase_kernel<T, CT, NAPP>;
     const size_t most = phase_smem_bytes<T>(NAPP, kPhaseThreads, 9);
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(most));
@@ -450,7 +573,7 @@ struct PhasePlan {
 // thread and step, so a step costs ~kPhaseStepNs32 per thread-step on an SM
 // holding >= 32 warps and ~kPhaseStepNs16 with fewer to hide latency.
 // Cached per shape (a V-cycle asks for the same few again and again).
-template <typename T, int NAPP>
+template <typename T, typename CT, int NAPP>
 PhasePlan choose_phase_plan(int init_zero, int residual, int nz, int ny,
                             int nx) {
   struct Entry {
@@ -467,7 +590,7 @@ PhasePlan choose_phase_plan(int init_zero, int residual, int nz, int ny,
   }
   const int nstream = init_zero ? 8 : 9;
   const int nout = residual ? 2 : 1;
-  const int per_sm = max(1, phase_blocks_per_sm<T, NAPP>(nstream));
+  const int per_sm = max(1, phase_blocks_per_sm<T, CT, NAPP>(nstream));
   constexpr int TX = kPhaseBX - 2 * NAPP, TY = kPhaseBY - 2 * NAPP;
   const long long tiles =
       static_cast<long long>((nx + TX - 1) / TX) * ((ny + TY - 1) / TY);
@@ -493,7 +616,9 @@ PhasePlan choose_phase_plan(int init_zero, int residual, int nz, int ny,
         kPhaseThreads / 32;
     const double step_ns = warps >= 32 ? kPhaseStepNs32 : kPhaseStepNs16;
     const double busy = min(1.0, static_cast<double>(blocks) / sms);
-    const double bytes = (cols * planes * nstream + n * nout) * sizeof(T);
+    const double bytes =
+        cols * planes * (7 * sizeof(CT) + (nstream - 7) * sizeof(T)) +
+        n * nout * sizeof(T);
     const double cost =
         max(per_sm_load * kPhaseThreads * steps * step_ns,
             bytes / (kHbmBytesPerNs * busy));
@@ -513,21 +638,22 @@ PhasePlan choose_phase_plan(int init_zero, int residual, int nz, int ny,
 
 // tz: the z-chunk depth; 0 lets the planner choose (the tests pin it to
 // reach ragged chunkings).
-template <typename T, int NAPP>
-int launch_phase_depth(const T* coef, const T* b, const T* u0, T* u_out,
+template <typename T, typename CT, int NAPP>
+int launch_phase_depth(const CT* coef, const T* b, const T* u0, T* u_out,
                        T* r_out, double omega, int init_zero, int nz, int ny,
                        int nx, int tz, void* stream) {
   constexpr int TX = kPhaseBX - 2 * NAPP, TY = kPhaseBY - 2 * NAPP;
   const int nstream = init_zero ? 8 : 9;
   if (tz == 0)
-    tz = choose_phase_plan<T, NAPP>(init_zero, r_out != nullptr, nz, ny, nx)
+    tz = choose_phase_plan<T, CT, NAPP>(init_zero, r_out != nullptr, nz, ny,
+                                        nx)
              .tz;
   if (tz < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (phase_blocks_per_sm<T, NAPP>(nstream) <= 0)
+  if (phase_blocks_per_sm<T, CT, NAPP>(nstream) <= 0)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + tz - 1) / tz);
   const dim3 block(kPhaseBX, kPhaseBY);
-  scalar_jacobi_phase_kernel<T, NAPP>
+  scalar_jacobi_phase_kernel<T, CT, NAPP>
       <<<grid, block, phase_smem_bytes<T>(NAPP, kPhaseThreads, nstream),
          static_cast<cudaStream_t>(stream)>>>(
           coef, b, u0, u_out, r_out, static_cast<T>(omega), init_zero, nz,
@@ -539,8 +665,8 @@ int phase_depth(int n_sweep, int init_zero, int residual) {
   return (init_zero ? n_sweep - 1 : n_sweep) + (residual ? 1 : 0);
 }
 
-template <typename T>
-int launch_phase(const T* coef, const T* b, const T* u0, T* u_out, T* r_out,
+template <typename T, typename CT>
+int launch_phase(const CT* coef, const T* b, const T* u0, T* u_out, T* r_out,
                  double omega, int n_sweep, int init_zero, int nz, int ny,
                  int nx, int tz, void* stream) {
   const int napp = phase_depth(n_sweep, init_zero, r_out != nullptr);
@@ -548,32 +674,32 @@ int launch_phase(const T* coef, const T* b, const T* u0, T* u_out, T* r_out,
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(nz) * ny * nx == 0) return 0;
   switch (napp) {
-    case 0: return launch_phase_depth<T, 0>(coef, b, u0, u_out, r_out, omega,
+    case 0: return launch_phase_depth<T, CT, 0>(coef, b, u0, u_out, r_out, omega,
                                             init_zero, nz, ny, nx, tz, stream);
-    case 1: return launch_phase_depth<T, 1>(coef, b, u0, u_out, r_out, omega,
+    case 1: return launch_phase_depth<T, CT, 1>(coef, b, u0, u_out, r_out, omega,
                                             init_zero, nz, ny, nx, tz, stream);
-    case 2: return launch_phase_depth<T, 2>(coef, b, u0, u_out, r_out, omega,
+    case 2: return launch_phase_depth<T, CT, 2>(coef, b, u0, u_out, r_out, omega,
                                             init_zero, nz, ny, nx, tz, stream);
-    case 3: return launch_phase_depth<T, 3>(coef, b, u0, u_out, r_out, omega,
+    case 3: return launch_phase_depth<T, CT, 3>(coef, b, u0, u_out, r_out, omega,
                                             init_zero, nz, ny, nx, tz, stream);
-    case 4: return launch_phase_depth<T, 4>(coef, b, u0, u_out, r_out, omega,
+    case 4: return launch_phase_depth<T, CT, 4>(coef, b, u0, u_out, r_out, omega,
                                             init_zero, nz, ny, nx, tz, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The planner's (tz, blocks, resident blocks per SM) for a phase launch.
-template <typename T>
+template <typename T, typename CT>
 int plan_phase(int n_sweep, int init_zero, int residual, int nz, int ny,
                int nx, int* out) {
   const int napp = phase_depth(n_sweep, init_zero, residual);
   PhasePlan p;
   switch (napp) {
-    case 0: p = choose_phase_plan<T, 0>(init_zero, residual, nz, ny, nx); break;
-    case 1: p = choose_phase_plan<T, 1>(init_zero, residual, nz, ny, nx); break;
-    case 2: p = choose_phase_plan<T, 2>(init_zero, residual, nz, ny, nx); break;
-    case 3: p = choose_phase_plan<T, 3>(init_zero, residual, nz, ny, nx); break;
-    case 4: p = choose_phase_plan<T, 4>(init_zero, residual, nz, ny, nx); break;
+    case 0: p = choose_phase_plan<T, CT, 0>(init_zero, residual, nz, ny, nx); break;
+    case 1: p = choose_phase_plan<T, CT, 1>(init_zero, residual, nz, ny, nx); break;
+    case 2: p = choose_phase_plan<T, CT, 2>(init_zero, residual, nz, ny, nx); break;
+    case 3: p = choose_phase_plan<T, CT, 3>(init_zero, residual, nz, ny, nx); break;
+    case 4: p = choose_phase_plan<T, CT, 4>(init_zero, residual, nz, ny, nx); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   out[0] = p.tz;
@@ -582,41 +708,65 @@ int plan_phase(int n_sweep, int init_zero, int residual, int nz, int ny,
   return 0;
 }
 
-template <typename T>
-int launch_chebyshev(const T* coef, const T* b, const T* u, const T* d,
+template <typename T, typename CT>
+int launch_chebyshev(const CT* coef, const T* b, const T* u, const T* d,
                      const T* steps, T* u_out, T* d_out, int step, int mode,
                      int nz, int ny, int nx, void* stream) {
   const long long n = static_cast<long long>(nz) * ny * nx;
   if (n > 0) {
     const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    scalar_chebyshev_kernel<T><<<blocks, kThreads, 0,
+    scalar_chebyshev_kernel<T, CT><<<blocks, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
         coef, b, u, d, steps, u_out, d_out, step, mode, nz, ny, nx);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_matvec(const T* coef, const T* x, T* y, int C, int K, int nz,
+template <typename T, typename CT>
+int launch_matvec(const CT* coef, const T* x, T* y, int C, int K, int nz,
                   int ny, int nx, void* stream) {
   const long long total = static_cast<long long>(nz) * ny * nx * C;
   if (total > 0) {
     const unsigned blocks =
         static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    stencil_matvec_kernel<T><<<blocks, kThreads, 0,
+    stencil_matvec_kernel<T, CT><<<blocks, kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         coef, x, y, C, K, nz, ny, nx);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_jacobi(const T* coef, const T* b, const T* u, T* out, double omega,
+template <typename T, typename CT>
+int launch_matvec_cell(const CT* coef, const T* x, T* y, int C, int K, int nz,
+                       int ny, int nx, void* stream) {
+  const long long n = static_cast<long long>(nz) * ny * nx;
+  if (n > 0 && C > 0) {
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    // the shapes CPR uses (stage-2 column, full block, scalar) unrolled
+    if (C == 2 && K == 1)
+      stencil_matvec_cell_kernel<T, CT, 2, 1><<<blocks, kThreads, 0, st>>>(
+          coef, x, y, C, K, nz, ny, nx);
+    else if (C == 2 && K == 2)
+      stencil_matvec_cell_kernel<T, CT, 2, 2><<<blocks, kThreads, 0, st>>>(
+          coef, x, y, C, K, nz, ny, nx);
+    else if (C == 1 && K == 1)
+      stencil_matvec_cell_kernel<T, CT, 1, 1><<<blocks, kThreads, 0, st>>>(
+          coef, x, y, C, K, nz, ny, nx);
+    else
+      stencil_matvec_cell_kernel<T, CT, 0, 0><<<blocks, kThreads, 0, st>>>(
+          coef, x, y, C, K, nz, ny, nx);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename CT>
+int launch_jacobi(const CT* coef, const T* b, const T* u, T* out, double omega,
                   int mode, int nz, int ny, int nx, void* stream) {
   const long long n = static_cast<long long>(nz) * ny * nx;
   if (n > 0) {
     const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    scalar_jacobi_kernel<T><<<blocks, kThreads, 0,
+    scalar_jacobi_kernel<T, CT><<<blocks, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         coef, b, u, out, static_cast<T>(omega), mode, nz, ny, nx);
   }
@@ -629,25 +779,25 @@ extern "C" {
 
 int jt_stencil_matvec_f32(const float* coef, const float* x, float* y, int C,
                           int K, int nz, int ny, int nx, void* stream) {
-  return launch_matvec<float>(coef, x, y, C, K, nz, ny, nx, stream);
+  return launch_matvec<float, float>(coef, x, y, C, K, nz, ny, nx, stream);
 }
 
 int jt_stencil_matvec_f64(const double* coef, const double* x, double* y,
                           int C, int K, int nz, int ny, int nx, void* stream) {
-  return launch_matvec<double>(coef, x, y, C, K, nz, ny, nx, stream);
+  return launch_matvec<double, double>(coef, x, y, C, K, nz, ny, nx, stream);
 }
 
 int jt_scalar_jacobi_f32(const float* coef, const float* b, const float* u,
                          float* out, double omega, int mode, int nz, int ny,
                          int nx, void* stream) {
-  return launch_jacobi<float>(coef, b, u, out, omega, mode, nz, ny, nx,
+  return launch_jacobi<float, float>(coef, b, u, out, omega, mode, nz, ny, nx,
                               stream);
 }
 
 int jt_scalar_jacobi_f64(const double* coef, const double* b, const double* u,
                          double* out, double omega, int mode, int nz, int ny,
                          int nx, void* stream) {
-  return launch_jacobi<double>(coef, b, u, out, omega, mode, nz, ny, nx,
+  return launch_jacobi<double, double>(coef, b, u, out, omega, mode, nz, ny, nx,
                                stream);
 }
 
@@ -655,7 +805,7 @@ int jt_scalar_chebyshev_f32(const float* coef, const float* b, const float* u,
                             const float* d, const float* steps, float* u_out,
                             float* d_out, int step, int mode, int nz, int ny,
                             int nx, void* stream) {
-  return launch_chebyshev<float>(coef, b, u, d, steps, u_out, d_out, step,
+  return launch_chebyshev<float, float>(coef, b, u, d, steps, u_out, d_out, step,
                                  mode, nz, ny, nx, stream);
 }
 
@@ -664,7 +814,7 @@ int jt_scalar_chebyshev_f64(const double* coef, const double* b,
                             const double* steps, double* u_out, double* d_out,
                             int step, int mode, int nz, int ny, int nx,
                             void* stream) {
-  return launch_chebyshev<double>(coef, b, u, d, steps, u_out, d_out, step,
+  return launch_chebyshev<double, double>(coef, b, u, d, steps, u_out, d_out, step,
                                   mode, nz, ny, nx, stream);
 }
 
@@ -672,7 +822,7 @@ int jt_scalar_jacobi_phase_f32(const float* coef, const float* b,
                                const float* u0, float* u_out, float* r_out,
                                double omega, int n_sweep, int init_zero,
                                int nz, int ny, int nx, int tz, void* stream) {
-  return launch_phase<float>(coef, b, u0, u_out, r_out, omega, n_sweep,
+  return launch_phase<float, float>(coef, b, u0, u_out, r_out, omega, n_sweep,
                              init_zero, nz, ny, nx, tz, stream);
 }
 
@@ -680,19 +830,61 @@ int jt_scalar_jacobi_phase_f64(const double* coef, const double* b,
                                const double* u0, double* u_out, double* r_out,
                                double omega, int n_sweep, int init_zero,
                                int nz, int ny, int nx, int tz, void* stream) {
-  return launch_phase<double>(coef, b, u0, u_out, r_out, omega, n_sweep,
+  return launch_phase<double, double>(coef, b, u0, u_out, r_out, omega, n_sweep,
                               init_zero, nz, ny, nx, tz, stream);
 }
 
 // out[3] = (chunk depth, blocks, resident blocks per SM) of a phase's plan.
 int jt_scalar_jacobi_phase_plan_f32(int n_sweep, int init_zero, int residual,
                                     int nz, int ny, int nx, int* out) {
-  return plan_phase<float>(n_sweep, init_zero, residual, nz, ny, nx, out);
+  return plan_phase<float, float>(n_sweep, init_zero, residual, nz, ny, nx, out);
 }
 
 int jt_scalar_jacobi_phase_plan_f64(int n_sweep, int init_zero, int residual,
                                     int nz, int ny, int nx, int* out) {
-  return plan_phase<double>(n_sweep, init_zero, residual, nz, ny, nx, out);
+  return plan_phase<double, double>(n_sweep, init_zero, residual, nz, ny, nx, out);
+}
+
+// The same kernels with bfloat16 coefficients and float32 vectors.
+int jt_stencil_matvec_bf16c_f32(const __nv_bfloat16* coef, const float* x,
+                                float* y, int C, int K, int nz, int ny,
+                                int nx, void* stream) {
+  return launch_matvec_cell<float, __nv_bfloat16>(coef, x, y, C, K, nz, ny,
+                                                  nx, stream);
+}
+
+int jt_scalar_jacobi_bf16c_f32(const __nv_bfloat16* coef, const float* b,
+                               const float* u, float* out, double omega,
+                               int mode, int nz, int ny, int nx,
+                               void* stream) {
+  return launch_jacobi<float, __nv_bfloat16>(coef, b, u, out, omega, mode, nz,
+                                             ny, nx, stream);
+}
+
+int jt_scalar_chebyshev_bf16c_f32(const __nv_bfloat16* coef, const float* b,
+                                  const float* u, const float* d,
+                                  const float* steps, float* u_out,
+                                  float* d_out, int step, int mode, int nz,
+                                  int ny, int nx, void* stream) {
+  return launch_chebyshev<float, __nv_bfloat16>(
+      coef, b, u, d, steps, u_out, d_out, step, mode, nz, ny, nx, stream);
+}
+
+int jt_scalar_jacobi_phase_bf16c_f32(const __nv_bfloat16* coef, const float* b,
+                                     const float* u0, float* u_out,
+                                     float* r_out, double omega, int n_sweep,
+                                     int init_zero, int nz, int ny, int nx,
+                                     int tz, void* stream) {
+  return launch_phase<float, __nv_bfloat16>(coef, b, u0, u_out, r_out, omega,
+                                            n_sweep, init_zero, nz, ny, nx, tz,
+                                            stream);
+}
+
+int jt_scalar_jacobi_phase_plan_bf16c_f32(int n_sweep, int init_zero,
+                                          int residual, int nz, int ny, int nx,
+                                          int* out) {
+  return plan_phase<float, __nv_bfloat16>(n_sweep, init_zero, residual, nz, ny,
+                                          nx, out);
 }
 
 }  // extern "C"

@@ -25,7 +25,8 @@ def bicgstab(matvec: Callable, b, maxiter: int = 200, rtol: float = 1e-8,
 
     Shape-generic: every operation is elementwise or a full-reduction dot,
     so vectors may be any shape that ``matvec``/``precond`` consume and
-    produce (the stencil path keeps (n, neq) blocks). Returns
+    produce (the stencil path keeps (n, neq) blocks). ``rtol``: a Python
+    float, or a 0-d tensor for a per-call tolerance. Returns
     ``(x, stats)`` with stats = dict(iterations, residual, converged).
     """
     if precond is None:
@@ -37,8 +38,14 @@ def bicgstab(matvec: Callable, b, maxiter: int = 200, rtol: float = 1e-8,
     def norm(v):
         return torch.sqrt(dot(v, v))
 
-    # rounded in the working dtype, as the JAX loop's traced tolerance
-    tol = float(torch.clamp(rtol * norm(b), min=atol))
+    if torch.is_tensor(rtol):
+        # a per-call forcing tolerance (a float64 scalar, as the reference's
+        # traced Eisenstat-Walker eta): rtol * |b| is formed in double
+        tol = max(float(rtol) * float(norm(b)), atol)
+    else:
+        # a Python rtol: rounded in the working dtype, as the JAX loop's
+        # weakly typed tolerance
+        tol = float(torch.clamp(rtol * norm(b), min=atol))
     # breakdown guards representable in the WORKING dtype: a 1e-300
     # literal flushes to 0 in f32 and turns every guard into 0/0
     tiny = torch.finfo(b.dtype).tiny

@@ -18,6 +18,8 @@ device.
 
 from __future__ import annotations
 
+import numpy as np
+
 
 class JutulForce:
     def apply(self, model, eq, eq_name, r, state, dt):
@@ -37,3 +39,25 @@ def setup_forces(model, **forces) -> dict:
     (reference src/models.jl:914). Values may be a force, a list of forces,
     or None."""
     return {k: v for k, v in forces.items() if v is not None}
+
+
+def force_structure(forces):
+    """What must stay fixed across the steps of a schedule run as one
+    program (the counterpart of the reference's pytree structure plus leaf
+    shapes): container layout and names, each force's type and cells, and
+    the shape of every value it carries. Values themselves are free."""
+    if forces is None:
+        return None
+    if isinstance(forces, dict):
+        return ("dict", tuple((k, force_structure(forces[k]))
+                              for k in sorted(forces)))
+    if isinstance(forces, (list, tuple)):
+        return (type(forces).__name__,
+                tuple(force_structure(f) for f in forces))
+    if isinstance(forces, JutulForce):
+        fields = vars(forces)
+        return (type(forces).__qualname__,
+                tuple(np.atleast_1d(fields.get("cells", ())).tolist()),
+                tuple((k, None if v is None else np.shape(v))
+                      for k, v in sorted(fields.items()) if k != "cells"))
+    return ("value", np.shape(forces))

@@ -28,12 +28,24 @@ KERNELS = {
     "fused_alpha_s": fused_alpha_s,
     "fused_omega_update": fused_omega_update,
 }
+# the bfloat16-coefficient entries of K1, K2, K4 and K5 count apart
+KERNELS_BF16C = {
+    "stencil_matvec_bf16c": stencil_matvec,
+    "scalar_jacobi_bf16c": scalar_jacobi,
+    "scalar_chebyshev_bf16c": scalar_chebyshev,
+    "scalar_jacobi_phase_bf16c": scalar_jacobi_phase,
+}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn in KERNELS_BF16C.values():
+        fn.launches_bf16c = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    out = {name: fn.launches for name, fn in KERNELS.items()}
+    out.update({name: fn.launches_bf16c
+                for name, fn in KERNELS_BF16C.items()})
+    return out

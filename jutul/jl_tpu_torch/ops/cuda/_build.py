@@ -48,6 +48,11 @@ _SIGNATURES = {
 }
 
 
+# entries that also exist with bfloat16 coefficients and float32 vectors
+_BF16C = ("jt_stencil_matvec", "jt_scalar_jacobi", "jt_scalar_chebyshev",
+          "jt_scalar_jacobi_phase", "jt_scalar_jacobi_phase_plan")
+
+
 @dataclass
 class KernelLibrary:
     cdll: ctypes.CDLL
@@ -130,7 +135,8 @@ def load_library() -> KernelLibrary:
         os.replace(tmp, out)  # atomic: a concurrent process sees all or none
     cdll = ctypes.CDLL(str(out))
     for base, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
+        for suffix in ("f32", "f64") + (("bf16c_f32",) if base in _BF16C
+                                        else ()):
             f = getattr(cdll, f"{base}_{suffix}")
             f.argtypes = argtypes
             f.restype = ctypes.c_int

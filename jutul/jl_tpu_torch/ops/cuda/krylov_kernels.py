@@ -161,8 +161,15 @@ def bicgstab_fused(matvec, b, x0=None, maxiter: int = 200, rtol: float = 1e-8,
         precond = lambda z: z  # noqa: E731
     b = b.to(torch.float32)
     x0 = torch.zeros_like(b) if x0 is None else x0.to(torch.float32)
-    tol = torch.clamp(rtol * torch.sqrt(torch.dot(b, b)), min=atol)
-    tol2 = float(tol * tol)  # float32, as the reference's traced tol2
+    bnorm = torch.sqrt(torch.dot(b, b))
+    if torch.is_tensor(rtol):
+        # a per-call forcing tolerance (float64 scalar): the product is
+        # formed in double, as with the reference's traced float64 rtol
+        tol = max(float(rtol) * float(bnorm), atol)
+        tol2 = tol * tol
+    else:
+        tol = torch.clamp(rtol * bnorm, min=atol)
+        tol2 = float(tol * tol)  # float32, as the reference's traced tol2
     r = (b - matvec(x0)).to(torch.float32)
     rhat = r
     rho = torch.dot(rhat, r)

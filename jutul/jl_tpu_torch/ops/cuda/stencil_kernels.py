@@ -37,6 +37,19 @@ the kernel or raises — there is no fallback.
   arithmetic. ``ScalarLevel(phase_kernel=True)`` runs its Jacobi hooks on
   it (``GMG.slab_double_buffer``).
 
+Coefficient dtype (replaces the ``coef_dtype=bfloat16`` form of B1-B4 and
+B6-B8, jutul/jl_tpu/ops/pallas/stencil_kernels.py:177-231, :323, :819,
+:922-955): every wrapper and plain version takes its coefficients in the
+vector dtype or in ``torch.bfloat16``. bfloat16 coefficients are widened to
+the vector dtype on load and the arithmetic is unchanged, so a call on
+``c.to(bfloat16)`` equals the same call on ``c.to(bfloat16).to(vector
+dtype)`` bit for bit; ``b``, ``u``, ``x``, ``d``, ``steps`` and every output
+stay in the vector dtype. ``embed(A, coef_dtype)`` rounds once per
+preconditioner update. The plain versions take bfloat16 coefficients with
+float32 or float64 vectors; the CUDA entries are built for bfloat16 x
+float32 only and raise on bfloat16 x float64. The bfloat16 entries count
+their launches apart (``<wrapper>.launches_bf16c``).
+
 The lattice is the natural contiguous (nz, ny, nx) one: coefficients are
 embedded once per matrix as ``(7, C·K, n)`` with zero boundary entries
 (``lattice_coefficients``), and neighbours outside the lattice are skipped
@@ -78,6 +91,49 @@ def _require(t, like, name):
                          f"got {t.dtype} on {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _coef_entry(coef, like, name, word_reads=False):
+    """The CUDA entry's suffix for coefficients ``coef`` with vectors like
+    ``like``: the pair (coefficient dtype, vector dtype) must be (T, T) or
+    (bfloat16, float32); ``coef`` contiguous on ``like``'s device.
+    ``word_reads``: the kernel reads bfloat16 coefficients as aligned 4-byte
+    words (K5), so an odd count needs its padding element (``embed`` gives
+    one). Returns (suffix, counts as bfloat16)."""
+    if coef.dtype != torch.bfloat16:
+        _require(coef, like, name)
+        return dtype_suffix(like), False
+    if coef.device != like.device or not coef.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous coefficients on "
+                         f"{like.device}, got {coef.device}")
+    if like.dtype != torch.float32:
+        raise TypeError(
+            f"{name}: the CUDA kernels take bfloat16 coefficients with "
+            f"float32 vectors only, got {like.dtype} vectors (the plain "
+            "versions take float64 too)")
+    if coef.data_ptr() % 4:
+        raise ValueError(f"{name}: bfloat16 coefficients must start on a "
+                         "4-byte boundary")
+    if word_reads and coef.numel() % 2 and \
+            coef.untyped_storage().nbytes() < \
+            2 * (coef.storage_offset() + coef.numel() + 1):
+        raise ValueError(f"{name}: an odd number of bfloat16 coefficients "
+                         "needs one padding element after it in its "
+                         "storage (embed(A, torch.bfloat16) allocates it)")
+    return "bf16c_f32", True
+
+
+def _count(wrapper, narrow: bool):
+    """One more launch of ``wrapper``'s kernel, by coefficient dtype."""
+    if narrow:
+        wrapper.launches_bf16c += 1
+    else:
+        wrapper.launches += 1
+
+
+def _wide(coef, like):
+    """``coef`` in ``like``'s dtype: bfloat16 coefficients widen (exact)."""
+    return coef if coef.dtype == like.dtype else coef.to(like.dtype)
 
 
 def lattice_coefficients(L, diag, plus: dict, minus: dict):
@@ -122,7 +178,7 @@ def stencil_matvec_plain(coef, x, L, C: int, K: int):
     dof order as the kernel."""
     nz, ny, nx = L
     views = _neighbour_views(x.T.reshape(K, nz, ny, nx))
-    cf = coef.reshape(TERMS, C, K, nz, ny, nx)
+    cf = _wide(coef, x).reshape(TERMS, C, K, nz, ny, nx)
     acc = None
     for t in range(TERMS):
         for k in range(K):
@@ -138,25 +194,27 @@ def stencil_matvec(coef, x, L, C: int, K: int):
         return stencil_matvec_plain(coef, x, L, C, K)
     nz, ny, nx = L
     x = x.contiguous()
-    _require(coef, x, "stencil_matvec coef")
+    entry, narrow = _coef_entry(coef, x, "stencil_matvec coef")
     if x.shape != (nz * ny * nx, K) or coef.shape != (TERMS, C * K, x.shape[0]):
         raise ValueError(f"stencil_matvec: bad shapes x {tuple(x.shape)}, "
                          f"coef {tuple(coef.shape)} for L={L}, C={C}, K={K}")
     y = torch.empty((x.shape[0], C), dtype=x.dtype, device=x.device)
     lib = load_library()
-    check(lib.fn("jt_stencil_matvec", dtype_suffix(x))(
+    check(lib.fn("jt_stencil_matvec", entry)(
         coef.data_ptr(), x.data_ptr(), y.data_ptr(), C, K, nz, ny, nx,
         stream_handle()), "stencil_matvec")
-    stencil_matvec.launches += 1
+    _count(stencil_matvec, narrow)
     return y
 
 
-stencil_matvec.launches = 0
+stencil_matvec.launches = stencil_matvec.launches_bf16c = 0
 
 
-def embed(A):
+def embed(A, coef_dtype=None):
     """(C, K, coef) of a StencilMatrix (C, K blocks) or a ScalarStencil
-    (C = K = 1), coefficients from ``lattice_coefficients``."""
+    (C = K = 1), coefficients from ``lattice_coefficients``, cast once to
+    ``coef_dtype`` (None: as assembled; ``torch.bfloat16`` halves the
+    block)."""
     if A.diag.ndim == 3:  # StencilMatrix (C, K, n)
         C, K = A.diag.shape[0], A.diag.shape[1]
         diag, plus, minus = A.diag, A.plus, A.minus
@@ -165,16 +223,25 @@ def embed(A):
         diag = A.diag.reshape(1, 1, -1)
         plus = {a: v[None, None] for a, v in A.plus.items()}
         minus = {a: v[None, None] for a, v in A.minus.items()}
-    return C, K, lattice_coefficients(tuple(A.L), diag, plus, minus)
+    coef = lattice_coefficients(tuple(A.L), diag, plus, minus)
+    if coef_dtype is not None and coef_dtype != coef.dtype:
+        # an even number of elements in the storage: K5 reads bfloat16
+        # coefficients as 4-byte words, the last one may hold a padding half
+        n = coef.numel()
+        buf = torch.zeros(n + n % 2, dtype=coef_dtype, device=coef.device)
+        buf[:n] = coef.reshape(-1)
+        coef = buf[:n].view(coef.shape)
+    return C, K, coef
 
 
 class StencilMatvec:
     """Matvec for a StencilMatrix / ScalarStencil through K1: embeds the
-    coefficients once (per Jacobian), then maps (n, K) or (n,) vectors."""
+    coefficients once (per Jacobian), in ``coef_dtype`` if given, then
+    maps (n, K) or (n,) vectors."""
 
-    def __init__(self, A):
+    def __init__(self, A, coef_dtype=None):
         self.L = tuple(A.L)
-        self.C, self.K, self.coef = embed(A)
+        self.C, self.K, self.coef = embed(A, coef_dtype)
 
     def __call__(self, x):
         if x.ndim == 1:
@@ -193,6 +260,7 @@ def scalar_jacobi_plain(coef, b, u, omega: float, mode: int, L):
     """Plain version of K2 with B2/B3's arithmetic (``coef`` (7, 1, n)):
     mode 0 ``omega*b*dinv``; mode 1 ``b - A u``; mode 2
     ``u + omega*(b - A u)*dinv``; ``dinv = where(d != 0, 1/d, 0)``."""
+    coef = _wide(coef, b)
     d = coef[0, 0]
     dinv = torch.where(d != 0, 1.0 / d, torch.zeros_like(d))
     if mode == MODE_INIT:
@@ -211,7 +279,7 @@ def scalar_jacobi(coef, b, u, omega: float, mode: int, L):
     nz, ny, nx = L
     n = nz * ny * nx
     b = b.contiguous()
-    _require(coef, b, "scalar_jacobi coef")
+    entry, narrow = _coef_entry(coef, b, "scalar_jacobi coef")
     if b.shape != (n,) or coef.shape != (TERMS, 1, n):
         raise ValueError(f"scalar_jacobi: bad shapes b {tuple(b.shape)}, "
                          f"coef {tuple(coef.shape)} for L={L}")
@@ -224,14 +292,14 @@ def scalar_jacobi(coef, b, u, omega: float, mode: int, L):
         u_ptr = u.data_ptr()
     out = torch.empty_like(b)
     lib = load_library()
-    check(lib.fn("jt_scalar_jacobi", dtype_suffix(b))(
+    check(lib.fn("jt_scalar_jacobi", entry)(
         coef.data_ptr(), b.data_ptr(), u_ptr, out.data_ptr(), float(omega),
         int(mode), nz, ny, nx, stream_handle()), "scalar_jacobi")
-    scalar_jacobi.launches += 1
+    _count(scalar_jacobi, narrow)
     return out
 
 
-scalar_jacobi.launches = 0
+scalar_jacobi.launches = scalar_jacobi.launches_bf16c = 0
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +319,7 @@ def scalar_jacobi_phase_plain(coef, b, u, omega: float, n_sweep: int,
     """Plain version of K5: K2's plain loop — ``n_sweep`` weighted-Jacobi
     sweeps from ``u`` (None: from zero, the first sweep ``omega*b*dinv``),
     then the residual ``b - A u`` if asked. Returns (u, r or None)."""
+    coef = _wide(coef, b)
     if u is None:
         u = scalar_jacobi_plain(coef, b, None, omega, MODE_INIT, L)
         n_sweep -= 1
@@ -284,7 +353,8 @@ def _launch_phase(coef, b, u, omega, n_sweep, emit_residual, L, tz=0):
                          f"(n_sweep={n_sweep}, residual={emit_residual}); "
                          f"one launch takes 0..{PHASE_MAX_DEPTH}")
     b = b.contiguous()
-    _require(coef, b, "scalar_jacobi_phase coef")
+    entry, narrow = _coef_entry(coef, b, "scalar_jacobi_phase coef",
+                                word_reads=True)
     if b.shape != (n,) or coef.shape != (TERMS, 1, n):
         raise ValueError(f"scalar_jacobi_phase: bad shapes b {tuple(b.shape)},"
                          f" coef {tuple(coef.shape)} for L={L}")
@@ -299,28 +369,34 @@ def _launch_phase(coef, b, u, omega, n_sweep, emit_residual, L, tz=0):
     u_out = torch.empty_like(b)
     r_out = torch.empty_like(b) if emit_residual else None
     lib = load_library()
-    check(lib.fn("jt_scalar_jacobi_phase", dtype_suffix(b))(
+    check(lib.fn("jt_scalar_jacobi_phase", entry)(
         coef.data_ptr(), b.data_ptr(), u_ptr, u_out.data_ptr(),
         None if r_out is None else r_out.data_ptr(), float(omega),
         int(n_sweep), int(u is None), nz, ny, nx, int(tz), stream_handle()),
         "scalar_jacobi_phase")
-    scalar_jacobi_phase.launches += 1
+    _count(scalar_jacobi_phase, narrow)
     return u_out, r_out
 
 
-def phase_plan(dtype, n_sweep: int, from_zero: bool, emit_residual: bool, L):
+def phase_plan(dtype, n_sweep: int, from_zero: bool, emit_residual: bool, L,
+               coef_dtype=None):
     """(z-chunk depth tz, blocks, resident blocks per SM) of the plan K5's
     planner picks for a phase on the card (csrc ``choose_phase_plan``), for
-    reports."""
+    reports. ``coef_dtype=torch.bfloat16``: the bfloat16-coefficient entry's
+    plan (float32 vectors)."""
     out = (ctypes.c_int * 3)()
-    check(load_library().fn("jt_scalar_jacobi_phase_plan",
-                            dtype_suffix(torch.empty(0, dtype=dtype)))(
+    suffix = dtype_suffix(torch.empty(0, dtype=dtype))
+    if coef_dtype == torch.bfloat16:
+        if dtype != torch.float32:
+            raise TypeError("bfloat16 coefficients: float32 vectors only")
+        suffix = "bf16c_f32"
+    check(load_library().fn("jt_scalar_jacobi_phase_plan", suffix)(
         int(n_sweep), int(from_zero), int(emit_residual), *L,
         ctypes.cast(out, ctypes.c_void_p)), "phase_plan")
     return tuple(out)
 
 
-scalar_jacobi_phase.launches = 0
+scalar_jacobi_phase.launches = scalar_jacobi_phase.launches_bf16c = 0
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +412,7 @@ def scalar_chebyshev_plain(coef, b, u, d, steps, step: int, mode: int, L):
     ``d' = (dinv*(b - A u))/theta``, ``u' = u + d'``; mode 2
     ``d' = c1*d + c2*(dinv*(b - A u))``, ``u' = u + d'`` with
     ``(c1, c2) = steps[step]``. Returns (u', d')."""
+    coef = _wide(coef, b)
     d0 = coef[0, 0]
     dinv = torch.where(d0 != 0, 1.0 / d0, torch.zeros_like(d0))
     if mode == CHEB_ZERO:
@@ -358,7 +435,7 @@ def scalar_chebyshev(coef, b, u, d, steps, step: int, mode: int, L):
     nz, ny, nx = L
     n = nz * ny * nx
     b = b.contiguous()
-    _require(coef, b, "scalar_chebyshev coef")
+    entry, narrow = _coef_entry(coef, b, "scalar_chebyshev coef")
     _require(steps, b, "scalar_chebyshev steps")
     if b.shape != (n,) or coef.shape != (TERMS, 1, n) or steps.ndim != 2 \
             or steps.shape[1] != 2 or not 0 <= step < steps.shape[0]:
@@ -380,16 +457,16 @@ def scalar_chebyshev(coef, b, u, d, steps, step: int, mode: int, L):
     d_out = torch.empty_like(b)
     u_out = None if mode == CHEB_ZERO else torch.empty_like(b)
     lib = load_library()
-    check(lib.fn("jt_scalar_chebyshev", dtype_suffix(b))(
+    check(lib.fn("jt_scalar_chebyshev", entry)(
         coef.data_ptr(), b.data_ptr(), ptrs[0], ptrs[1], steps.data_ptr(),
         None if u_out is None else u_out.data_ptr(), d_out.data_ptr(),
         int(step), int(mode), nz, ny, nx, stream_handle()),
         "scalar_chebyshev")
-    scalar_chebyshev.launches += 1
+    _count(scalar_chebyshev, narrow)
     return (d_out if u_out is None else u_out), d_out
 
 
-scalar_chebyshev.launches = 0
+scalar_chebyshev.launches = scalar_chebyshev.launches_bf16c = 0
 
 
 class ScalarLevel:
@@ -407,11 +484,15 @@ class ScalarLevel:
     The Chebyshev hooks take the level's per-step scalar table
     (``linsolve.cheby.chebyshev_steps``, built once per CPR update) where
     the JAX hooks take ``lmax`` and ``lower``; the residual after a
-    Chebyshev presmooth is K2's residual pass."""
+    Chebyshev presmooth is K2's residual pass.
 
-    def __init__(self, A, phase_kernel: bool = False):
+    ``coef_dtype=torch.bfloat16`` stores the level's coefficients in
+    bfloat16 (``GMG(coef_dtype="bf16")``): every hook then reads half the
+    coefficient bytes and computes in the vectors' dtype."""
+
+    def __init__(self, A, phase_kernel: bool = False, coef_dtype=None):
         self.L = tuple(A.L)
-        _, _, self.coef = embed(A)  # (7, 1, n)
+        _, _, self.coef = embed(A, coef_dtype)  # (7, 1, n)
         self.phase_kernel = bool(phase_kernel)
 
     def _pass(self, b, u, omega, mode):

@@ -142,6 +142,13 @@ class StencilCompiledModel:
                 diag[:, j] += tj.T
         return r, diag, U
 
+    def residual(self, state, state0, dt, forces=None):
+        """The residual (n, neq) alone, in the dtype of the states it is
+        given: ``assemble`` with the Jacobian dropped (the flux kernel
+        makes residual and Jacobian blocks in one pass, so there is no
+        cheaper form here)."""
+        return self.assemble(state, state0, dt, forces)[0]
+
     def assemble(self, state, state0, dt, forces=None):
         """Residual (n, neq), StencilMatrix and the secondary-evaluated
         state (see ``assemble_evaluated``)."""
@@ -312,6 +319,29 @@ def _coarsen_scalar(A: ScalarStencil, f: int = 2) -> ScalarStencil:
     return ScalarStencil(cL, diag_c.reshape(-1), plus_c, minus_c)
 
 
+def _prolong_linear(e_lat, fine_L):
+    """Trilinear cell-centred prolongation (Wesseling): each fine child
+    sits a quarter coarse cell off its parent's centre, so along every
+    coarsened axis the child value is 3/4 parent + 1/4 nearest neighbour
+    (edge-clamped). With the piecewise-constant restriction the transfer
+    orders are 2 + 1 > the operator's order 2, which injection (order 1)
+    misses."""
+    for axis in range(3):
+        n = e_lat.shape[axis]
+        if fine_L[axis] == n:  # axis not coarsened
+            continue
+        lo = e_lat.narrow(axis, 0, 1)
+        hi = e_lat.narrow(axis, n - 1, 1)
+        e_minus = torch.cat([lo, e_lat.narrow(axis, 0, n - 1)], dim=axis)
+        e_plus = torch.cat([e_lat.narrow(axis, 1, n - 1), hi], dim=axis)
+        even = 0.75 * e_lat + 0.25 * e_minus
+        odd = 0.75 * e_lat + 0.25 * e_plus
+        sh = list(e_lat.shape)
+        sh[axis] = 2 * n
+        e_lat = torch.stack([even, odd], dim=axis + 1).reshape(sh)
+    return e_lat
+
+
 def _cheby_setup(A: ScalarStencil):
     """Per-level Chebyshev data: inverse diagonal + a Gershgorin upper
     bound on lambda_max(D^-1 A) (one coefficient pass, no power
@@ -343,8 +373,21 @@ def _cheby_smooth(lv, dinv, lmax, u, b, n_sweep, lower=0.25):
 
 class GMG:
     """Geometric multigrid V-cycle on a scalar 7-point stencil (the CPR
-    pressure stage on structured grids): piecewise-constant restriction
-    and injection prolongation, factor-2 coarsening.
+    pressure stage on structured grids): piecewise-constant restriction,
+    injection or trilinear prolongation, coarsening by ``coarsen_factor``
+    per axis (2: classical cell-centred multigrid; 4 halves the level
+    count for a weaker cycle with half the launches).
+
+    ``prolongation``: "injection" or "linear" (``_prolong_linear``;
+    factor 2 only).
+
+    ``coef_dtype``: None/"f32" keep the level coefficients as assembled;
+    "bf16" stores what the level kernels (K2, K4, K5) and CPR's stage-2
+    matvec (K1, K=1) read in bfloat16, at half the bytes, widened on load
+    with the arithmetic in the vectors' dtype. The hierarchy's Galerkin
+    coarsening and the Chebyshev bound stay in full precision. GMG is a
+    preconditioner, so this moves iteration counts a little and the
+    converged answer not at all.
 
     ``smoother``: "jacobi" (weighted Jacobi through the K2 level kernel)
     or "chebyshev" (polynomial smoothing on [cheby_lower*lmax, lmax]
@@ -359,29 +402,48 @@ class GMG:
     def __init__(self, omega: float = 0.8, n_smooth: int = 2,
                  n_coarse_sweeps: int = 40, min_cells: int = 32,
                  max_levels: int = 10, smoother: str = "jacobi",
-                 cheby_lower: float = 0.25):
+                 cheby_lower: float = 0.25, prolongation: str = "injection",
+                 coef_dtype: str | None = None, coarsen_factor: int = 2):
         self.omega = omega
         self.n_smooth = n_smooth
         self.n_coarse_sweeps = n_coarse_sweeps
         self.min_cells = min_cells
         self.max_levels = max_levels
+        if int(coarsen_factor) < 2:
+            raise ValueError("coarsen_factor must be >= 2")
+        self.coarsen_factor = int(coarsen_factor)
+        if prolongation == "linear" and self.coarsen_factor != 2:
+            raise ValueError("prolongation='linear' requires "
+                             "coarsen_factor=2")
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
         self.smoother = smoother
         self.cheby_lower = cheby_lower
+        if prolongation not in ("injection", "linear"):
+            raise ValueError(f"unknown prolongation {prolongation!r}")
+        self.prolongation = prolongation
+        if coef_dtype not in (None, "bf16", "f32"):
+            raise ValueError(f"unknown coef_dtype {coef_dtype!r}")
+        self.coef_dtype = coef_dtype
         self.slab_double_buffer = False
+
+    def coef_torch_dtype(self):
+        """The dtype the level kernels' coefficients are stored in: None
+        (as assembled) or ``torch.bfloat16``."""
+        return torch.bfloat16 if self.coef_dtype == "bf16" else None
 
     def hierarchy(self, A: ScalarStencil) -> list:
         ops = [A]
         for _ in range(self.max_levels):
             if ops[-1].n <= self.min_cells:
                 break
-            ops.append(_coarsen_scalar(ops[-1]))
+            ops.append(_coarsen_scalar(ops[-1], self.coarsen_factor))
         return ops
 
     def matvecs(self, ops: list) -> list:
         """Per-level fused level ops, built once per update."""
-        return [ScalarLevel(A, phase_kernel=self.slab_double_buffer)
+        return [ScalarLevel(A, phase_kernel=self.slab_double_buffer,
+                            coef_dtype=self.coef_torch_dtype())
                 for A in ops]
 
     def cheby_data(self, ops: list) -> list | None:
@@ -415,18 +477,23 @@ class GMG:
         else:
             u, r = lv.presmooth_residual(b, self.omega, self.n_smooth)
         # restrict (pw-constant sum) onto the padded lattice
+        f = self.coarsen_factor
         L = ops[level].L
-        PL = _padded_L(L)
+        PL = _padded_L(L, f)
         rc = F.pad(r.reshape(L), _lat_pad(L, PL))
         for axis, n in enumerate(PL):
             if n > 1:
-                rc = _fold(rc, axis)
+                rc = _fold(rc, axis, f)
         ec = self.vcycle(ops, rc.reshape(-1), level + 1, mvs, cheb)
-        # prolong: inject the coarse value into each child cell
+        # prolong: inject the coarse value into each child cell, or
+        # interpolate it trilinearly (prolongation="linear", f = 2 only)
         e_lat = ec.reshape(ops[level + 1].L)
-        for axis, n in enumerate(PL):
-            if n > 1:
-                e_lat = torch.repeat_interleave(e_lat, 2, dim=axis)
+        if self.prolongation == "linear":
+            e_lat = _prolong_linear(e_lat, PL)
+        else:
+            for axis, n in enumerate(PL):
+                if n > 1:
+                    e_lat = torch.repeat_interleave(e_lat, f, dim=axis)
         e_lat = e_lat[: L[0], : L[1], : L[2]]
         u = u + e_lat.reshape(-1)
         if cheb is not None:
@@ -482,9 +549,17 @@ class StencilCPR:
             A.L, A.diag[:, p:p + 1, :],
             {a: v[:, p:p + 1] for a, v in A.plus.items()},
             {a: v[:, p:p + 1] for a, v in A.minus.items()})
-        return StencilCPRState(w, dinv, ops, self.gmg.matvecs(ops),
-                               StencilMatvec(A), StencilMatvec(col),
-                               self.gmg.cheby_data(ops))
+        # mv_A is the Krylov OPERATOR and stays in full precision; mv_Ap
+        # only feeds the stage-2 preconditioner correction, so it may read
+        # its coefficients in the GMG's reduced coefficient dtype
+        mv_A = StencilMatvec(A)
+        if mv_A.coef.dtype != A.diag.dtype:
+            raise AssertionError("the Krylov operator's coefficients must "
+                                 "never be narrowed")
+        return StencilCPRState(
+            w, dinv, ops, self.gmg.matvecs(ops), mv_A,
+            StencilMatvec(col, coef_dtype=self.gmg.coef_torch_dtype()),
+            self.gmg.cheby_data(ops))
 
     def apply(self, state: StencilCPRState, A: StencilMatrix, x):
         """x (n, neq) residual -> du (n, ndof)."""

@@ -291,6 +291,11 @@ class BorderedStencilModel:
         return diag, D_ww
 
     # -- assemble ---------------------------------------------------------
+    def residual(self, state, state0, dt, forces=None):
+        """The residual (nc+nw, neq) alone, in the dtype of the states it
+        is given: ``assemble`` with the Jacobian dropped."""
+        return self.assemble(state, state0, dt, forces)[0]
+
     def assemble(self, state, state0, dt, forces=None):
         """(r (nc+nw, neq), BorderedStencilMatrix, secondary-evaluated
         state). Secondaries and the accumulation term are evaluated once

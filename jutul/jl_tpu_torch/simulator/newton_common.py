@@ -1,12 +1,19 @@
 """Newton convergence bookkeeping shared by the simulator.
 
-Port of the JAX package's ``simulator/newton_common.py`` parts that the
-eager Newton loop uses (reference: check_convergence, models.jl:818-884).
-The in-jit pieces (Eisenstat-Walker forcing, while-loop predicates) belong
-to the jitted paths, which are not ported yet.
+Port of the JAX package's ``simulator/newton_common.py`` (reference:
+check_convergence, models.jl:818-884): the tolerance lookup and scaled error
+of both Newton loops, and the pieces of the check-before-solve loop behind
+``solve_ministep_jit`` / ``simulate_jit`` — Eisenstat-Walker forcing, the
+loop's continue rule and the ministep's acceptance rule. The JAX package
+traces these inside ``lax.while_loop``; here they are plain functions on host
+floats (0-d tensors work too, at one host read per comparison).
 """
 
 from __future__ import annotations
+
+import math
+
+import torch
 
 
 def tolerance_for(eq_name: str, crit_name: str, tols, equations=(),
@@ -42,3 +49,54 @@ def scaled_error(crit, tols, equations=(), model=None) -> float:
             tol = tolerance_for(eq_name, crit_name, tols, equations, model)
             worst = max(worst, float(arr.max()) / tol)
     return worst
+
+
+def scaled_error_and_residual(crit, r, tols, equations=(), model=None):
+    """(worst error/tolerance, max |r|) as host floats from ONE device read:
+    every criterion's maximum is divided by its tolerance in the working
+    dtype (as the reference's traced ``jnp.max(arr) / tol``), reduced on the
+    device — NaN propagates — and stacked with the residual's maximum."""
+    scaled = [arr.max() / tolerance_for(eq_name, crit_name, tols, equations,
+                                        model)
+              for eq_name, criteria in crit.items()
+              for crit_name, arr in criteria.items()]
+    rmax = torch.amax(torch.abs(r))
+    worst = (torch.clamp_min(torch.stack(scaled).amax(), 0.0) if scaled
+             else torch.zeros_like(rmax))
+    err, rnorm = torch.stack([worst.to(rmax.dtype), rmax]).tolist()
+    return err, rnorm
+
+
+# Eisenstat-Walker choice 2 constants: eta_k = gamma (e_k/e_{k-1})^2
+# clipped to [eta_min, eta_max]; the first iteration (err_prev = inf)
+# uses eta_max.
+EW_GAMMA = 0.9
+EW_ETA_MIN = 1e-4
+EW_ETA_MAX = 0.1
+
+
+def ew_eta(err, err_prev):
+    """The Eisenstat-Walker forcing tolerance of this Newton iteration, in
+    double precision like the reference's (its scaled error is a float64
+    scalar whatever the state's dtype)."""
+    if math.isfinite(err_prev):
+        ratio = err / max(err_prev, 1e-30)
+        ratio2 = ratio * ratio  # no OverflowError: inf clips to eta_max
+    else:
+        ratio2 = 1.0
+    return min(max(EW_GAMMA * ratio2, EW_ETA_MIN), EW_ETA_MAX)
+
+
+def newton_continue(err, it, bad, min_it: int, max_it: int) -> bool:
+    """Loop condition: keep iterating until (converged AND the minimum
+    iteration count is met) OR divergence, bounded by the cap."""
+    done = (err <= 1.0 and it >= min_it) or bad
+    return bool(not done and it < max_it)
+
+
+def newton_accept(err, its, bad, max_it: int, tol_final: float) -> bool:
+    """Ministep acceptance: converged normally, or within the relaxed
+    tol_factor_final_iteration bound at the iteration cap (reference
+    config.jl tol_factor_final_iteration)."""
+    return bool(not bad and (err <= 1.0 or (its >= max_it
+                                            and err <= tol_final)))

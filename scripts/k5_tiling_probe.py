@@ -1,6 +1,6 @@
 """Time K5 (``scalar_jacobi_phase``) under pinned tilings on a CUDA card.
 
-    python3 scripts/k5_tiling_probe.py [--sass]
+    python3 scripts/k5_tiling_probe.py [--coef bf16] [--k3] [--sass]
 
 For each level shape of the well flagship's Jacobi GMG hierarchy
 ((64, 64, 256), (32, 32, 128), (16, 16, 64)), float32, on a seeded
@@ -13,6 +13,8 @@ instruction count of each K5 and K3 kernel from cuobjdump; ``--k3`` also
 times K3 on the source-term flagship (256x64x64, float32, as chip_smoke.py
 ``phase_kernels``): three per-axis launches against the three-axis launch,
 in turns, after checking them bitwise equal.
+``--coef bf16`` times the bfloat16-coefficient entries of K5 and K2 instead
+(float32 vectors) and reports that entry's planner choice.
 Not a check: it prints a table and the card's name and power limit.
 """
 
@@ -39,15 +41,15 @@ DEPTHS = {0: (1, True, False), 1: (2, True, False), 2: (2, True, True),
           3: (3, True, True), 4: (4, True, True)}
 
 
-def level(L, gen):
+def level(L, gen, coef_dtype=None):
     nz, ny, nx = L
     n = nz * ny * nx
     shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
     rnd = lambda *s: torch.rand(*s, generator=gen, device="cuda")  # noqa: E731
     A = ScalarStencil(L, rnd(n) + 6.0, {a: -rnd(*s) for a, s in shapes.items()},
                       {a: -rnd(*s) for a, s in shapes.items()})
-    return SK.ScalarLevel(A).coef, torch.randn(n, generator=gen,
-                                                device="cuda")
+    return SK.ScalarLevel(A, coef_dtype=coef_dtype).coef, torch.randn(
+        n, generator=gen, device="cuda")
 
 
 def sass_counts():
@@ -99,21 +101,27 @@ def main():
     if "--k3" in sys.argv:
         print(json.dumps(k3_rows()), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
+    coef_dtype = None
+    if "--coef" in sys.argv:
+        name = sys.argv[sys.argv.index("--coef") + 1]
+        coef_dtype = {"bf16": torch.bfloat16, "f32": None}[name]
     rows = []
     for L in LEVELS:
-        coef, b = level(L, gen)
+        coef, b = level(L, gen, coef_dtype)
         nz = L[0]
         k2 = graph_ms(lambda: SK.scalar_jacobi(coef, b, b, 0.8,
                                                SK.MODE_SMOOTH, L))
         for depth, (ns, zero, res) in DEPTHS.items():
             u = None if zero else b
-            plan = SK.phase_plan(torch.float32, ns, zero, res, L)
+            plan = SK.phase_plan(torch.float32, ns, zero, res, L,
+                                 coef_dtype=coef_dtype)
             for tz in sorted({1, 2, 4, 8, 16, 32, 64, plan[0]}):
                 if tz > nz:
                     continue
                 ms = graph_ms(lambda: SK._launch_phase(coef, b, u, 0.8, ns,
                                                        res, L, tz))
-                rows.append({"L": L, "depth": depth, "tz": tz, "ms": ms,
+                rows.append({"L": L, "coef": str(coef.dtype), "depth": depth,
+                             "tz": tz, "ms": ms,
                              "planned": plan[0] == tz, "k2_pass_ms": k2})
                 print(json.dumps(rows[-1]), flush=True)
     if "--sass" in sys.argv:

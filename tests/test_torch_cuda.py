@@ -317,4 +317,165 @@ def test_launch_counters_reset(dev):
     assert kernels.launch_counts() == {
         "stencil_matvec": 1, "scalar_jacobi": 0, "darcy_flux_jacobian": 0,
         "darcy_flux_jacobian_lattice": 0, "scalar_chebyshev": 0,
-        "scalar_jacobi_phase": 0, "fused_alpha_s": 0, "fused_omega_update": 0}
+        "scalar_jacobi_phase": 0, "fused_alpha_s": 0, "fused_omega_update": 0,
+        "stencil_matvec_bf16c": 0, "scalar_jacobi_bf16c": 0,
+        "scalar_chebyshev_bf16c": 0, "scalar_jacobi_phase_bf16c": 0}
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 coefficients: each entry on c.to(bfloat16) equals the float32
+# entry on c.to(bfloat16).to(float32) bit for bit (the coefficient is widened
+# at its load and nothing else changes), at ragged extents with an odd cell
+# count, and stays within TOL of its plain version
+# ---------------------------------------------------------------------------
+RAGGED = [(9, 13, 37), (16, 16, 64), (5, 7, 3)]
+
+
+def _scalar_coef(L_, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    nz, ny, nx = L_
+    n = nz * ny * nx
+    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    d = rnd(n).abs() + 6.0
+    d[::11] = 0.0  # dead rows: dinv = 0 from the widened diagonal
+    A = ScalarStencil(L_, d.to(dev),
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()},
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()})
+    c16 = SK.ScalarLevel(A, coef_dtype=torch.bfloat16).coef
+    assert c16.dtype == torch.bfloat16
+    return c16, c16.to(torch.float32), rnd(n).to(dev), rnd(n).to(dev), \
+        rnd(n).to(dev)
+
+
+@pytest.mark.parametrize("L_", RAGGED)
+@pytest.mark.parametrize("C,K", [(2, 1), (2, 2), (1, 1), (3, 2)])
+def test_k1_bf16_coefficients_bitwise(dev, L_, C, K):
+    g = torch.Generator().manual_seed(11)
+    nz, ny, nx = L_
+    n = nz * ny * nx
+    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+    M = StencilMatrix(L_, rnd(C, K, n),
+                      {a: rnd(C, K, *s) for a, s in shapes.items()},
+                      {a: rnd(C, K, *s) for a, s in shapes.items()})
+    mv16 = SK.StencilMatvec(M, coef_dtype=torch.bfloat16)
+    x = rnd(n, K)
+    before = SK.stencil_matvec.launches_bf16c, SK.stencil_matvec.launches
+    y16 = mv16(x)
+    assert (SK.stencil_matvec.launches_bf16c, SK.stencil_matvec.launches) \
+        == (before[0] + 1, before[1])
+    y32 = SK.stencil_matvec(mv16.coef.to(torch.float32), x, L_, C, K)
+    assert y16.dtype == torch.float32 and torch.equal(y16, y32)
+    assert _rel(y16, SK.stencil_matvec_plain(mv16.coef, x, L_, C, K)) \
+        <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("L_", RAGGED)
+def test_k2_bf16_coefficients_bitwise(dev, L_):
+    c16, c32, b, u, _ = _scalar_coef(L_, dev, 12)
+    for mode in (SK.MODE_INIT, SK.MODE_RESIDUAL, SK.MODE_SMOOTH):
+        before = SK.scalar_jacobi.launches_bf16c
+        got = SK.scalar_jacobi(c16, b, u, 0.8, mode, L_)
+        assert SK.scalar_jacobi.launches_bf16c == before + 1
+        assert torch.equal(got, SK.scalar_jacobi(c32, b, u, 0.8, mode, L_))
+        assert _rel(got, SK.scalar_jacobi_plain(c16, b, u, 0.8, mode, L_)) \
+            <= TOL[torch.float32], mode
+
+
+@pytest.mark.parametrize("L_", RAGGED)
+def test_k4_bf16_coefficients_bitwise(dev, L_):
+    from jutul.jl_tpu_torch.linsolve.cheby import chebyshev_steps
+
+    c16, c32, b, u, d = _scalar_coef(L_, dev, 13)
+    steps = chebyshev_steps(torch.tensor(1.9, device=dev), 0.25, 12)
+    for mode, k in ((SK.CHEB_ZERO, 0), (SK.CHEB_FIRST, 0), (SK.CHEB_STEP, 1),
+                    (SK.CHEB_STEP, 11)):
+        before = SK.scalar_chebyshev.launches_bf16c
+        got = SK.scalar_chebyshev(c16, b, u, d, steps, k, mode, L_)
+        assert SK.scalar_chebyshev.launches_bf16c == before + 1
+        want = SK.scalar_chebyshev(c32, b, u, d, steps, k, mode, L_)
+        ref = SK.scalar_chebyshev_plain(c16, b, u, d, steps, k, mode, L_)
+        for gv, wv, rv in zip(got, want, ref):
+            assert torch.equal(gv, wv), (mode, k)
+            assert _rel(gv, rv) <= TOL[torch.float32], (mode, k)
+
+
+@pytest.mark.parametrize("L_", RAGGED)
+def test_k5_bf16_coefficients_bitwise_at_every_depth_and_tiling(dev, L_):
+    """Every depth 0-4 under the planner's z-chunk depth and pinned ones:
+    the bfloat16 entry equals the float32 entry on the widened
+    coefficients, and so the K2 chain on them, bit for bit."""
+    c16, c32, b, u, _ = _scalar_coef(L_, dev, 14)
+    nz = L_[0]
+    for u0 in (None, u):
+        for n_sweep in range(0 if u0 is not None else 1, 6):
+            for res in (False, True):
+                if SK._phase_depth(u0, n_sweep, res) > SK.PHASE_MAX_DEPTH:
+                    continue
+                want = _k2_chain(c32, b, u0, 0.8, n_sweep, res, L_)
+                for tz in (0, 1, 3, 5, nz):
+                    before = SK.scalar_jacobi_phase.launches_bf16c
+                    got = SK._launch_phase(c16, b, u0, 0.8, n_sweep, res, L_,
+                                           tz)
+                    assert SK.scalar_jacobi_phase.launches_bf16c == before + 1
+                    mid = SK._launch_phase(c32, b, u0, 0.8, n_sweep, res, L_,
+                                           tz)
+                    for gv, mv_, wv in zip(got, mid, want):
+                        assert (gv is None) == (wv is None)
+                        if wv is not None:
+                            assert torch.equal(gv, mv_) and \
+                                torch.equal(gv, wv), (u0 is None, n_sweep,
+                                                      res, tz)
+    ref = SK.scalar_jacobi_phase_plain(c16, b, None, 0.8, 2, True, L_)
+    got = SK.scalar_jacobi_phase(c16, b, None, 0.8, 2, True, L_)
+    assert _rel(torch.stack(got), torch.stack(ref)) <= TOL[torch.float32]
+
+
+def test_bf16_coefficients_refuse_float64_vectors(dev):
+    c16, _, b, u, _ = _scalar_coef((5, 7, 3), dev, 15)
+    with pytest.raises(TypeError):
+        SK.scalar_jacobi(c16, b.double(), u.double(), 0.8, SK.MODE_SMOOTH,
+                         (5, 7, 3))
+    # K5 reads bfloat16 coefficients as 4-byte words: an odd count (7 * 105)
+    # without embed's padding element is refused
+    with pytest.raises(ValueError, match="padding"):
+        SK._launch_phase(c16.clone(), b, u, 0.8, 2, False, (5, 7, 3))
+
+
+@pytest.mark.parametrize("coef_dtype", [None, "bf16"])
+def test_schedule_path_on_the_card_matches_the_cpu(dev, coef_dtype):
+    """``simulate_jit`` with Eisenstat-Walker forcing on the well flagship
+    at 8x8x6 (``chip_smoke.WELL_SMALL_EW`` says why not 10x10x6): on the
+    card (kernels) against the CPU (plain versions).
+    float64 with full-precision coefficients: identical counts, states
+    within 1e-9. bfloat16 coefficients take float32 vectors on the card, so
+    that run is float32 and held to success and the launch counters."""
+    import chip_smoke
+    from jutul.jl_tpu_torch import Simulator
+
+    model, state0, params, forces = chip_smoke.build_well_flagship(
+        *chip_smoke.WELL_SMALL_EW)
+    dtype = torch.float64 if coef_dtype is None else torch.float32
+    runs = {}
+    for device in (dev, "cpu"):
+        sim = Simulator(model, state0, params, device=device, dtype=dtype)
+        kernels.reset_launch_counts()
+        res = sim.simulate_jit(
+            [chip_smoke.DT] * 2, forces=chip_smoke.rate_schedule(forces, 2),
+            **chip_smoke.sim_config(64, coef_dtype=coef_dtype, product=True))
+        assert all(r["success"] for r in res.reports)
+        runs[device] = (res, kernels.launch_counts())
+    (gres, gcount), (cres, ccount) = runs[dev], runs["cpu"]
+    assert not any(ccount.values())  # plain versions count no launch
+    if coef_dtype == "bf16":
+        assert gcount["scalar_jacobi_bf16c"] and \
+            gcount["stencil_matvec_bf16c"] and not gcount["scalar_jacobi"]
+        return
+    assert gcount["scalar_jacobi"] and not gcount["scalar_jacobi_bf16c"]
+    rec = lambda r: [(m["iterations"], m["linear_iterations"], m["success"])  # noqa: E731
+                     for s in r.reports for m in s["ministeps"]]
+    assert rec(gres) == rec(cres)
+    g, c = gres.states[-1], cres.states[-1]
+    assert float(abs(g["Pressure"] / c["Pressure"] - 1).max()) <= 1e-9
+    assert float(abs(g["Saturations"] - c["Saturations"]).max()) <= 1e-9
