@@ -21,7 +21,8 @@ failure (nothing is caught, so any failure exits non-zero):
    whole Jacobi phases on every level of its Jacobi hierarchy, which must
    equal the K2 chain bit for bit and is timed per level and hook beside
    it; K6/K7 fused BiCGStab body at the Schur system's 2,097,152
-   values, also against a second call, bitwise); beside each, its bound
+   values, also against a second call, bitwise; K1 on the adjoint's
+   transposed operator with the dot identity); beside each, its bound
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s, the larger) and, for
    K1, one cuSPARSE SpMV (torch.sparse.mm) of the same matrix in CSR;
 4. warm-up: the three slices at 16x16x8 on the card (first use of each op);
@@ -58,6 +59,15 @@ failure (nothing is caught, so any failure exits non-zero):
    ``wells-product``'s last accepted ministep with the bench's settings
    (float64 polish, tol 1e-8), all on the card: the final max|r| must be
    finite and below the start's;
+8c. the adjoint, as bench.py's run_adjoint runs it: ``wells-adjoint`` (the
+   well flagship at full width, 2 report steps of 1.5 h through the
+   schedule path, then ``solve_adjoint_sensitivities_jit`` of
+   G = dt sum(S_w^2) / nc, cold and warm: the λ-solves run K1 and K2 on the
+   transposed bordered matrix, each step's Jacobian one three-axis and one
+   per-axis K3 launch, the differentiable residual none); ``adjoint-dot``
+   (bench.py's dot test in float64 at 64x32x32: <g, δ> within 1e-3 of the
+   central difference); ``history-match`` (3 unit-box L-BFGS iterations of
+   ``setup_parameter_optimization`` at 64x32x32 must lower the misfit);
 9. A/B at 64x32x32 on the card, float32: both opt-ins, the K5 phases
    alone, neither, and neither from a 2-ulp perturbed initial pressure.
    The phases alone must reproduce "neither" bit for bit; the fused body
@@ -68,7 +78,8 @@ failure (nothing is caught, so any failure exits non-zero):
    (kernels) against the CPU (plain versions): identical ministep, Newton
    and linear-iteration counts, states within 1e-9 (the Jacobi-phase one
    without the float32-only fused body); the schedule path with forcing at
-   8x8x6 likewise.
+   8x8x6 likewise; the adjoint's gradients at 8x8x6 in float64 on the card
+   against the CPU's on the same states, within 1e-9.
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
@@ -1048,6 +1059,52 @@ def phase_kernels_bf16(case, records):
         "every level, mode and hook")
 
 
+def phase_kernels_transpose(case, records):
+    """K1 on the adjoint's transposed lattice operator (``stencil_transpose``
+    of the well flagship's assembled matrix: every field a non-contiguous
+    view, which ``embed`` packs) against its plain version, in float32 and
+    float64, and the dot identity <x, A y> = <Aᵀx, y> through K1 (sums in
+    float64: 1e-5 relative at float32, 1e-12 at float64)."""
+    from jutul.jl_tpu_torch import compile_model, from_numpy
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+    from jutul.jl_tpu_torch.ops.stencil import stencil_transpose
+    from jutul.jl_tpu_torch.ops.stencil_wells import BorderedStencilModel
+
+    model, state0, params, forces = case
+    eng = BorderedStencilModel(compile_model(model), "cuda")
+    rec = records["stencil_matvec"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for dtype, dot_tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        full = merge_state(from_numpy(state0, "cuda", dtype),
+                           from_numpy(params, "cuda", dtype))
+        _, B, _ = eng.assemble(full, full, DT, forces)
+        At = stencil_transpose(B.A)
+        if At.diag.is_contiguous():
+            raise RuntimeError("stencil_transpose: expected a view")
+        mv, mv_t = SK.StencilMatvec(B.A), SK.StencilMatvec(At)
+        if not mv_t.coef.is_contiguous():
+            raise RuntimeError("embed left the transposed blocks unpacked")
+        x, y = (torch.randn((B.A.n, 2), generator=gen, device="cuda",
+                            dtype=dtype) for _ in range(2))
+        aty = mv_t(x)
+        rec.compare(dtype, "K1 transposed C=K=2", aty,
+                    SK.stencil_matvec_plain(mv_t.coef, x, mv_t.L, 2, 2))
+        lhs = float(torch.sum((x * mv(y)).double()))
+        rhs = float(torch.sum((aty * y).double()))
+        rel = abs(lhs - rhs) / abs(lhs)
+        log(f"  K1 dot identity [{dtype}]: <x, A y> {lhs:.9e}, "
+            f"<A^T x, y> {rhs:.9e}, rel {rel:.3e}")
+        if not rel <= dot_tol:
+            raise RuntimeError(f"K1 transposed: dot identity off by {rel:.3e}"
+                               f" > {dot_tol:.0e} [{dtype}]")
+        rec.extra[f"transposed_dot_identity_rel_{str(dtype)[6:]}"] = rel
+        if dtype == torch.float32:
+            rec.extra["transposed_graph_ms"] = graph_ms(lambda: mv_t(x))
+        del B, At, mv, mv_t
+        torch.cuda.empty_cache()
+
+
 def phase_kernels_krylov(records):
     """K6/K7 at the Schur system's 2 x 1,048,576 values against their
     plain versions, and against a second call on the same inputs, bitwise
@@ -1394,6 +1451,370 @@ def phase_cross_check(build, dims, smoother, name, phases=False,
     return out
 
 
+ADJ_DT = 1.5 * 3600.0  # bench.py run_adjoint's report step (BENCH_ADJ_DT)
+# kernels the adjoint's sweep must never launch: the opt-in smoothers and
+# Krylov bodies, and every bfloat16 entry
+ADJOINT_FORBIDDEN = ("scalar_chebyshev", "scalar_jacobi_phase",
+                     "fused_alpha_s", "fused_omega_update") + tuple(
+    k for k in KERNEL_INFO if k.endswith("_bf16c"))
+
+
+def adjoint_solvers(fwd_rtol=1e-3, fwd_its=50, lam_rtol=1e-6, lam_its=100):
+    """bench.py run_adjoint's solvers (bench.py:814-817, 863-870): the
+    forward's and the λ-solves' CPR(GMG(2, 12, 16384))-BiCGStab."""
+    from jutul.jl_tpu_torch import GMG, StencilCPR, StencilKrylovSolver
+
+    def solver(rtol, its):
+        return StencilKrylovSolver(
+            preconditioner=StencilCPR(gmg=GMG(
+                n_smooth=2, n_coarse_sweeps=12, min_cells=16384)),
+            rtol=rtol, max_iterations=its)
+
+    return solver(fwd_rtol, fwd_its), solver(lam_rtol, lam_its)
+
+
+def adjoint_forward_config(solver):
+    """bench.py run_adjoint's forward settings (bench.py:822-833)."""
+    return dict(linear_solver=solver,
+                tolerances={"mass_conservation/CNV": CNV_TOL,
+                            "mass_conservation/MB": MB_TOL},
+                max_nonlinear_iterations=15, tol_factor_final_iteration=10.0,
+                jit_report_capacity=16, linear_forcing="ew",
+                output_variables="primary", jit_output_states=True,
+                info_level=-1)
+
+
+def sat_objective(nc):
+    """bench.py run_adjoint's G = dt Σ S_w² / nc (bench.py:858-859), over
+    every row (lattice and wellbore cells), nc the lattice's cells."""
+    def G(model, state, dt, n, forces):
+        return dt * torch.sum(state["Saturations"][:, 0] ** 2) / nc
+    return G
+
+
+def _record_solves(storage):
+    """Wrap ``storage.solve_transposed`` to record each λ-solve's kernel
+    launches (the launch counts' change across the call)."""
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts
+
+    per_solve = []
+    inner = storage.solve_transposed
+
+    def solve(blocks, rhs):
+        before = launch_counts()
+        lam = inner(blocks, rhs)
+        after = launch_counts()
+        per_solve.append({k: after[k] - before[k] for k in after})
+        return lam
+
+    storage.solve_transposed = solve
+    return per_solve
+
+
+def check_adjoint_launches(launches, per_solve, n_step):
+    """K1 and K2 in every λ-solve and nowhere else; the three-axis and the
+    per-axis K3 once per step (that step's Jacobian: the differentiable
+    residual launches nothing); no opt-in kernel, no bfloat16 entry."""
+    for k in ("stencil_matvec", "scalar_jacobi"):
+        if any(s[k] <= 0 for s in per_solve):
+            raise RuntimeError(f"wells-adjoint: {k} missing from a λ-solve: "
+                               f"{per_solve}")
+        if sum(s[k] for s in per_solve) != launches[k]:
+            raise RuntimeError(f"wells-adjoint: {k} launched outside the "
+                               f"λ-solves: {launches}")
+    for k in ("darcy_flux_jacobian", "darcy_flux_jacobian_lattice"):
+        if launches[k] != n_step:
+            raise RuntimeError(f"wells-adjoint: {k} launched {launches[k]} "
+                               f"times in {n_step} steps")
+    stray = [k for k in ADJOINT_FORBIDDEN if launches[k]]
+    if stray:
+        raise RuntimeError(f"wells-adjoint: {stray} launched: {launches}")
+
+
+def phase_adjoint(case, n_step=2, device="cuda"):
+    """bench.py run_adjoint at full width: the schedule-path forward
+    (``lower_schedule`` then ``post(*run(*args))``) over ``n_step`` report
+    steps of 1.5 h, then ``solve_adjoint_sensitivities_jit`` of G over its
+    output states, once cold and once warm, with the λ-solves at rtol 1e-6.
+    The states must be the accepted ministep sequence (one ministep per
+    report step), the gradient finite; ``check_adjoint_launches`` holds the
+    warm sweep's launches. ``overhead`` = sweep / forward run (bench.py's
+    device-side ratio), ``overhead_vs_forward_wall`` with the states'
+    copy to the host included."""
+    from jutul.jl_tpu_torch import (
+        AdjointStorage,
+        Simulator,
+        report_stats,
+        solve_adjoint_sensitivities_jit,
+    )
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model, state0, params, forces = case
+    nc = model.domain.mesh._nc_base
+    fwd, lam = adjoint_solvers()
+    sim = Simulator(model, state0, params, device=device)
+    dts = [ADJ_DT] * n_step
+    run, args, post = sim.lower_schedule(dts, forces=forces,
+                                         **adjoint_forward_config(fwd))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run(*args)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    res = post(*out)
+    t_forward = time.perf_counter() - t0
+    fwd_launches = launch_counts()
+    stats = report_stats(res.reports)
+    if stats["ministeps"] != n_step or not all(r["success"]
+                                               for r in res.reports):
+        raise RuntimeError(f"wells-adjoint: the forward took "
+                           f"{stats['ministeps']} ministeps in {n_step} "
+                           "report steps: its states are not the accepted "
+                           "ministep sequence the adjoint transposes")
+    G = sat_objective(nc)
+    storage = AdjointStorage(model, params, linear_solver=lam, device=device)
+    per_solve = _record_solves(storage)
+
+    def sweep():
+        t0 = time.perf_counter()
+        g = solve_adjoint_sensitivities_jit(
+            model, res.states, dts, G, parameters=params, state0=state0,
+            forces=forces, storage=storage)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, g
+
+    t_cold, _ = sweep()
+    per_solve.clear()
+    storage.lambda_iterations.clear()
+    storage.lambda_converged.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_sweep, g = sweep()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gt = g["Transmissibilities"]
+    if not all(np.all(np.isfinite(v)) for v in g.values()):
+        raise RuntimeError("wells-adjoint: non-finite gradient")
+    check_adjoint_launches(launches, per_solve, n_step)
+    its = list(storage.lambda_iterations)
+    out = {
+        "slice": "wells-adjoint", "cells": model.number_of_cells(),
+        "dtype": "float32", "report_steps": n_step, "dt_s": ADJ_DT,
+        "ministeps": stats["ministeps"], "newtons": stats["newtons"],
+        "linear_iterations": stats["linear_iterations"],
+        "adjoint_states_exact": True,
+        "forward_run_s": t_run, "forward_wall_s": t_forward,
+        "sweep_cold_s": t_cold, "sweep_s": t_sweep,
+        "overhead": t_sweep / t_run,
+        "overhead_vs_forward_wall": t_sweep / t_forward,
+        "lambda_iterations_per_step": its[::-1],  # step order
+        "lambda_converged_per_step": storage.lambda_converged[::-1],
+        "lambda_rtol": lam.rtol,
+        "lambda_max_iterations": lam.max_iterations,
+        "grad_trans_max_abs": float(
+            np.abs(gt).max()),
+        "peak_mem_bytes": peak, "launches": launches,
+        "forward_launches": fwd_launches,
+        "launches_per_lambda_iteration": {
+            k: launches[k] / max(sum(its), 1) for k in (
+                "stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian",
+                "darcy_flux_jacobian_lattice")},
+        "launches_per_lambda_solve": per_solve,
+    }
+    log("# wells-adjoint: " + json.dumps(out))
+    return out, g
+
+
+def _fd_forward(case, params, dts, device, dtype=torch.float64):
+    """The dot test's tight forward (bench.py:742-767): float64,
+    CNV 1e-8 / MB 1e-10, rtol 1e-10 over at most 300 iterations, 40
+    Newtons; one ministep per report step or it raises."""
+    from jutul.jl_tpu_torch import Simulator, report_stats
+
+    model, state0, _, forces = case
+    solver, _ = adjoint_solvers(fwd_rtol=1e-10, fwd_its=300)
+    res = Simulator(model, state0, params, device=device,
+                    dtype=dtype).simulate(
+        dts, forces=forces, linear_solver=solver, info_level=-1,
+        tolerances={"mass_conservation/CNV": 1e-8,
+                    "mass_conservation/MB": 1e-10},
+        max_nonlinear_iterations=40)
+    st = report_stats(res.reports)
+    if not all(r["success"] for r in res.reports) or \
+            st["ministeps"] != len(dts):
+        raise RuntimeError(f"adjoint-dot: the f64 forward took "
+                           f"{st['ministeps']} ministeps in {len(dts)} "
+                           "steps")
+    return res.states
+
+
+def _G_np(states, dts, nc):
+    return sum(dts[i] * float(np.sum(np.asarray(s["Saturations"],
+                                                np.float64)[:, 0] ** 2)) / nc
+               for i, s in enumerate(states))
+
+
+def phase_adjoint_dot(case, n_step=2, hs=(1e-3, 1e-4), device="cuda"):
+    """bench.py's dot test (``_adjoint_dot_test_f64``, bench.py:718-779) on
+    the card: <∇G, δ> against the central difference (G(p + hδ) −
+    G(p − hδ)) / 2h of float64 forwards, δ = T0 ∘ N(0, 1) (seed 7), at
+    bench's h = 1e-3 and at 1e-4. The float64 adjoint (λ-solves at rtol
+    1e-10) must agree to 1e-3 with the difference at the smallest h: at
+    1e-3 the difference's own truncation error (a curved objective) is of
+    the order of the bar at this size, and it falls with h against the
+    same converged adjoint. The float32 sweep (bench's forward and
+    λ-solves) is reported, each with its λ-solves' iterations."""
+    from jutul.jl_tpu_torch import (
+        AdjointStorage,
+        Simulator,
+        report_stats,
+        solve_adjoint_sensitivities_jit,
+    )
+
+    model, state0, params, forces = case
+    nc = model.domain.mesh._nc_base
+    dts = [ADJ_DT] * n_step
+    G = sat_objective(nc)
+    T0 = np.asarray(params["Transmissibilities"], np.float64)
+    delta = T0 * np.random.default_rng(7).normal(size=T0.shape)
+    t0 = time.perf_counter()
+    fds = []
+    for h in hs:
+        g_pm = [_G_np(_fd_forward(case, dict(
+            params, Transmissibilities=T0 + sign * h * delta), dts, device),
+            dts, nc) for sign in (1.0, -1.0)]
+        fds.append((g_pm[0] - g_pm[1]) / (2.0 * h))
+    _, lam64 = adjoint_solvers(lam_rtol=1e-10, lam_its=1000)
+    states64 = _fd_forward(case, params, dts, device)
+    st64 = AdjointStorage(model, params, linear_solver=lam64, device=device,
+                          dtype=torch.float64)
+    g64 = solve_adjoint_sensitivities_jit(
+        model, states64, dts, G, parameters=params, state0=state0,
+        forces=forces, storage=st64)["Transmissibilities"]
+    fwd, lam = adjoint_solvers()
+    res32 = Simulator(model, state0, params, device=device,
+                      dtype=torch.float32).simulate_jit(
+        dts, forces=forces, **adjoint_forward_config(fwd))
+    st32 = AdjointStorage(model, params, linear_solver=lam, device=device,
+                          dtype=torch.float32)
+    g32 = solve_adjoint_sensitivities_jit(
+        model, res32.states, dts, G, parameters=params, state0=state0,
+        forces=forces, storage=st32)["Transmissibilities"]
+    torch.cuda.synchronize()
+    gd64, gd32 = float(np.sum(g64 * delta)), float(np.sum(g32 * delta))
+    fd = fds[-1]
+    out = {"cells": model.number_of_cells(), "h": list(hs), "fd": fds,
+           "dot_f64": gd64, "rel_err_f64_by_h": [
+               abs(f - gd64) / abs(gd64) for f in fds],
+           "rel_err_f64": abs(fd - gd64) / abs(gd64),
+           "lambda_iterations_f64": st64.lambda_iterations,
+           "lambda_converged_f64": st64.lambda_converged,
+           "dot_f32_sweep": gd32, "rel_err_f32_sweep": abs(fd - gd32) / abs(
+               gd32), "f32_forward_ministeps": report_stats(
+               res32.reports)["ministeps"],
+           "lambda_iterations_f32": st32.lambda_iterations,
+           "lambda_converged_f32": st32.lambda_converged,
+           "seconds": time.perf_counter() - t0}
+    log("# adjoint-dot (f64 card FD): " + json.dumps(out))
+    if not out["rel_err_f64"] <= 1e-3:
+        raise RuntimeError(f"adjoint-dot: f64 gradient off by "
+                           f"{out['rel_err_f64']:.3e} > 1e-3 at h = "
+                           f"{hs[-1]}")
+    return out
+
+
+def phase_history_match(case, n_step=2, max_iterations=3, device="cuda"):
+    """The optimizer harness around the adjoint: observations are the
+    Saturations of a forward run at the true parameters; the case starts
+    at Transmissibilities x 0.5; G = l2_misfit_objective; unit-box L-BFGS
+    (log-scaled transmissibilities) over ``setup_parameter_optimization``'s
+    F_and_dF with wells-adjoint's solvers (the eager forward at bench's
+    tolerances). Every value and gradient must be finite and the objective
+    after ``max_iterations`` strictly below the start."""
+    from jutul.jl_tpu_torch import (
+        JutulCase,
+        setup_parameter_optimization,
+        simulate,
+        unit_box_bfgs,
+    )
+    from jutul.jl_tpu_torch.adjoint.objectives import l2_misfit_objective
+
+    model, state0, params, forces = case
+    dts = [ADJ_DT] * n_step
+    fwd, lam = adjoint_solvers()
+    kw = adjoint_forward_config(fwd)
+    for k in ("jit_report_capacity", "linear_forcing", "jit_output_states",
+              "info_level"):
+        kw.pop(k)  # schedule-path options: the harness runs simulate
+    kw.update(device=device, dtype=torch.float32)
+    obs = [s["Saturations"] for s in simulate(
+        state0, model, dts, forces=forces, parameters=params,
+        info_level=-1, **kw).states]
+    start = dict(params, Transmissibilities=0.5 * np.asarray(
+        params["Transmissibilities"]))
+    opt = setup_parameter_optimization(
+        JutulCase(model, dts, forces, state0=state0, parameters=start),
+        l2_misfit_objective({"Saturations": obs}),
+        targets=["Transmissibilities"], adjoint_linear_solver=lam, **kw)
+    evals = []
+    t0 = time.perf_counter()
+
+    def f_and_g(x):
+        t1 = time.perf_counter()
+        v, g = opt.F_and_dF(x)
+        if not (np.isfinite(v) and np.all(np.isfinite(g))):
+            raise RuntimeError("history-match: non-finite value or gradient")
+        evals.append({"value": v, "grad_norm": float(np.linalg.norm(g)),
+                      "wall_s": time.perf_counter() - t1})
+        return v, g
+
+    v, _, hist = unit_box_bfgs(opt.x0(), f_and_g,
+                               max_iterations=max_iterations)
+    torch.cuda.synchronize()
+    out = {"cells": model.number_of_cells(), "parameters": opt.n,
+           "values": hist.values, "projected_grad_norms": hist.grad_norms,
+           "steps": hist.steps, "evaluations": evals,
+           "forward_runs": opt.evaluations,
+           "wall_s": time.perf_counter() - t0}
+    log("# history-match: " + json.dumps(out))
+    if not (len(hist.values) > 1 and hist.values[-1] < hist.values[0]):
+        raise RuntimeError(f"history-match: objective not lowered: "
+                           f"{hist.values}")
+    return out
+
+
+def phase_adjoint_cross_check(dims, lam_rtol=1e-14):
+    """The adjoint at ``dims`` in float64 on the card (kernels) and on the
+    CPU (plain versions), on the same numpy states (one float64 CPU
+    forward, tight, with the rate ramp) and the same G: gradients within
+    1e-9 relative. The λ-solves run at ``lam_rtol``: at 1e-12 the
+    transmissibility gradient of this case stops further from its converged
+    value than the bar, in either package, so roundoff in the stopping test
+    could fail the check without a fault."""
+    from jutul.jl_tpu_torch import solve_adjoint_sensitivities_jit
+
+    case = build_well_flagship(*dims)
+    model, state0, params, forces = case
+    sched = rate_schedule(forces, 2)
+    dts = [ADJ_DT] * 2
+    states = _fd_forward((model, state0, params, sched), params, dts, "cpu")
+    _, lam = adjoint_solvers(lam_rtol=lam_rtol, lam_its=1000)
+    G = sat_objective(model.domain.mesh._nc_base)
+    grads = {dev: solve_adjoint_sensitivities_jit(
+        model, states, dts, G, parameters=params, state0=state0,
+        forces=sched, linear_solver=lam, include_state0=True, device=dev,
+        dtype=torch.float64) for dev in ("cuda", "cpu")}
+    out = {k: float(np.abs(grads["cuda"][k] - grads["cpu"][k]).max()
+                    / np.abs(grads["cpu"][k]).max())
+           for k in ("Transmissibilities", "FluidVolume", "state0")}
+    log(f"# adjoint cross-check card vs CPU ({'x'.join(map(str, dims))}, "
+        "f64): " + json.dumps(out))
+    if not all(v <= 1e-9 for v in out.values()):
+        raise RuntimeError(f"adjoint cross-check: gradients differ: {out}")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1410,6 +1831,7 @@ def main():
     phase_kernels_phase(case_w, records)
     phase_kernels_krylov(records)
     phase_kernels_bf16(case_w, records)
+    phase_kernels_transpose(case_w, records)
     log(f"# kernel phases: {time.perf_counter() - t0:.1f} s")
     phase_warm_up()
     slices = {}
@@ -1433,9 +1855,17 @@ def main():
             slices[name]["refine"] = phase_refine(sim, res, last_forces)
         del sim, res
         torch.cuda.empty_cache()
-    del case, case_w
+    del case
     t0 = time.perf_counter()
-    ab = phase_ab(build_well_flagship(*AB_GRID))
+    adjoint, _ = phase_adjoint(case_w)
+    del case_w
+    torch.cuda.empty_cache()
+    case_ab = build_well_flagship(*AB_GRID)
+    adjoint["dot_test"] = phase_adjoint_dot(case_ab)
+    adjoint["history_match"] = phase_history_match(case_ab)
+    log(f"# adjoint phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ab = phase_ab(case_ab)
     log(f"# A/B: {time.perf_counter() - t0:.1f} s")
     phase_cross_check(build_flagship, SMALL, "jacobi", "srcwells")
     phase_cross_check(build_well_flagship, WELL_SMALL, "chebyshev", "wells")
@@ -1443,6 +1873,7 @@ def main():
                       "wells-jacobi-phases", phases=True)
     phase_cross_check(build_well_flagship, WELL_SMALL_EW, "jacobi",
                       "wells-product", product=True)
+    phase_adjoint_cross_check(WELL_SMALL_EW)
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         rec = records[name]
@@ -1452,8 +1883,9 @@ def main():
             "replaces": replaces,
             "launches": slices[MAIN_SLICE[name]]["launches"][name],
             "main_slice": MAIN_SLICE[name],
-            "launches_by_slice": {k: v["launches"][name]
-                                  for k, v in slices.items()},
+            "launches_by_slice": {
+                **{k: v["launches"][name] for k, v in slices.items()},
+                "wells-adjoint": adjoint["launches"][name]},
             "max_abs_err": rec.max_abs["float32"],
             "max_rel_err_f32": rec.max_rel["float32"],
             # None: the bfloat16-coefficient entries take float32 vectors
@@ -1467,6 +1899,9 @@ def main():
     log("# slices " + json.dumps({k: {q: v[q] for q in (
         "report_steps", "ministeps", "newtons", "linear_iterations",
         "wall_s")} for k, v in slices.items()}) + " A/B " + json.dumps(ab))
+    log("# wells-adjoint " + json.dumps({k: adjoint[k] for k in (
+        "forward_run_s", "sweep_s", "overhead", "lambda_iterations_per_step",
+        "peak_mem_bytes")}))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

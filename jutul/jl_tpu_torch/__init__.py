@@ -9,7 +9,9 @@ CPR(GMG)-preconditioned BiCGStab with a Jacobi or Chebyshev smoother
 (optionally streaming its coefficients in bfloat16), adaptive ministeps
 through the eager loop (``simulate``) or the schedule path with
 Eisenstat-Walker forcing (``simulate_jit`` / ``lower_schedule``), and
-mixed-precision refinement of an accepted step (``refine_solution``) —
+mixed-precision refinement of an accepted step (``refine_solution``),
+and the discrete adjoint on the stencil engine with its objectives and the
+parameter-optimization harness (``adjoint/``, ``core/case.py``) —
 in PyTorch, with hand-written CUDA kernels for Hopper (``ops/cuda``,
 sources in ``csrc/``) where the JAX package has Pallas kernels. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
@@ -20,7 +22,24 @@ parameters built by either package move across as numpy arrays
 """
 
 from . import dtypes  # noqa: F401  (TF32 off)
+from .adjoint.gradients import (
+    AdjointStorage,
+    setup_adjoint_storage,
+    solve_adjoint_forces,
+    solve_adjoint_sensitivities,
+    solve_adjoint_sensitivities_jit,
+    solve_numerical_sensitivities,
+    state_gradient,
+)
+from .adjoint.lbfgs import unit_box_bfgs
+from .adjoint.objectives import GlobalObjective, SumObjective
+from .adjoint.optimization import (
+    optimization_config,
+    setup_parameter_optimization,
+)
+from .adjoint.trust_region import box_trust_region
 from .config import JutulConfig
+from .core.case import JutulCase
 from .core.domains import DataDomain, DiscretizedDomain
 from .meshes.cartesian import CartesianMesh
 from .models.darcy import (
@@ -37,17 +56,29 @@ from .ops.assembly import CompiledModel, compile_model
 from .ops.stencil import GMG, StencilCPR, StencilKrylovSolver
 from .simulator.io import report_stats
 from .simulator.relaxation import NoRelaxation, SimpleRelaxation
-from .simulator.simulator import SimResult, Simulator, simulate, simulator_config
+from .simulator.simulator import (
+    SimResult,
+    Simulator,
+    expand_to_ministeps,
+    simulate,
+    simulator_config,
+)
 from .simulator.timesteps import IterationTimestepSelector, TimestepSelector
 from .units import si_unit, si_units
 
 __all__ = [
-    "CartesianMesh", "CompiledModel", "DataDomain", "DiscretizedDomain",
-    "GMG", "ImmiscibleFluid", "IterationTimestepSelector", "JutulConfig",
-    "NoRelaxation", "PhaseSourceTerm", "PressureBoundaryCondition", "SimResult",
-    "SimpleRelaxation", "SimulationModel", "Simulator", "StencilCPR", "StencilKrylovSolver",
-    "TimestepSelector", "WellGraphMesh", "WellSpec", "compile_model",
-    "from_numpy", "report_stats", "setup_darcy_model", "setup_forces",
-    "setup_parameters", "setup_state", "setup_well_graph_model", "si_unit",
-    "si_units", "simulate", "simulator_config",
+    "AdjointStorage", "CartesianMesh", "CompiledModel", "DataDomain",
+    "DiscretizedDomain", "GMG", "GlobalObjective", "ImmiscibleFluid",
+    "IterationTimestepSelector", "JutulCase", "JutulConfig", "NoRelaxation",
+    "PhaseSourceTerm", "PressureBoundaryCondition", "SimResult",
+    "SimpleRelaxation", "SimulationModel", "Simulator", "StencilCPR",
+    "StencilKrylovSolver", "SumObjective", "TimestepSelector",
+    "WellGraphMesh", "WellSpec", "box_trust_region", "compile_model",
+    "expand_to_ministeps", "from_numpy", "optimization_config",
+    "report_stats", "setup_adjoint_storage", "setup_darcy_model",
+    "setup_forces", "setup_parameter_optimization", "setup_parameters",
+    "setup_state", "setup_well_graph_model", "si_unit", "si_units",
+    "simulate", "simulator_config", "solve_adjoint_forces",
+    "solve_adjoint_sensitivities", "solve_adjoint_sensitivities_jit",
+    "solve_numerical_sensitivities", "state_gradient", "unit_box_bfgs",
 ]

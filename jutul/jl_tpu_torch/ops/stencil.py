@@ -14,7 +14,10 @@ level passes (K2 Jacobi/residual, K4 Chebyshev, K5 whole Jacobi phases)
 and, opted in, the fused BiCGStab body (K6/K7). On CPU tensors those
 wrappers run their plain PyTorch versions. Well models ride this engine
 through ``ops/stencil_wells.py`` (bordered matrix, Schur-eliminated
-wellbores), which ``StencilKrylovSolver.solve`` dispatches to.
+wellbores), which ``StencilKrylovSolver.solve`` dispatches to. The adjoint
+solves with the transposed matrix (``stencil_transpose``: the same
+structure) and differentiates ``residual_differentiable``, the residual in
+plain torch.
 
 Layout conventions (the JAX package's, so both compare like with like):
 - cell fields: (n, ...) with component axes last; Krylov vectors (n, neq);
@@ -56,6 +59,18 @@ class StencilMatrix:
     @property
     def n(self) -> int:
         return int(np.prod(self.L))
+
+
+def stencil_transpose(A: StencilMatrix) -> StencilMatrix:
+    """Aᵀ of a 7-point block stencil is again one: the entry (row L(f),
+    column R(f), block B) becomes (row R(f), column L(f), Bᵀ), so ``plus``
+    and ``minus`` swap places with their blocks transposed. The adjoint's
+    λ-solves therefore run on the forward solver stack (K1, CPR(GMG)).
+    Every field is a view; ``StencilMatvec`` packs it."""
+    swap = lambda v: v.transpose(0, 1)  # noqa: E731
+    return StencilMatrix(A.L, swap(A.diag),
+                         {a: swap(v) for a, v in A.minus.items()},
+                         {a: swap(v) for a, v in A.plus.items()})
 
 
 class StencilCompiledModel:
@@ -148,6 +163,56 @@ class StencilCompiledModel:
         makes residual and Jacobian blocks in one pass, so there is no
         cheaper form here)."""
         return self.assemble(state, state0, dt, forces)[0]
+
+    def _axis_cell_states(self, cell_state, a):
+        """Per-side dicts of cell entries sliced to axis ``a``'s face
+        lattice and flattened to (nf_a, ...)."""
+        sl_l, sl_r = AXIS_SLICES[a]
+        out_l, out_r = {}, {}
+        for k, v in cell_state.items():
+            comp_shape = tuple(v.shape[1:])
+            lat = v.reshape(self.L + comp_shape)
+            out_l[k] = lat[sl_l].reshape((-1,) + comp_shape)
+            out_r[k] = lat[sl_r].reshape((-1,) + comp_shape)
+        return out_l, out_r
+
+    def residual_differentiable(self, state, state0, dt, forces=None):
+        """The residual (n, neq) from secondary-evaluated states in plain
+        torch operations that autograd differentiates: the port of the JAX
+        package's ``StencilCompiledModel.residual``. The accumulation term
+        on all cells, then per axis the equation's own flux function on
+        the two-cell states of the sliced lattice, added into the lattice
+        at each face's left cell and subtracted at its right one, then the
+        forces. It launches no kernel: the adjoint pulls cotangents back
+        through it (``torch.func.vjp``), while ``residual``/``assemble``
+        serve the Newton loop."""
+        comp = self.comp
+        model = comp.model
+        cell_state = comp._cell_entries(state)
+        cell_state0 = comp._cell_entries(state0)
+        r = None
+        for con in self.acc_cons:
+            term = con.fn(model, cell_state, cell_state0, dt).T  # (neq, n)
+            r = term if r is None else r + term
+        if self.flux_con is not None:
+            face_state = comp._face_entries(state)
+            r_lat = r.reshape((self.neq,) + self.L)
+            for a in range(3):
+                if self.face_lat[a] is None:
+                    continue
+                cs_l, cs_r = self._axis_cell_states(cell_state, a)
+                local = {k: torch.stack([cs_l[k], cs_r[k]], dim=1)
+                         for k in cs_l}
+                flux = self.flux_con.fn(model, local,
+                                        self._axis_face_state(face_state, a))
+                f_lat = flux.T.reshape((self.neq,) + self.face_lat[a])
+                r_lat = r_lat + F.pad(f_lat, _PADS[a]) \
+                    - F.pad(f_lat, _PADS_R[a])
+            r = r_lat.reshape(self.neq, -1)
+        r = r.T
+        if forces:
+            r = comp._apply_forces(r, state, dt, forces)
+        return r
 
     def assemble(self, state, state0, dt, forces=None):
         """Residual (n, neq), StencilMatrix and the secondary-evaluated

@@ -43,8 +43,9 @@ On the card:
   (the JAX package needed ``Precision.HIGHEST`` here, where bf16-rounded
   contractions turned Newton into quasi-Newton).
 The JAX package's one-hot and box forms of the Schur correction
-(``JUTUL_WELL_CORR``) are TPU layout workarounds and are not ported; the
-adjoint's ``bordered_transpose`` waits for the adjoint port.
+(``JUTUL_WELL_CORR``) are TPU layout workarounds and are not ported. The
+adjoint transposes the bordered matrix (``bordered_transpose``) and pulls
+cotangents back through ``residual_differentiable``.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ import torch
 from ..dtypes import resolve_device
 from .cuda import StencilMatvec, darcy_flux_jacobian
 from .smallmat import block_inv, bmv
-from .stencil import StencilCompiledModel, StencilMatrix
+from .stencil import StencilCompiledModel, StencilMatrix, stencil_transpose
 
 
 @dataclass
@@ -115,6 +116,15 @@ class BorderedStencilMatrix:
         yr = yr.index_add(0, P.rows, P.fold(bmv(self.J_rb, xw[P.well])))
         yw = bmv(self.D_ww, xw) + P.wells(bmv(self.J_br, xr[P.cell]))
         return torch.cat([yr, yw], dim=0)
+
+
+def bordered_transpose(B: BorderedStencilMatrix) -> BorderedStencilMatrix:
+    """Bᵀ is bordered with the same sparsity: the lattice transposed, the
+    border blocks swapped and block-transposed, the perforations kept."""
+    swapT = lambda v: v.transpose(-1, -2)  # noqa: E731
+    return BorderedStencilMatrix(stencil_transpose(B.A), B.perfs,
+                                 J_rb=swapT(B.J_br), J_br=swapT(B.J_rb),
+                                 D_ww=swapT(B.D_ww))
 
 
 class _DomainView:
@@ -289,6 +299,40 @@ class BorderedStencilModel:
                 D_ww[:, sl].index_add_(0, as_dev(cells[~rm] - self.nc),
                                        jac[as_dev(np.flatnonzero(~rm))])
         return diag, D_ww
+
+    def residual_differentiable(self, state, state0, dt, forces=None):
+        """The residual (nc+nw, neq) from secondary-evaluated states in
+        plain torch operations that autograd differentiates (the port of
+        the JAX package's ``BorderedStencilModel.residual``): the lattice
+        part (``StencilCompiledModel.residual_differentiable``), the
+        wellbores' accumulation, and the perforation fluxes through the
+        equation's own flux function on the gathered (reservoir cell,
+        wellbore) pairs, folded in by the membership sums. No kernel, no
+        in-place write."""
+        comp = self.comp
+        model = comp.model
+        nc = self.nc
+        sr, _ = self._split_state(state)
+        sr0, _ = self._split_state(state0)
+        r_lat = self.lattice.residual_differentiable(sr, sr0, dt)
+        cell_state = comp._cell_entries(state)
+        cell_state0 = comp._cell_entries(state0)
+        cw = {k: v[nc:] for k, v in cell_state.items()}
+        cw0 = {k: v[nc:] for k, v in cell_state0.items()}
+        r_w = None
+        for con in self.lattice.acc_cons:
+            term = con.fn(model, cw, cw0, dt)
+            r_w = term if r_w is None else r_w + term
+        P = self.perforations(r_lat.dtype)
+        local = {k: torch.stack([v[P.cell], v[P.well_cell]], dim=1)
+                 for k, v in cell_state.items()}
+        Fp = self.lattice.flux_con.fn(model, local,
+                                      self._perf_face_state(state))
+        r_lat = r_lat.index_add(0, P.rows, P.fold(Fp))
+        r = torch.cat([r_lat, r_w - P.wells(Fp)], dim=0)
+        if forces:
+            r = comp._apply_forces(r, state, dt, forces)
+        return r
 
     # -- assemble ---------------------------------------------------------
     def residual(self, state, state0, dt, forces=None):

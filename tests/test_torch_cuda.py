@@ -479,3 +479,62 @@ def test_schedule_path_on_the_card_matches_the_cpu(dev, coef_dtype):
     g, c = gres.states[-1], cres.states[-1]
     assert float(abs(g["Pressure"] / c["Pressure"] - 1).max()) <= 1e-9
     assert float(abs(g["Saturations"] - c["Saturations"]).max()) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k1_on_the_transposed_operator(dev, dtype):
+    """The adjoint's λ-solve operator: ``stencil_transpose`` gives views,
+    which ``embed`` packs; K1 on it against its plain version, and the dot
+    identity <x, A y> = <Aᵀx, y> through K1 (sums in float64)."""
+    from jutul.jl_tpu_torch.ops.stencil import stencil_transpose
+
+    diag, plus, minus = _random_matrix(2, 2, dtype, dev, seed=4)
+    A = StencilMatrix(L, diag, plus, minus)
+    At = stencil_transpose(A)
+    assert not At.diag.is_contiguous()
+    mv, mv_t = SK.StencilMatvec(A), SK.StencilMatvec(At)
+    assert mv_t.coef.is_contiguous()
+    x = torch.randn(A.n, 2, dtype=dtype, device=dev)
+    y = torch.randn(A.n, 2, dtype=dtype, device=dev)
+    aty = mv_t(x)
+    assert _rel(aty, SK.stencil_matvec_plain(mv_t.coef, x, L, 2, 2)) \
+        <= TOL[dtype]
+    lhs = float(torch.sum((x * mv(y)).double()))
+    rhs = float(torch.sum((aty * y).double()))
+    assert abs(lhs - rhs) <= {torch.float32: 1e-5,
+                              torch.float64: 1e-12}[dtype] * abs(lhs)
+
+
+def test_adjoint_on_the_card_matches_the_cpu(dev):
+    """The stencil adjoint (``solve_adjoint_sensitivities_jit``) of the well
+    flagship at 8x8x6 in float64 on the same numpy states: on the card (K1,
+    K2 λ-solves, K3 Jacobians) against the CPU (plain versions), within
+    1e-9; K3 launches once per step on each entry."""
+    import chip_smoke
+    from jutul.jl_tpu_torch import solve_adjoint_sensitivities_jit
+
+    model, state0, params, forces = chip_smoke.build_well_flagship(
+        *chip_smoke.WELL_SMALL_EW)
+    sched = chip_smoke.rate_schedule(forces, 2)
+    dts = [chip_smoke.ADJ_DT] * 2
+    states = chip_smoke._fd_forward((model, state0, params, sched), params,
+                                    dts, "cpu")
+    _, lam = chip_smoke.adjoint_solvers(lam_rtol=1e-14, lam_its=1000)
+    G = chip_smoke.sat_objective(model.domain.mesh._nc_base)
+    grads = {}
+    for device in (dev, "cpu"):
+        kernels.reset_launch_counts()
+        grads[device] = solve_adjoint_sensitivities_jit(
+            model, states, dts, G, parameters=params, state0=state0,
+            forces=sched, linear_solver=lam, include_state0=True,
+            device=device, dtype=torch.float64)
+        counts = kernels.launch_counts()
+        if device == dev:
+            assert counts["darcy_flux_jacobian_lattice"] == 2
+            assert counts["darcy_flux_jacobian"] == 2
+            assert counts["stencil_matvec"] and counts["scalar_jacobi"]
+        else:
+            assert not any(counts.values())
+    for k in ("Transmissibilities", "FluidVolume", "state0"):
+        g, c = grads[dev][k], grads["cpu"][k]
+        assert abs(g - c).max() <= 1e-9 * abs(c).max(), k
