@@ -79,7 +79,25 @@ failure (nothing is caught, so any failure exits non-zero):
    and linear-iteration counts, states within 1e-9 (the Jacobi-phase one
    without the float32-only fused body); the schedule path with forcing at
    8x8x6 likewise; the adjoint's gradients at 8x8x6 in float64 on the card
-   against the CPU's on the same states, within 1e-9.
+   against the CPU's on the same states, within 1e-9;
+11. generic slice: the generic block-ELL engine,
+   ``Simulator(use_stencil=False)``, on srcwells' case (1,048,576 cells,
+   float32, 3 report steps, srcwells' Newton settings) with BASELINE.json's
+   CPR(AMG + ILU(0))-GMRES(20) at rtol 1e-3 (``generic_config``); its host
+   set-up (ELL tables, AMG hierarchy) timed apart; no kernel may launch;
+   one assemble, one CPR update and one GMRES iteration timed by CUDA
+   events; its f64 verify as phase 5;
+12. generic-fused: the slice's first Newton system solved by
+   BiCGStab with the fused body (K6/K7 once per iteration, K1-K5 never)
+   and by the plain chain; both converge, true residuals (float64) within
+   10 rtol;
+13. generic-engine-check: at full size in float64, one state through both
+   engines — the generic residual within 1e-10 of the stencil engine's
+   (K3), the generic J v within 1e-10 of the stencil J v (K1) — and the
+   generic assemble, CPR update and CPR apply twice: equal bits;
+14. the generic slice at 8x8x6 in float64 on the card against the CPU,
+   eager and schedule path (EW forcing): identical counts, states within
+   1e-9.
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
@@ -180,8 +198,15 @@ SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
     "wells-product-bf16-phases": ("stencil_matvec_bf16c",
                                   "scalar_jacobi_phase_bf16c"),
 }
+SLICE_KERNELS["generic"] = ()  # the generic path has no kernel of its own
+SLICE_KERNELS["generic-fused"] = ("fused_alpha_s", "fused_omega_update")
 _F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", "scalar_jacobi_phase")
+# K1-K5 and every bf16 entry: the stencil engine's kernels
+_STENCIL_KERNELS = tuple(k for k in KERNEL_INFO
+                         if k not in ("fused_alpha_s", "fused_omega_update"))
 SLICE_FORBIDDEN = {  # kernels a slice must never launch
+    "generic": tuple(KERNEL_INFO),  # GMRES launches no K6/K7 either
+    "generic-fused": _STENCIL_KERNELS,
     "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev"),
     "wells-product": tuple(k for k in KERNEL_INFO if k.endswith("_bf16c")),
     "wells-product-bf16": _F32_LEVEL,
@@ -384,6 +409,30 @@ def sim_config(min_cells, smoother="jacobi", fused=False, coef_dtype=None,
         timestep_selectors=[TimestepSelector(initial_fraction=0.25),
                             IterationTimestepSelector(target_iterations=6)],
         output_variables="primary", info_level=-1)
+
+
+def generic_solver(pkg=None):
+    """BASELINE.json's solver for the generic engine: CPR(AMG + ILU(0))
+    preconditioned GMRES(20) at rtol 1e-3 and at most 50 iterations.
+    ``pkg``: the package whose classes to use (default the port; the CPU
+    tests pass the JAX package for the reference run)."""
+    if pkg is None:
+        import jutul.jl_tpu_torch as pkg
+    return pkg.GenericKrylov("gmres", preconditioner=pkg.CPRPreconditioner(),
+                             rtol=1e-3, max_iterations=50, restart=20)
+
+
+def generic_config(pkg=None, solver=None, product=False):
+    """The generic slice's settings: srcwells' Newton settings from
+    ``sim_config`` with ``generic_solver`` (or ``solver``) in place of the
+    stencil solver; ``product``: the schedule path's options."""
+    cfg = sim_config(64, product=product)
+    cfg["linear_solver"] = solver or generic_solver(pkg)
+    if pkg is not None:
+        cfg["timestep_selectors"] = [
+            pkg.TimestepSelector(initial_fraction=0.25),
+            pkg.IterationTimestepSelector(target_iterations=6)]
+    return cfg
 
 
 def log(msg):
@@ -1176,6 +1225,12 @@ def phase_warm_up():
             [DT] * 2, forces=rate_schedule(forces, 2),
             **sim_config(64, coef_dtype=coef_dtype, product=True))
     refine(sim, res, forces, 2, budget_s=20.0)
+    model, state0, params, forces = build_flagship(*SMALL)
+    for product in (False, True):
+        sim = Simulator(model, state0, params, use_stencil=False)
+        run = sim.simulate_jit if product else sim.simulate
+        run([DT] * 2, forces=rate_schedule(forces, 2),
+            **generic_config(product=product))
     torch.cuda.synchronize()
     log(f"# warm-up (every slice's path at 16x16x8): "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1225,13 +1280,7 @@ def phase_slice(case, name, smoother, fused=False, product=False,
     for k, v in res.states[-1].items():
         if not np.all(np.isfinite(v)):
             raise RuntimeError(f"{name} slice: final {k} not finite")
-    missing = [k for k in SLICE_KERNELS[name] if launches[k] <= 0]
-    if missing:
-        raise RuntimeError(f"{name} slice: {missing} never launched: "
-                           f"{launches}")
-    stray = [k for k in SLICE_FORBIDDEN.get(name, ()) if launches[k]]
-    if stray:
-        raise RuntimeError(f"{name} slice: {stray} launched: {launches}")
+    _check_launches(f"{name} slice", name, launches)
     newtons, lin = stats["newtons"], stats["linear_iterations"]
     if fused and not (launches["fused_alpha_s"] == lin
                       == launches["fused_omega_update"]):
@@ -1333,7 +1382,7 @@ def phase_f64_verify(sim, res, forces, name):
 
     to64 = lambda d: {k: v.double() for k, v in d.items()}  # noqa: E731
     pr = to64(sim.parameters)
-    r, _, full = sim._stencil.assemble(
+    r, _, full = sim.engine.assemble(
         merge_state(to64(res.final_state_device), pr),
         merge_state(to64(res.final_ministep_start_state), pr),
         res.final_ministep_dt, forces)
@@ -1448,6 +1497,289 @@ def phase_cross_check(build, dims, smoother, name, phases=False,
         f"f64, {smoother}): " + json.dumps(out))
     if not (dev_p <= 1e-9 and dev_s <= 1e-9):
         raise RuntimeError(f"{name} cross-check: states differ: {out}")
+    return out
+
+
+def _check_launches(what, name, launches):
+    """Raise unless every kernel of ``SLICE_KERNELS[name]`` launched and
+    none of ``SLICE_FORBIDDEN[name]`` did."""
+    missing = [k for k in SLICE_KERNELS[name] if launches[k] <= 0]
+    stray = [k for k in SLICE_FORBIDDEN.get(name, ()) if launches[k]]
+    if missing or stray:
+        raise RuntimeError(f"{what}: never launched {missing}, launched "
+                           f"{stray}: {launches}")
+
+
+def phase_generic(case, n_step=3):
+    """The generic block-ELL engine at full size in float32 on the card:
+    ``Simulator(use_stencil=False)`` eager ``simulate`` of ``n_step`` 6 h
+    report steps with srcwells' Newton settings and BASELINE.json's
+    CPR(AMG + ILU(0))-GMRES (``generic_config``). The host set-up (the ELL
+    structure and gather tables, the AMG hierarchy) is timed apart, before
+    the run; no kernel of ops/cuda may launch. Afterwards one ``assemble``,
+    one CPR ``update`` and one GMRES iteration are timed by CUDA events on
+    the final ministep's system. Returns (sim, res, last forces, record)."""
+    from jutul.jl_tpu_torch import Simulator, report_stats
+    from jutul.jl_tpu_torch.linsolve.krylov import gmres
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model, state0, params, forces = case
+    nc = model.number_of_cells()
+    sim = Simulator(model, state0, params, use_stencil=False)  # the card
+    schedule = rate_schedule(forces, n_step)
+    cfg = generic_config()
+    cpr = cfg["linear_solver"].preconditioner
+    t0 = time.perf_counter()
+    ell = sim.compiled.ell
+    tables_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hier = cpr.amg._symbolic(ell)
+    amg_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.simulate([DT] * n_step, forces=schedule, **cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = report_stats(res.reports)
+    if not all(r["success"] for r in res.reports) or \
+            len(res.reports) != n_step:
+        raise RuntimeError("generic slice: a report step failed")
+    for k, v in res.states[-1].items():
+        if not np.all(np.isfinite(v)):
+            raise RuntimeError(f"generic slice: final {k} not finite")
+    _check_launches("generic slice", "generic", launches)
+    newtons, lin = stats["newtons"], stats["linear_iterations"]
+    max_it = cfg["max_nonlinear_iterations"]
+
+    # one assemble, one CPR update, one GMRES iteration on the final
+    # ministep's system (its first Newton: state = state0 = its start)
+    comp = sim.compiled
+    full0 = merge_state(res.final_ministep_start_state, sim.parameters)
+    dt = res.final_ministep_dt
+    last = schedule[-1]
+    assemble_ms = cuda_ms(lambda: comp.assemble(full0, full0, dt, last),
+                          reps=5)
+    r, J, _ = comp.assemble(full0, full0, dt, last)
+    update_ms = cuda_ms(lambda: cpr.update(J), reps=5)
+    pstate = cpr.update(J)
+    n = r.shape[0]
+    b = (-r).reshape(-1).contiguous()
+
+    def matvec(v):
+        return J.matvec(v.reshape(n, -1)).reshape(-1)
+
+    def precond(v):
+        return cpr.apply(pstate, J, v.reshape(n, -1)).reshape(-1)
+
+    gm_its = 20  # one full GMRES(20) cycle at rtol 0
+    gmres_iter_ms = cuda_ms(lambda: gmres(matvec, b, restart=20,
+                                          maxiter=gm_its, rtol=0.0,
+                                          precond=precond), reps=2) / gm_its
+    del r, J, pstate
+    torch.cuda.empty_cache()
+    out = {
+        "slice": "generic", "engine": "generic block-ELL (use_stencil=False)",
+        "solver": "GenericKrylov(gmres, CPRPreconditioner(), rtol=1e-3, "
+                  "max_iterations=50, restart=20)",
+        "cells": nc, "path": "eager (simulate, fixed rtol)",
+        "dtype": "float32", "report_steps": n_step,
+        "ministeps": stats["ministeps"], "newtons": newtons,
+        "failed_ministeps": stats["failed_ministeps"],
+        "linear_iterations": lin, "wall_s": wall,
+        "s_per_newton": wall / newtons,
+        "cell_newton_its_per_s": nc * newtons / wall,
+        "newtons_in_capped_ministeps": sum(
+            m["iterations"] for r_ in res.reports for m in r_["ministeps"]
+            if m["iterations"] >= max_it),
+        "peak_mem_bytes": peak, "launches": launches,
+        "setup_tables_s": tables_s, "setup_amg_hierarchy_s": amg_s,
+        "amg_levels": [[lv.structure.n_rows, lv.structure.n_slots]
+                       for lv in hier.levels],
+        "assemble_ms": assemble_ms, "cpr_update_ms": update_ms,
+        "gmres_iteration_ms": gmres_iter_ms,
+        "per_ministep": [[m["iterations"], m["linear_iterations"]]
+                         for r_ in res.reports for m in r_["ministeps"]],
+    }
+    log("# generic slice: " + json.dumps(out))
+    return sim, res, last, out
+
+
+def phase_generic_engine_check(case):
+    """At full size in float64 on the card: one state assembled by both
+    engines. The generic residual within 1e-10 of the stencil engine's
+    (lattice K3), relative to the latter's max; the generic J v for a
+    seeded v within 1e-10 of the stencil J v (K1). Then the generic
+    ``assemble`` and the CPR ``update`` (and one ``apply``) twice on the
+    same input: equal bits."""
+    from jutul.jl_tpu_torch import CPRPreconditioner, compile_model
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.ops.cuda import (StencilMatvec, launch_counts,
+                                             reset_launch_counts)
+    from jutul.jl_tpu_torch.ops.stencil import StencilCompiledModel
+
+    model, state0, params, forces = case
+    f64 = torch.float64
+    st, pr = _flagship_state(model, state0, params, f64)
+    full = merge_state(st, pr)
+    full0 = merge_state(_flagship_state(model, state0, params, f64)[0], pr)
+    full0["Pressure"] = full0["Pressure"] * (1.0 - 1e-4)
+    comp = compile_model(model)
+    stencil = StencilCompiledModel(comp)
+    reset_launch_counts()
+    rs, As, _ = stencil.assemble(full, full0, DT, forces)
+    v = torch.randn(rs.shape, generator=torch.Generator(
+        device="cuda").manual_seed(11), device="cuda", dtype=f64)
+    ys = StencilMatvec(As)(v)
+    launches = launch_counts()
+    del As
+    torch.cuda.empty_cache()
+    rg, Jg, _ = comp.assemble(full, full0, DT, forces)
+    yg = Jg.matvec(v)
+    out = {"cells": rs.shape[0], "dtype": "float64",
+           "residual_rel": rel_err(rg, rs), "jv_rel": rel_err(yg, ys),
+           "launches": launches}
+    if launches["darcy_flux_jacobian_lattice"] != 1 or \
+            launches["stencil_matvec"] != 1:
+        raise RuntimeError(f"engine check: the stencil side did not run "
+                           f"K3 and K1 once each: {launches}")
+    rg2, Jg2, _ = comp.assemble(full, full0, DT, forces)
+    out["assemble_bitwise"] = bool(torch.equal(rg, rg2)
+                                   and torch.equal(Jg.blocks, Jg2.blocks))
+    del rg2, Jg2
+    cpr = CPRPreconditioner()
+    s1 = cpr.update(Jg)
+    s2 = cpr.update(Jg)
+    leaves = lambda s: [t for t in torch.utils._pytree.tree_leaves(s)  # noqa: E731
+                        if torch.is_tensor(t)]
+    out["cpr_update_bitwise"] = all(torch.equal(a, b) for a, b in
+                                    zip(leaves(s1), leaves(s2)))
+    out["cpr_apply_bitwise"] = bool(torch.equal(cpr.apply(s1, Jg, v),
+                                                cpr.apply(s2, Jg, v)))
+    log(f"# generic-engine-check ({out['cells']:,} cells, f64, card): "
+        + json.dumps(out))
+    if not (out["residual_rel"] <= 1e-10 and out["jv_rel"] <= 1e-10):
+        raise RuntimeError(f"engine check: engines differ: {out}")
+    if not (out["assemble_bitwise"] and out["cpr_update_bitwise"]
+            and out["cpr_apply_bitwise"]):
+        raise RuntimeError(f"engine check: a repeat differs: {out}")
+    del s1, s2, Jg, rg, rs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_generic_fused(sim, case, amg, rtol=1e-3):
+    """One Newton's linear system of the generic slice — its first: the
+    initial state over the first ministep (1.5 h, the selector's initial
+    fraction of a 6 h step) under the first step's rates — solved by
+    ``GenericKrylov("bicgstab", CPRPreconditioner(), use_fused_body=True)``
+    (K6/K7 on the flat vectors) and by the plain chain, both sharing the
+    slice's AMG hierarchy. Both must converge (their recurrences reach
+    rtol). A float32 recurrence drifts from the true residual (on this
+    system at 16x16x8 on a CPU: 5.2e-4 against a true 2.2e-3, the same
+    for both bodies), so the true residuals, evaluated in float64, are
+    held to 10 rtol and the solutions' gap to their sum, |J dx| <= 20 rtol
+    |b|; K6 and K7 launch once per fused iteration, K1-K5 never."""
+    from jutul.jl_tpu_torch import (BlockELL, CPRPreconditioner,
+                                    GenericKrylov, from_numpy)
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model, state0, _, forces = case
+    full0 = merge_state(from_numpy(state0, sim.device, sim.dtype),
+                        sim.parameters)
+    r, J, _ = sim.compiled.assemble(full0, full0, 0.25 * DT,
+                                    rate_schedule(forces, 3)[0])
+    J64 = BlockELL(J.structure, J.blocks.double())
+    b = -r.double()
+    bnorm = float(torch.linalg.vector_norm(b))
+    out, sols = {}, {}
+    for tag, fused in (("fused", True), ("plain", None)):
+        solver = GenericKrylov("bicgstab", CPRPreconditioner(amg=amg),
+                               rtol=rtol, max_iterations=50,
+                               use_fused_body=fused)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        du, stats = solver.solve(J, r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        du = du.double()
+        true_rel = float(torch.linalg.vector_norm(b - J64.matvec(du))) / bnorm
+        sols[tag] = du
+        out[tag] = {"iterations": stats["iterations"],
+                    "converged": bool(stats["converged"]),
+                    "recurrence_rel_residual": float(stats["residual"])
+                    / bnorm, "true_rel_residual": true_rel,
+                    "solve_s": wall, "launches": launches}
+        if not out[tag]["converged"] or true_rel > 10 * rtol:
+            raise RuntimeError(f"generic-fused {tag}: not converged: {out}")
+    its = out["fused"]["iterations"]
+    lf = out["fused"]["launches"]
+    _check_launches("generic-fused", "generic-fused", lf)
+    if not lf["fused_alpha_s"] == its == lf["fused_omega_update"]:
+        raise RuntimeError(f"generic-fused: K6/K7 launches {lf} differ from "
+                           f"its {its} iterations")
+    if any(out["plain"]["launches"].values()):
+        raise RuntimeError(f"generic-fused: the plain chain launched "
+                           f"{out['plain']['launches']}")
+    out["solution_rel_residual_gap"] = float(torch.linalg.vector_norm(
+        J64.matvec(sols["fused"] - sols["plain"]))) / bnorm
+    out["launches"] = lf
+    log("# generic-fused: " + json.dumps(out))
+    if out["solution_rel_residual_gap"] > 20 * rtol:
+        raise RuntimeError(f"generic-fused: solutions differ: {out}")
+    del r, J, J64, sols
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_generic_cross_check(dims=WELL_SMALL_EW):
+    """The generic slice at ``dims`` (source-term wells) in float64, 2
+    report steps, on the card and on the CPU, through the eager path and
+    the schedule path (``simulate_jit``, Eisenstat-Walker forcing):
+    identical ministep, Newton and linear-iteration counts, states within
+    1e-9."""
+    from jutul.jl_tpu_torch import Simulator
+
+    model, state0, params, forces = build_flagship(*dims)
+    out = {}
+    for product in (False, True):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            sim = Simulator(model, state0, params, use_stencil=False,
+                            device=dev, dtype=torch.float64)
+            run = sim.simulate_jit if product else sim.simulate
+            res = run([DT] * 2, forces=rate_schedule(forces, 2),
+                      **generic_config(product=product))
+            runs[dev] = (res, [(m["iterations"], m["linear_iterations"],
+                                m["success"]) for r in res.reports
+                               for m in r["ministeps"]])
+        tag = "schedule" if product else "eager"
+        if runs["cuda"][1] != runs["cpu"][1]:
+            raise RuntimeError(f"generic cross-check ({tag}): counts differ: "
+                               f"card {runs['cuda'][1]} CPU {runs['cpu'][1]}")
+        dev_p = dev_s = 0.0
+        for sg, sc in zip(runs["cuda"][0].states, runs["cpu"][0].states):
+            dev_p = max(dev_p, float(np.max(np.abs(
+                sg["Pressure"] / sc["Pressure"] - 1))))
+            dev_s = max(dev_s, float(np.max(np.abs(
+                sg["Saturations"] - sc["Saturations"]))))
+        out[tag] = {"ministeps": len(runs["cpu"][1]),
+                    "newtons": sum(m[0] for m in runs["cpu"][1]),
+                    "linear_iterations": sum(m[1] for m in runs["cpu"][1]),
+                    "max_rel_dev_pressure": dev_p,
+                    "max_abs_dev_saturations": dev_s}
+        if not (dev_p <= 1e-9 and dev_s <= 1e-9):
+            raise RuntimeError(f"generic cross-check ({tag}): states "
+                               f"differ: {out[tag]}")
+    log(f"# generic cross-check card vs CPU ({'x'.join(map(str, dims))}, "
+        f"f64): " + json.dumps(out))
     return out
 
 
@@ -1855,6 +2187,21 @@ def main():
             slices[name]["refine"] = phase_refine(sim, res, last_forces)
         del sim, res
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sim, res, last_forces, slices["generic"] = phase_generic(case)
+    slices["generic"]["f64_verify"] = phase_f64_verify(sim, res, last_forces,
+                                                       "generic")
+    slices["generic-fused"] = phase_generic_fused(
+        sim, case, sim._solver.preconditioner.amg)
+    del sim, res
+    torch.cuda.empty_cache()
+    slices["generic-engine-check"] = phase_generic_engine_check(case)
+    log("# generic vs srcwells (same case, same call): " + json.dumps({
+        k: {q: slices[k][q] for q in ("ministeps", "newtons",
+                                      "linear_iterations", "s_per_newton",
+                                      "cell_newton_its_per_s")}
+        for k in ("srcwells", "generic")}))
+    log(f"# generic phases: {time.perf_counter() - t0:.1f} s")
     del case
     t0 = time.perf_counter()
     adjoint, _ = phase_adjoint(case_w)
@@ -1874,6 +2221,7 @@ def main():
     phase_cross_check(build_well_flagship, WELL_SMALL_EW, "jacobi",
                       "wells-product", product=True)
     phase_adjoint_cross_check(WELL_SMALL_EW)
+    phase_generic_cross_check()
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         rec = records[name]
@@ -1898,7 +2246,8 @@ def main():
             "library_ms": rec.library_ms, **rec.extra})
     log("# slices " + json.dumps({k: {q: v[q] for q in (
         "report_steps", "ministeps", "newtons", "linear_iterations",
-        "wall_s")} for k, v in slices.items()}) + " A/B " + json.dumps(ab))
+        "wall_s")} for k, v in slices.items() if "report_steps" in v})
+        + " A/B " + json.dumps(ab))
     log("# wells-adjoint " + json.dumps({k: adjoint[k] for k in (
         "forward_run_s", "sweep_s", "overhead", "lambda_iterations_per_step",
         "peak_mem_bytes")}))

@@ -4,7 +4,8 @@ A second package beside the JAX one, with the same module layout. It runs
 the structured-grid main path — two-phase immiscible Darcy flow on a
 Cartesian lattice, with wells as source terms or as well models (bordered
 stencil + Schur-eliminated wellbores), through
-``Simulator(use_stencil=True)``: fused-form stencil assembly,
+``Simulator(use_stencil=True)`` (the port's default): fused-form stencil
+assembly,
 CPR(GMG)-preconditioned BiCGStab with a Jacobi or Chebyshev smoother
 (optionally streaming its coefficients in bfloat16), adaptive ministeps
 through the eager loop (``simulate``) or the schedule path with
@@ -12,7 +13,12 @@ Eisenstat-Walker forcing (``simulate_jit`` / ``lower_schedule``), and
 mixed-precision refinement of an accepted step (``refine_solution``),
 and the discrete adjoint on the stencil engine with its objectives and the
 parameter-optimization harness (``adjoint/``, ``core/case.py``) —
-in PyTorch, with hand-written CUDA kernels for Hopper (``ops/cuda``,
+and the generic block-ELL engine on any mesh through
+``Simulator(use_stencil=False)`` (``ops/assembly.py``, ``ops/blockell.py``)
+with its linear solvers: GMRES and BiCGStab (``GenericKrylov``), the
+preconditioners, aggregation and smoothed-aggregation AMG, CPR(AMG +
+ILU(0)) and the dense direct solve (``linsolve/``), and the analytic test
+systems (``models/test_systems.py``) — in PyTorch, with hand-written CUDA kernels for Hopper (``ops/cuda``,
 sources in ``csrc/``) where the JAX package has Pallas kernels. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
 
@@ -41,6 +47,18 @@ from .adjoint.trust_region import box_trust_region
 from .config import JutulConfig
 from .core.case import JutulCase
 from .core.domains import DataDomain, DiscretizedDomain
+from .linsolve.amg import AMGPreconditioner, SmoothedAggregationAMG
+from .linsolve.cpr import CPRPreconditioner
+from .linsolve.direct import DirectSolver
+from .linsolve.krylov import GenericKrylov
+from .linsolve.precond import (
+    BlockJacobiPreconditioner,
+    ILU0Preconditioner,
+    JacobiPreconditioner,
+    SPAI0Preconditioner,
+    TrivialPreconditioner,
+)
+from .linsolve.system import LinearizedSystem
 from .meshes.cartesian import CartesianMesh
 from .models.darcy import (
     ImmiscibleFluid,
@@ -51,8 +69,22 @@ from .models.darcy import (
 from .models.forces import setup_forces
 from .models.setup import from_numpy, setup_parameters, setup_state
 from .models.system import SimulationModel
+from .models.test_systems import (
+    PoissonSource,
+    ScalarTestDomain,
+    ScalarTestForce,
+    ScalarTestSystem,
+    SimpleHeatSystem,
+    VariablePoissonSystem,
+)
+from .models.variables import (
+    ConstantVariables,
+    FunctionSecondaryVariable,
+    secondary_variable,
+)
 from .models.wells import WellGraphMesh, WellSpec, setup_well_graph_model
 from .ops.assembly import CompiledModel, compile_model
+from .ops.blockell import BlockELL, ELLStructure
 from .ops.stencil import GMG, StencilCPR, StencilKrylovSolver
 from .simulator.io import report_stats
 from .simulator.relaxation import NoRelaxation, SimpleRelaxation
@@ -67,15 +99,22 @@ from .simulator.timesteps import IterationTimestepSelector, TimestepSelector
 from .units import si_unit, si_units
 
 __all__ = [
-    "AdjointStorage", "CartesianMesh", "CompiledModel", "DataDomain",
-    "DiscretizedDomain", "GMG", "GlobalObjective", "ImmiscibleFluid",
-    "IterationTimestepSelector", "JutulCase", "JutulConfig", "NoRelaxation",
-    "PhaseSourceTerm", "PressureBoundaryCondition", "SimResult",
-    "SimpleRelaxation", "SimulationModel", "Simulator", "StencilCPR",
+    "AMGPreconditioner", "AdjointStorage", "BlockELL",
+    "BlockJacobiPreconditioner", "CPRPreconditioner", "CartesianMesh",
+    "CompiledModel", "ConstantVariables", "DataDomain", "DirectSolver",
+    "DiscretizedDomain", "ELLStructure", "FunctionSecondaryVariable", "GMG",
+    "GenericKrylov", "GlobalObjective", "ILU0Preconditioner",
+    "ImmiscibleFluid", "IterationTimestepSelector", "JacobiPreconditioner",
+    "JutulCase", "JutulConfig", "LinearizedSystem", "NoRelaxation",
+    "PhaseSourceTerm", "PoissonSource", "PressureBoundaryCondition",
+    "SPAI0Preconditioner", "ScalarTestDomain", "ScalarTestForce",
+    "ScalarTestSystem", "SimResult", "SimpleHeatSystem", "SimpleRelaxation",
+    "SimulationModel", "Simulator", "SmoothedAggregationAMG", "StencilCPR",
     "StencilKrylovSolver", "SumObjective", "TimestepSelector",
-    "WellGraphMesh", "WellSpec", "box_trust_region", "compile_model",
+    "TrivialPreconditioner", "VariablePoissonSystem", "WellGraphMesh",
+    "WellSpec", "box_trust_region", "compile_model",
     "expand_to_ministeps", "from_numpy", "optimization_config",
-    "report_stats", "setup_adjoint_storage", "setup_darcy_model",
+    "report_stats", "secondary_variable", "setup_adjoint_storage", "setup_darcy_model",
     "setup_forces", "setup_parameter_optimization", "setup_parameters",
     "setup_state", "setup_well_graph_model", "si_unit", "si_units",
     "simulate", "simulator_config", "solve_adjoint_forces",

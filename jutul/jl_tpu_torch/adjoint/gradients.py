@@ -24,9 +24,9 @@ States must be the accepted ministep sequence for the gradient to be
 exact (the reference requires it too): use ``expand_to_ministeps`` with
 ``output_substates=True`` when ministeps were cut.
 
-The JAX package's generic block-ELL engine is not ported (ROADMAP A10):
-``use_stencil=False`` and the force gradient raise, and so does a
-MultiModel (ROADMAP A13).
+The adjoint on the generic block-ELL engine (its BlockELL λ-solves) is
+not ported (ROADMAP A10): ``use_stencil=False`` and the force gradient
+raise, and so does a MultiModel (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def _refuse_generic(use_stencil):
     if not use_stencil:
         raise NotImplementedError(
             "only the stencil adjoint (use_stencil=True) is ported; the "
-            "generic block-ELL engine is ROADMAP A10")
+            "generic block-ELL engine's adjoint is ROADMAP A10")
 
 
 def _refuse_multimodel(model):
@@ -412,10 +412,10 @@ def solve_numerical_sensitivities(model, states, dts, G, parameters,
 
 def solve_adjoint_forces(*args, **kwargs):
     """Gradient with respect to force values (the JAX package's
-    ``solve_adjoint_forces``): it runs on the generic block-ELL storage,
-    which is not ported."""
+    ``solve_adjoint_forces``): it runs on the generic block-ELL adjoint
+    storage, which is not ported."""
     raise NotImplementedError(
-        "solve_adjoint_forces needs the generic block-ELL engine "
+        "solve_adjoint_forces needs the generic block-ELL engine's adjoint "
         "(ROADMAP A10)")
 
 

@@ -73,8 +73,14 @@ class Pressure(ScalarVariable):
     def minimum_value(self, model=None):
         return 1.0  # Pa; matches the reference's hard floor on pressure
 
+    def absolute_increment_limit(self, model=None):
+        return None
+
     def relative_increment_limit(self, model=None):
         return 0.2
+
+    def variable_scale(self, model=None):
+        return 1e5
 
 
 class Saturations(FractionVariables):

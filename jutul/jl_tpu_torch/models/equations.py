@@ -10,13 +10,16 @@ elementwise function plus static index arrays. The stencil engine
 (ops/stencil.py) evaluates the accumulation contribution over all cells at
 once and differentiates it with ``torch.func.jvp``; the face flux runs
 through the system's ``ScalarAssemblyForm`` and the fused flux+Jacobian
-kernel (ops/cuda/assembly_kernels.py).
+kernel (ops/cuda/assembly_kernels.py). The generic block-ELL engine
+(ops/assembly.py) evaluates every contribution on gathered batches of
+cells or faces and differentiates it the same way.
 
 Local-function contracts (component axis last, any leading batch shape):
 - accumulation: ``fn(model, cell_state, cell_state0, dt) -> (..., neq)``.
+- cell term: the same signature as accumulation.
 - face flux: ``fn(model, cell_states, face_state) -> (..., neq)`` where
-  ``cell_states`` entries carry the two TPFA cells on axis -2 for vector
-  variables and -1 for scalars (index 0 = left, 1 = right); positive
+  ``cell_states`` entries carry the K stencil cells on axis -2 for vector
+  variables and -1 for scalars (TPFA: index 0 = left, 1 = right); positive
   flux flows left -> right and is added to the left row, subtracted from
   the right.
 """
@@ -38,6 +41,14 @@ class AccumulationContribution:
 
     fn: Callable  # (model, cell_state, cell_state0, dt) -> (..., neq)
     name: str = "accumulation"
+
+
+@dataclass
+class CellTermContribution:
+    """Arbitrary cell-local residual term r[c] += fn(cell_state)."""
+
+    fn: Callable  # (model, cell_state, cell_state0, dt) -> (..., neq)
+    name: str = "cell_term"
 
 
 @dataclass

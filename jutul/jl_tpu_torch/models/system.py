@@ -104,6 +104,16 @@ class SimulationModel:
     def number_of_cells(self) -> int:
         return self.count_entities(CELLS)
 
+    def number_of_degrees_of_freedom(self) -> int:
+        return sum(var.degrees_of_freedom_per_entity(self)
+                   * self.count_entities(var.associated_entity(self))
+                   for var in self.primary_variables.values())
+
+    def number_of_equations(self) -> int:
+        return sum(eq.number_of_equations_per_entity(self)
+                   * self.count_entities(eq.entity(self))
+                   for eq in self.equations.values())
+
     def dof_layout(self) -> DofLayout:
         return DofLayout(self)
 

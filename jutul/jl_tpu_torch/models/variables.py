@@ -2,8 +2,8 @@
 
 Counterpart of Jutul's variables API (reference: src/variables/utils.jl —
 ``degrees_of_freedom_per_entity``/``values_per_entity``, ``default_value``,
-min/max values, ``absolute_increment_limit``/``relative_increment_limit``;
-Newton update with clamping at :110-175; unit-sum update
+min/max values, ``absolute_increment_limit``/``relative_increment_limit``,
+``variable_scale``; Newton update with clamping at :110-175; unit-sum update
 for ``FractionVariables`` at :388-471; abstract hierarchy in
 src/core_types/core_types.jl:19-88: ScalarVariable / VectorVariables /
 FractionVariables).
@@ -20,6 +20,8 @@ FractionVariables).
 """
 
 from __future__ import annotations
+
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +60,9 @@ class JutulVariable:
         return None
 
     def relative_increment_limit(self, model=None):
+        return None
+
+    def variable_scale(self, model=None):
         return None
 
     # --- initialization --------------------------------------------------
@@ -180,6 +185,20 @@ class FractionVariables(VectorVariables):
         return out / s
 
 
+class ConstantVariables(JutulVariable):
+    """A parameter-like constant variable (reference variables/utils.jl)."""
+
+    def __init__(self, value, values_per_entity: int = 1):
+        self._value = value
+        self._n = int(values_per_entity)
+
+    def values_per_entity(self, model=None) -> int:
+        return self._n
+
+    def default_value(self, model=None):
+        return self._value
+
+
 class JutulParameter(JutulVariable):
     """Base for parameters (non-solved variables)."""
 
@@ -220,3 +239,42 @@ class SecondaryVariable(JutulVariable):
 
     def evaluate(self, model, **deps):
         raise NotImplementedError
+
+
+class FunctionSecondaryVariable(SecondaryVariable):
+    """Secondary variable from a plain function — the ``@jutul_secondary``
+    equivalent (reference src/variable_evaluation.jl:38-85). ``fn`` must
+    be elementwise along the entity axis, as every ``evaluate``."""
+
+    def __init__(self, fn: Callable, dependencies: Sequence[str],
+                 values_per_entity: int = 1, entity: JutulEntity = CELLS):
+        self._fn = fn
+        self.dependencies = tuple(dependencies)
+        self._n = int(values_per_entity)
+        self._entity = entity
+
+    def associated_entity(self, model=None) -> JutulEntity:
+        return self._entity
+
+    def values_per_entity(self, model=None) -> int:
+        return self._n
+
+    def evaluate(self, model, **deps):
+        return self._fn(**deps)
+
+
+def secondary_variable(*dependencies: str, values_per_entity: int = 1,
+                       entity: JutulEntity = CELLS):
+    """Decorator: turn a pure elementwise function into a SecondaryVariable.
+
+    >>> @secondary_variable("Pressure")
+    ... def Density(Pressure):
+    ...     return rho0 * (1 + c * (Pressure - p0))
+    """
+
+    def wrap(fn: Callable) -> FunctionSecondaryVariable:
+        return FunctionSecondaryVariable(
+            fn, dependencies, values_per_entity=values_per_entity,
+            entity=entity)
+
+    return wrap

@@ -1,10 +1,33 @@
-"""The compiled model: dof layout, secondaries, forces, convergence, update.
+"""The compiled model: dof layout, secondaries, forces, convergence, update,
+and the generic block-ELL residual/Jacobian engine.
 
-Port of the part of the JAX package's ``CompiledModel`` (ops/assembly.py)
-that the stencil engine (ops/stencil.py) calls. Counterpart of Jutul's
-local-AD assembly bookkeeping (reference: src/ad/ad.jl,
-src/equations.jl alignment, src/models.jl:818-928). The generic
-block-ELL residual/Jacobian engine is not part of this port yet.
+Port of the JAX package's ``CompiledModel`` (ops/assembly.py). Counterpart
+of Jutul's local-AD assembly stack (reference: src/ad/ad.jl dual
+allocation and fill_equation_entries!, src/ad/local_ad.jl, src/equations.jl
+alignment, src/conservation/conservation.jl TPFA assembly,
+src/models.jl:818-928).
+
+The stencil engine (ops/stencil.py) calls the bookkeeping half. The
+generic half (``residual``, ``jacobian_blocks``, ``assemble``) serves
+``Simulator(use_stencil=False)`` on any mesh:
+
+- residual: secondary variables evaluated once over all cells, each
+  contribution evaluated on the whole batch of cells or of faces (cell
+  states gathered through the face stencil), and every row SUMS its
+  incident faces in a fixed order (``SegmentSumPlan``) — no scatter-add
+  anywhere, so a CUDA run repeats its bits;
+- Jacobian: the contribution's closure over the packed primary dofs
+  re-evaluates the secondary chain and is differentiated with one
+  ``torch.func.jvp`` per dof (per stencil position and dof for fluxes) over
+  the whole batch — the columns ``jax.vmap(jax.jacfwd(...))`` gives the JAX
+  package, with JAX's derivative rules kept by the model code (``clip``
+  weight 0.5 at a bound, the upwind tie to the left). The per-face blocks
+  are summed into their (row, slot) destinations the same way (the
+  reference's ``jacobian_positions`` / ``injective_alignment!``,
+  ad/ad.jl:103-169).
+
+The ELL structure and the sum plans are built on the first generic use:
+a stencil ``Simulator`` never pays that host work.
 """
 
 from __future__ import annotations
@@ -14,8 +37,15 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.func import jvp
 
 from ..core.entities import CELLS, FACES, JutulEntity
+from ..models.equations import (
+    AccumulationContribution,
+    CellTermContribution,
+    FaceFluxContribution,
+)
+from .blockell import BlockELL, ELLStructure, SegmentSumPlan
 
 
 @dataclass
@@ -67,6 +97,9 @@ class CompiledModel:
             )
         self.contribs = [(info, con) for info in self.equations
                          for con in info.eq.contributions(model)]
+        self._ell = None
+        self._meta = None  # per-contribution sum plans (generic engine)
+        self._force_plans: dict = {}
 
     # ------------------------------------------------------------------
     # state helpers
@@ -161,6 +194,233 @@ class CompiledModel:
                         cells, jac = contrib
                         yield info.row_slice, np.asarray(cells), jac
 
+    # ------------------------------------------------------------------
+    # generic engine: sparsity and sum plans (host, on first use)
+    # ------------------------------------------------------------------
+    @property
+    def ell(self) -> ELLStructure:
+        """The block-ELL structure of the Jacobian (built on first use)."""
+        self._generic()
+        return self._ell
+
+    def _generic(self) -> list:
+        """Per-contribution sum plans (built with the ELL structure on
+        first use)."""
+        if self._meta is None:
+            self._generic_setup()
+        return self._meta
+
+    def _generic_setup(self) -> None:
+        edges, metas = [], []
+        for info, con in self.contribs:
+            meta: dict = {}
+            if isinstance(con, FaceFluxContribution):
+                st = np.asarray(con.stencil, dtype=np.int64)
+                plus = np.asarray(con.plus, dtype=np.int64)
+                minus = np.asarray(con.minus, dtype=np.int64)
+                for k in range(st.shape[1]):
+                    edges.append(np.stack([plus, st[:, k]], axis=1))
+                    edges.append(np.stack([minus, st[:, k]], axis=1))
+                meta.update(stencil=st, plus=plus, minus=minus,
+                            K=st.shape[1])
+            metas.append(meta)
+        all_edges = (np.concatenate(edges, axis=0) if edges
+                     else np.zeros((0, 2), np.int64))
+        ell = ELLStructure.build(self.n_cells, all_edges)
+        for meta in metas:
+            if meta:
+                st, K = meta["stencil"], meta["K"]
+                meta["plus_slots"] = np.stack(
+                    [ell.slots_for(meta["plus"], st[:, k]) for k in range(K)],
+                    axis=1)
+                meta["minus_slots"] = np.stack(
+                    [ell.slots_for(meta["minus"], st[:, k])
+                     for k in range(K)], axis=1)
+                self._build_gather_tables(meta, ell)
+        self._ell, self._meta = ell, metas
+
+    def _build_gather_tables(self, meta: dict, ell: ELLStructure) -> None:
+        """Fixed-order sums that invert the scatter (the dual of the
+        reference's half-face CSR maps, src/domains.jl:101): the
+        residual's, over the signed fluxes ``[flux, -flux]`` into the rows
+        plus/minus, and the Jacobian's, over the signed per-face blocks
+        ``[jac, -jac]`` (face*K + k within each sign) into their
+        (row, slot) destinations ``row*S + slot``. The residual is summed
+        from plus/minus directly: the Jacobian's diagonal entries would
+        multi-count faces for wide stencils where a row appears at
+        several stencil positions."""
+        n, S = self.n_cells, ell.n_slots
+        plus, minus = meta["plus"], meta["minus"]
+        meta["r_plan"] = SegmentSumPlan(np.concatenate([plus, minus]), n)
+        meta["j_plan"] = SegmentSumPlan(np.concatenate([
+            (plus[:, None] * S + meta["plus_slots"]).reshape(-1),
+            (minus[:, None] * S + meta["minus_slots"]).reshape(-1)]), n * S)
+        meta["dev"] = {}
+
+    @staticmethod
+    def _stencil_on(meta, device):
+        key = str(device)
+        if key not in meta["dev"]:
+            meta["dev"][key] = torch.as_tensor(meta["stencil"], device=device)
+        return meta["dev"][key]
+
+    # ------------------------------------------------------------------
+    # generic engine: residual
+    # ------------------------------------------------------------------
+    def residual(self, state: dict, state0: dict, dt, forces=None):
+        """(n_cells, neq_total) residual of raw states (secondaries are
+        evaluated here), the stencil engines' contract."""
+        return self._residual_evaluated(self.evaluate_secondaries(state),
+                                        self.evaluate_secondaries(state0),
+                                        dt, forces)
+
+    def _residual_evaluated(self, state: dict, state0: dict, dt,
+                            forces=None):
+        """The residual of secondary-evaluated states. Gather-based:
+        per-face fluxes computed once, each row sums its incident faces
+        in a fixed order."""
+        model = self.model
+        metas = self._generic()
+        cell_state = self._cell_entries(state)
+        cell_state0 = self._cell_entries(state0)
+        face_state = self._face_entries(state)
+        per_eq: dict[str, list] = {info.name: [] for info in self.equations}
+        for (info, con), meta in zip(self.contribs, metas):
+            if isinstance(con, (AccumulationContribution,
+                                CellTermContribution)):
+                per_eq[info.name].append(
+                    con.fn(model, cell_state, cell_state0, dt))
+            elif isinstance(con, FaceFluxContribution):
+                dev = next(iter(cell_state.values())).device
+                st = self._stencil_on(meta, dev)
+                local = {k: v[st] for k, v in cell_state.items()}
+                flux = con.fn(model, local, face_state)  # (nf, neq)
+                per_eq[info.name].append(
+                    meta["r_plan"].apply(torch.cat([flux, -flux])))
+            else:
+                raise TypeError(f"Unknown contribution {type(con)}")
+        pieces = []
+        for info in self.equations:
+            parts = per_eq[info.name]
+            tot = parts[0]
+            for p in parts[1:]:
+                tot = tot + p
+            pieces.append(tot)
+        r = torch.cat(pieces, dim=-1) if len(pieces) > 1 else pieces[0]
+        if forces:
+            r = self._apply_forces(r, state, dt, forces)
+        return r
+
+    # ------------------------------------------------------------------
+    # generic engine: Jacobian
+    # ------------------------------------------------------------------
+    def _local_closure(self, params, fn):
+        """u (..., ndof) -> fn(secondary-evaluated local state)."""
+        def closure(u):
+            local = dict(params)
+            local.update(self.unpack_dofs(u))
+            return fn(self._eval_secondaries_local(local))
+        return closure
+
+    def jacobian_blocks(self, state: dict, state0: dict, dt, forces=None):
+        """BlockELL blocks (n, S, neq_total, ndof): the columns of
+        ``vmap(jacfwd)`` by one ``torch.func.jvp`` per dof over the whole
+        batch, gathered into their (row, slot) destinations (counterpart
+        of fill_equation_entries!, reference ad/generic.jl:53)."""
+        model = self.model
+        metas = self._generic()
+        n, S, ndof = self.n_cells, self._ell.n_slots, self.ndof
+        params_cell = self._cell_entries(state, include=("parameter",))
+        cell_state0 = self._cell_entries(state0)
+        face_state = self._face_entries(state)
+        U_all = self.get_dofs(state)  # (n, ndof)
+        dev = U_all.device
+        cell_eq: dict[str, list] = {i.name: [] for i in self.equations}
+        face_eq: dict[str, list] = {i.name: [] for i in self.equations}
+        for (info, con), meta in zip(self.contribs, metas):
+            neq_e = info.neq
+            if isinstance(con, (AccumulationContribution,
+                                CellTermContribution)):
+                f = self._local_closure(
+                    params_cell,
+                    lambda loc, _c=con: _c.fn(model, loc, cell_state0, dt))
+                cols = []
+                for j in range(ndof):
+                    ej = torch.zeros_like(U_all)
+                    ej[:, j] = 1.0
+                    cols.append(jvp(f, (U_all,), (ej,))[1])  # (n, neq_e)
+                cell_eq[info.name].append(torch.stack(cols, dim=-1))
+            elif isinstance(con, FaceFluxContribution):
+                st = self._stencil_on(meta, dev)
+                nf, K = st.shape
+                p_st = {k: v[st] for k, v in params_cell.items()}
+                U_st = U_all[st]  # (nf, K, ndof)
+                f = self._local_closure(
+                    p_st, lambda loc, _c=con: _c.fn(model, loc, face_state))
+                jac = U_all.new_empty((nf, K, neq_e, ndof))
+                for k in range(K):
+                    for j in range(ndof):
+                        e = torch.zeros_like(U_st)
+                        e[:, k, j] = 1.0
+                        jac[:, k, :, j] = jvp(f, (U_st,), (e,))[1]
+                jac_fk = jac.reshape(nf * K, neq_e, ndof)  # face*K + k
+                face_eq[info.name].append(meta["j_plan"].apply(
+                    torch.cat([jac_fk, -jac_fk])).reshape(n, S, neq_e, ndof))
+
+        def _sum(parts, zero_shape):
+            if not parts:
+                return U_all.new_zeros(zero_shape)
+            tot = parts[0]
+            for p in parts[1:]:
+                tot = tot + p
+            return tot
+
+        per_eq = []
+        for i in self.equations:
+            blk = _sum(face_eq[i.name], (n, S, i.neq, ndof))
+            if cell_eq[i.name]:
+                blk[:, 0] = blk[:, 0] + _sum(cell_eq[i.name], None)
+            per_eq.append(blk)
+        blocks = torch.cat(per_eq, dim=2)
+        if forces:
+            blocks = self._apply_force_jacobians(blocks, state, dt, forces)
+        return blocks
+
+    def _apply_force_jacobians(self, blocks, state, dt, forces):
+        """Add each state-dependent force's diagonal blocks; repeated cells
+        are summed in a fixed order first, so the write is atomic-free."""
+        for sl, cells, jac in self._force_diagonal_blocks(state, dt, forces):
+            idx, plan = self._force_plan(cells, blocks.device)
+            if plan is not None:
+                jac = plan.apply(jac)
+            blocks[idx, 0, sl, :] = blocks[idx, 0, sl, :] + jac.to(
+                blocks.dtype)
+        return blocks
+
+    def _force_plan(self, cells, device):
+        """(distinct cells on ``device``, their sum plan or None when no
+        cell repeats), built once per force structure."""
+        key = (cells.tobytes(), str(device))
+        if key not in self._force_plans:
+            uniq, inv = np.unique(cells, return_inverse=True)
+            plan = (SegmentSumPlan(inv, uniq.shape[0])
+                    if uniq.shape[0] != cells.shape[0] else None)
+            self._force_plans[key] = (torch.as_tensor(uniq, device=device),
+                                      plan)
+        return self._force_plans[key]
+
+    def assemble(self, state: dict, state0: dict, dt, forces=None,
+                 with_jacobian: bool = True):
+        """(r, BlockELL J, secondary-evaluated state) — the generic
+        engine's entry, with the stencil engines' signature."""
+        state = self.evaluate_secondaries(state)
+        state0 = self.evaluate_secondaries(state0)
+        r = self._residual_evaluated(state, state0, dt, forces)
+        if not with_jacobian:
+            return r, None, state
+        blocks = self.jacobian_blocks(state, state0, dt, forces)
+        return r, BlockELL(self.ell, blocks), state
+
     def convergence(self, r, state, dt) -> dict:
         """Nested dict eq_name -> criterion -> (neq,) errors
         (reference: check_convergence, models.jl:818)."""
@@ -178,4 +438,12 @@ def _as_force_list(fv):
 
 
 def compile_model(model) -> CompiledModel:
+    """The compiled model. A model whose equations live on more than one
+    entity (the JAX package's ``MixedCompiledModel``, ops/mixed.py) waits
+    for the MultiModel port."""
+    ents = {eq.entity(model) for eq in model.equations.values()}
+    if len(ents) > 1:
+        raise NotImplementedError(
+            "mixed-entity models (equations on several entities, the JAX "
+            "package's ops/mixed.py) are not ported (ROADMAP A13)")
     return CompiledModel(model)

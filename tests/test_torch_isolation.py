@@ -14,6 +14,14 @@ def test_port_imports_without_jax():
         "import jutul.jl_tpu_torch\n"
         "import jutul.jl_tpu_torch.ops.cuda\n"
         "import jutul.jl_tpu_torch.simulator.simulator\n"
+        "import jutul.jl_tpu_torch.ops.blockell\n"
+        "import jutul.jl_tpu_torch.linsolve.amg\n"
+        "import jutul.jl_tpu_torch.linsolve.cpr\n"
+        "import jutul.jl_tpu_torch.linsolve.direct\n"
+        "import jutul.jl_tpu_torch.linsolve.krylov\n"
+        "import jutul.jl_tpu_torch.linsolve.precond\n"
+        "import jutul.jl_tpu_torch.linsolve.system\n"
+        "import jutul.jl_tpu_torch.models.test_systems\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'jutul.jl_tpu' not in sys.modules, 'jutul.jl_tpu imported'\n"
         "assert torch.get_default_dtype() == torch.float32\n"
