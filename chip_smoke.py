@@ -68,18 +68,35 @@ failure (nothing is caught, so any failure exits non-zero):
    (bench.py's dot test in float64 at 64x32x32: <g, δ> within 1e-3 of the
    central difference); ``history-match`` (3 unit-box L-BFGS iterations of
    ``setup_parameter_optimization`` at 64x32x32 must lower the misfit);
+8d. the generic engine's adjoint: ``generic-adjoint`` (bench.py run_adjoint
+   under BENCH_ADJ_STENCIL=0: wells-adjoint's states, the sweep on
+   ``AdjointStorage(linear_solver=ILU(0)-BiCGStab)`` at rtol 1e-6 in
+   float32, cold and twice warm: a finite gradient, no kernel launch, the
+   warm sweeps equal bit for bit); ``generic-adjoint-dot`` (adjoint-dot's
+   test with the generic sweep in float64, ≤ 1e-3);
+   ``dict-history-match`` (``DictParameters.optimize`` at 32x16x16 with the
+   default engine and solvers: the misfit must fall); ``generic-setup``
+   (``solve_adjoint_generic`` against a directional central difference,
+   1e-4) and ``force-gradient`` (``solve_adjoint_forces`` on the 8x8x6 well
+   model, 1e-5), both in float64;
 9. A/B at 64x32x32 on the card, float32: both opt-ins, the K5 phases
    alone, neither, and neither from a 2-ulp perturbed initial pressure.
    The phases alone must reproduce "neither" bit for bit; the fused body
    (another summation order) must succeed and pass the f64 verify, and
    its counts are reported beside the perturbed run's (phase_ab says why
    counts cannot be held equal there);
+9b. eager-options: the well flagship at 64x32x32, stencil engine: per-step
+   files and a restart from them (the final state bit for bit), then a run
+   with ``ConvergenceMonitorCuttingCriterion``, a
+   ``VariableChangeTimestepSelector``, hooks and ``extra_timing``;
 10. cross-checks: each slice on a small grid in float64 on the card
    (kernels) against the CPU (plain versions): identical ministep, Newton
    and linear-iteration counts, states within 1e-9 (the Jacobi-phase one
    without the float32-only fused body); the schedule path with forcing at
    8x8x6 likewise; the adjoint's gradients at 8x8x6 in float64 on the card
    against the CPU's on the same states, within 1e-9;
+   the generic adjoint's there (λ at rtol 1e-14) against the CPU's and
+   against the stencil adjoint's, within 1e-9;
 11. generic slice: the generic block-ELL engine,
    ``Simulator(use_stencil=False)``, on srcwells' case (1,048,576 cells,
    float32, 3 report steps, srcwells' Newton settings) with BASELINE.json's
@@ -109,6 +126,7 @@ times, bound and launches (``launches``: its main slice, ``main_slice``;
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -199,6 +217,7 @@ SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
                                   "scalar_jacobi_phase_bf16c"),
 }
 SLICE_KERNELS["generic"] = ()  # the generic path has no kernel of its own
+SLICE_KERNELS["eager-options"] = SLICE_KERNELS["wells-jacobi-eager"]
 SLICE_KERNELS["generic-fused"] = ("fused_alpha_s", "fused_omega_update")
 _F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", "scalar_jacobi_phase")
 # K1-K5 and every bf16 entry: the stencil engine's kernels
@@ -1215,12 +1234,14 @@ def phase_warm_up():
                                    (build_well_flagship, "chebyshev", False),
                                    (build_well_flagship, "jacobi", True)):
         model, state0, params, forces = build(*SMALL)
-        Simulator(model, state0, params, device="cuda").simulate(
+        Simulator(model, state0, params, use_stencil=True,
+                  device="cuda").simulate(
             [DT] * 2, forces=rate_schedule(forces, 2),
             **sim_config(64, smoother, fused))
     model, state0, params, forces = build_well_flagship(*SMALL)
     for coef_dtype in (None, "bf16"):
-        sim = Simulator(model, state0, params, device="cuda")
+        sim = Simulator(model, state0, params, use_stencil=True,
+                        device="cuda")
         res = sim.simulate_jit(
             [DT] * 2, forces=rate_schedule(forces, 2),
             **sim_config(64, coef_dtype=coef_dtype, product=True))
@@ -1473,7 +1494,7 @@ def phase_cross_check(build, dims, smoother, name, phases=False,
     model, state0, params, forces = build(*dims)
     runs = {}
     for dev in ("cuda", "cpu"):
-        sim = Simulator(model, state0, params, device=dev,
+        sim = Simulator(model, state0, params, use_stencil=True, device=dev,
                         dtype=torch.float64)
         cfg = sim_config(64, smoother, product=product)
         cfg["linear_solver"].preconditioner.gmg.slab_double_buffer = phases
@@ -1884,7 +1905,7 @@ def phase_adjoint(case, n_step=2, device="cuda"):
     model, state0, params, forces = case
     nc = model.domain.mesh._nc_base
     fwd, lam = adjoint_solvers()
-    sim = Simulator(model, state0, params, device=device)
+    sim = Simulator(model, state0, params, use_stencil=True, device=device)
     dts = [ADJ_DT] * n_step
     run, args, post = sim.lower_schedule(dts, forces=forces,
                                          **adjoint_forward_config(fwd))
@@ -1905,7 +1926,8 @@ def phase_adjoint(case, n_step=2, device="cuda"):
                            "report steps: its states are not the accepted "
                            "ministep sequence the adjoint transposes")
     G = sat_objective(nc)
-    storage = AdjointStorage(model, params, linear_solver=lam, device=device)
+    storage = AdjointStorage(model, params, linear_solver=lam,
+                             use_stencil=True, device=device)
     per_solve = _record_solves(storage)
 
     def sweep():
@@ -1955,7 +1977,7 @@ def phase_adjoint(case, n_step=2, device="cuda"):
         "launches_per_lambda_solve": per_solve,
     }
     log("# wells-adjoint: " + json.dumps(out))
-    return out, g
+    return out, g, res.states
 
 
 def _fd_forward(case, params, dts, device, dtype=torch.float64):
@@ -1966,7 +1988,7 @@ def _fd_forward(case, params, dts, device, dtype=torch.float64):
 
     model, state0, _, forces = case
     solver, _ = adjoint_solvers(fwd_rtol=1e-10, fwd_its=300)
-    res = Simulator(model, state0, params, device=device,
+    res = Simulator(model, state0, params, use_stencil=True, device=device,
                     dtype=dtype).simulate(
         dts, forces=forces, linear_solver=solver, info_level=-1,
         tolerances={"mass_conservation/CNV": 1e-8,
@@ -2019,16 +2041,18 @@ def phase_adjoint_dot(case, n_step=2, hs=(1e-3, 1e-4), device="cuda"):
         fds.append((g_pm[0] - g_pm[1]) / (2.0 * h))
     _, lam64 = adjoint_solvers(lam_rtol=1e-10, lam_its=1000)
     states64 = _fd_forward(case, params, dts, device)
-    st64 = AdjointStorage(model, params, linear_solver=lam64, device=device,
+    st64 = AdjointStorage(model, params, linear_solver=lam64,
+                          use_stencil=True, device=device,
                           dtype=torch.float64)
     g64 = solve_adjoint_sensitivities_jit(
         model, states64, dts, G, parameters=params, state0=state0,
         forces=forces, storage=st64)["Transmissibilities"]
     fwd, lam = adjoint_solvers()
-    res32 = Simulator(model, state0, params, device=device,
-                      dtype=torch.float32).simulate_jit(
+    res32 = Simulator(model, state0, params, use_stencil=True,
+                      device=device, dtype=torch.float32).simulate_jit(
         dts, forces=forces, **adjoint_forward_config(fwd))
-    st32 = AdjointStorage(model, params, linear_solver=lam, device=device,
+    st32 = AdjointStorage(model, params, linear_solver=lam,
+                          use_stencil=True, device=device,
                           dtype=torch.float32)
     g32 = solve_adjoint_sensitivities_jit(
         model, res32.states, dts, G, parameters=params, state0=state0,
@@ -2053,7 +2077,7 @@ def phase_adjoint_dot(case, n_step=2, hs=(1e-3, 1e-4), device="cuda"):
         raise RuntimeError(f"adjoint-dot: f64 gradient off by "
                            f"{out['rel_err_f64']:.3e} > 1e-3 at h = "
                            f"{hs[-1]}")
-    return out
+    return out, dict(zip(hs, fds)), states64
 
 
 def phase_history_match(case, n_step=2, max_iterations=3, device="cuda"):
@@ -2079,7 +2103,7 @@ def phase_history_match(case, n_step=2, max_iterations=3, device="cuda"):
     for k in ("jit_report_capacity", "linear_forcing", "jit_output_states",
               "info_level"):
         kw.pop(k)  # schedule-path options: the harness runs simulate
-    kw.update(device=device, dtype=torch.float32)
+    kw.update(device=device, dtype=torch.float32, use_stencil=True)
     obs = [s["Saturations"] for s in simulate(
         state0, model, dts, forces=forces, parameters=params,
         info_level=-1, **kw).states]
@@ -2135,8 +2159,9 @@ def phase_adjoint_cross_check(dims, lam_rtol=1e-14):
     G = sat_objective(model.domain.mesh._nc_base)
     grads = {dev: solve_adjoint_sensitivities_jit(
         model, states, dts, G, parameters=params, state0=state0,
-        forces=sched, linear_solver=lam, include_state0=True, device=dev,
-        dtype=torch.float64) for dev in ("cuda", "cpu")}
+        forces=sched, linear_solver=lam, include_state0=True,
+        use_stencil=True, device=dev, dtype=torch.float64)
+        for dev in ("cuda", "cpu")}
     out = {k: float(np.abs(grads["cuda"][k] - grads["cpu"][k]).max()
                     / np.abs(grads["cpu"][k]).max())
            for k in ("Transmissibilities", "FluidVolume", "state0")}
@@ -2144,6 +2169,446 @@ def phase_adjoint_cross_check(dims, lam_rtol=1e-14):
         "f64): " + json.dumps(out))
     if not all(v <= 1e-9 for v in out.values()):
         raise RuntimeError(f"adjoint cross-check: gradients differ: {out}")
+    return {**grads["cuda"], "states": states}
+
+
+# ---------------------------------------------------------------------------
+# the generic engine's adjoint, DictParameters, the setup-map and force
+# gradients, and the eager loop's options
+# ---------------------------------------------------------------------------
+def generic_lambda_solver(rtol=1e-6, max_iterations=200):
+    """bench.py run_adjoint's λ-solver under BENCH_ADJ_STENCIL=0
+    (bench.py:872-879): ILU(0)-preconditioned BiCGStab on the transposed
+    BlockELL."""
+    from jutul.jl_tpu_torch import GenericKrylov, ILU0Preconditioner
+
+    return GenericKrylov("bicgstab", ILU0Preconditioner(), rtol=rtol,
+                         max_iterations=max_iterations)
+
+
+def phase_generic_adjoint(case, states, g_stencil, forward_run_s, n_step=2,
+                          device="cuda"):
+    """bench.py run_adjoint with BENCH_ADJ_STENCIL=0 at full width: the
+    forward is unchanged by that switch, so ``states`` are
+    ``wells-adjoint``'s accepted states; the sweep is
+    ``solve_adjoint_sensitivities_jit`` of bench's G on
+    ``AdjointStorage(model, params, linear_solver=ILU(0)-BiCGStab at rtol
+    1e-6, 200 iterations)`` — the generic engine's BlockELL Jacobian and
+    λ-solves — in float32, once cold and twice warm. The gradient must be
+    finite, the warm sweeps must launch no kernel of ops/cuda (the generic
+    path has none) and give equal bits. Reported: the sweep's seconds and
+    its overhead against ``wells-adjoint``'s forward run, the λ-solves'
+    iterations, CUDA-event times of one Jacobian, one ILU(0) update and one
+    BiCGStab iteration, the peak memory, the storage's host set-up (the ELL
+    structure and its transpose table) and the Transmissibilities
+    gradient's relative difference from ``wells-adjoint``'s stencil one
+    (both λ-solves stop at loose float32 tolerances)."""
+    from jutul.jl_tpu_torch import (
+        AdjointStorage,
+        BlockELL,
+        solve_adjoint_sensitivities_jit,
+    )
+    from jutul.jl_tpu_torch.linsolve.krylov import bicgstab
+    from jutul.jl_tpu_torch.ops.blockell import ell_transpose
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model, state0, params, forces = case
+    nc = model.domain.mesh._nc_base
+    dts = [ADJ_DT] * n_step
+    G = sat_objective(nc)
+    lam = generic_lambda_solver()
+    t0 = time.perf_counter()
+    storage = AdjointStorage(model, params, linear_solver=lam, device=device)
+    storage_s = time.perf_counter() - t0
+
+    def sweep():
+        t0 = time.perf_counter()
+        g = solve_adjoint_sensitivities_jit(
+            model, states, dts, G, parameters=params, state0=state0,
+            forces=forces, storage=storage)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, g
+
+    t_cold, _ = sweep()
+    storage.lambda_iterations.clear()
+    storage.lambda_converged.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_sweep, g = sweep()
+    _, g2 = sweep()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.all(np.isfinite(v)) for v in g.values()):
+        raise RuntimeError("generic-adjoint: non-finite gradient")
+    if any(launches.values()):
+        raise RuntimeError(f"generic-adjoint: the warm sweeps launched "
+                           f"kernels of ops/cuda: {launches}")
+    unequal = [k for k in g if not np.array_equal(g[k], g2[k])]
+    if unequal:
+        raise RuntimeError(f"generic-adjoint: two warm sweeps differ in "
+                           f"{unequal}")
+    its = storage.lambda_iterations[:n_step][::-1]  # step order
+    conv = storage.lambda_converged[:n_step][::-1]
+
+    # one Jacobian, one ILU(0) update and one BiCGStab iteration of the
+    # last step's transposed system, by CUDA events
+    u1, u0 = storage.dofs_of(states[-1]), storage.dofs_of(states[-2])
+    p, f = storage.params_f, forces[-1] if isinstance(forces, list) \
+        else forces
+    jac_ms = cuda_ms(lambda: storage._jac_blocks(u1, u0, p, dts[-1], f),
+                     reps=3)
+    ell = storage.comp.ell
+    Jt = BlockELL(ell, ell_transpose(storage._jac_blocks(
+        u1, u0, p, dts[-1], f), ell))
+    pre = lam.preconditioner
+    ilu_ms = cuda_ms(lambda: pre.update(Jt), reps=3)
+    pst = pre.update(Jt)
+    n, ndof = u1.shape
+    b = torch.randn(n * ndof, device=u1.device, dtype=u1.dtype,
+                    generator=torch.Generator(u1.device).manual_seed(0))
+    k_its = 20
+    bicg_ms = cuda_ms(lambda: bicgstab(
+        lambda x: Jt.matvec(x.reshape(n, ndof)).reshape(-1), b,
+        maxiter=k_its, rtol=0.0,
+        precond=lambda x: pre.apply(pst, Jt, x.reshape(n, ndof)).reshape(-1)),
+        reps=2) / k_its
+    del Jt, pst
+    torch.cuda.empty_cache()
+    gt, gs = g["Transmissibilities"], g_stencil["Transmissibilities"]
+    out = {
+        "slice": "generic-adjoint", "cells": model.number_of_cells(),
+        "dtype": "float32", "report_steps": n_step, "dt_s": ADJ_DT,
+        "lambda_solver": "GenericKrylov(bicgstab, ILU0Preconditioner(), "
+                         f"rtol={lam.rtol}, max_iterations="
+                         f"{lam.max_iterations})",
+        "sweep_cold_s": t_cold, "sweep_s": t_sweep,
+        "overhead": t_sweep / forward_run_s,
+        "forward_run_s": forward_run_s,
+        "lambda_iterations_per_step": its,
+        "lambda_converged_per_step": conv,
+        "jacobian_ms": jac_ms, "ilu0_update_ms": ilu_ms,
+        "bicgstab_iteration_ms": bicg_ms, "peak_mem_bytes": peak,
+        "storage_setup_s": storage_s, "ell_transpose_setup_s":
+            storage.setup_s,
+        "grad_trans_rel_diff_vs_stencil": float(
+            np.abs(gt - gs).max() / np.abs(gs).max()),
+        "grad_trans_max_abs": float(np.abs(gt).max()),
+        "warm_sweeps_bitwise_equal": True, "launches": launches,
+    }
+    log("# generic-adjoint: " + json.dumps(out))
+    return out
+
+
+def phase_generic_adjoint_dot(case, fd, states64, n_step=2, device="cuda"):
+    """``adjoint-dot``'s float64 dot test with the sweep on the generic
+    storage (ILU(0)-BiCGStab at rtol 1e-10, up to 2,000 iterations) on the
+    same states and central differences (``fd``: h -> difference, from
+    ``phase_adjoint_dot``): <∇G, δ> within 1e-3 of the difference at the
+    smallest h."""
+    from jutul.jl_tpu_torch import (
+        AdjointStorage,
+        solve_adjoint_sensitivities_jit,
+    )
+
+    model, state0, params, forces = case
+    nc = model.domain.mesh._nc_base
+    dts = [ADJ_DT] * n_step
+    T0 = np.asarray(params["Transmissibilities"], np.float64)
+    delta = T0 * np.random.default_rng(7).normal(size=T0.shape)
+    t0 = time.perf_counter()
+    storage = AdjointStorage(model, params, linear_solver=generic_lambda_solver(
+        1e-10, 2000), device=device, dtype=torch.float64)
+    g = solve_adjoint_sensitivities_jit(
+        model, states64, dts, sat_objective(nc), parameters=params,
+        state0=state0, forces=forces, storage=storage)["Transmissibilities"]
+    torch.cuda.synchronize()
+    dot = float(np.sum(g * delta))
+    hs = sorted(fd, reverse=True)
+    out = {"cells": model.number_of_cells(), "h": hs,
+           "fd": [fd[h] for h in hs], "dot_f64": dot,
+           "rel_err_f64_by_h": [abs(fd[h] - dot) / abs(dot) for h in hs],
+           "rel_err_f64": abs(fd[hs[-1]] - dot) / abs(dot),
+           "lambda_iterations": storage.lambda_iterations,
+           "lambda_converged": storage.lambda_converged,
+           "seconds": time.perf_counter() - t0}
+    log("# generic-adjoint-dot (f64 card FD): " + json.dumps(out))
+    if not out["rel_err_f64"] <= 1e-3:
+        raise RuntimeError(f"generic-adjoint-dot: f64 gradient off by "
+                           f"{out['rel_err_f64']:.3e} > 1e-3 at h = "
+                           f"{hs[-1]}")
+    return out
+
+
+DICT_GRID = (32, 16, 16)  # 8,192 cells, 16,384 unknowns: direct λ-solves
+
+
+def phase_dict_history_match(case, max_iterations=3, device="cuda"):
+    """``DictParameters`` on the source-term flagship at DICT_GRID in
+    float32 on the card, with the JAX package's defaults everywhere (no
+    engine, no solver: the generic engine's ``DirectSolver`` forward and
+    direct λ-solves, its 16,384 unknowns under the 20,000 of
+    ``direct_limit``): Transmissibilities free (log scaler, rel 0.1-10),
+    an l2 misfit on Saturations from a forward at the truth, 2 report
+    steps of 6 h with srcwells' Newton tolerances, starting from 0.5x the
+    truth. ``dopt.optimize(misfit, max_iterations)`` must lower the
+    misfit."""
+    from jutul.jl_tpu_torch import DictParameters, JutulCase, simulate
+    from jutul.jl_tpu_torch.adjoint.objectives import l2_misfit_objective
+
+    model, state0, params, forces = case
+
+    def setup(p):  # the case from the nested parameter dict
+        return JutulCase(model, [DT] * 2, forces, state0=state0,
+                         parameters={**params, **p})
+
+    newton = dict(tolerances={"mass_conservation/CNV": CNV_TOL,
+                              "mass_conservation/MB": MB_TOL},
+                  max_nonlinear_iterations=12, tol_factor_final_iteration=10.0)
+    kw = dict(device=device, dtype=torch.float32, **newton)
+    t0 = time.perf_counter()
+    truth = simulate(state0, model, [DT] * 2, forces=forces,
+                     parameters=params, info_level=-1, **kw)
+    obs = [s["Saturations"] for s in truth.states]
+    T = np.asarray(params["Transmissibilities"])
+    dopt = DictParameters({"Transmissibilities": 0.5 * T}, setup,
+                          verbose=False)
+    dopt.free_optimization_parameter("Transmissibilities", rel_min=0.1,
+                                     rel_max=10.0, scaler="log")
+    torch.cuda.reset_peak_memory_stats()
+    dopt.optimize(l2_misfit_objective({"Saturations": obs}),
+                  max_iterations=max_iterations, sim_kwargs=kw)
+    torch.cuda.synchronize()
+    hist = dopt.history
+    out = {"cells": model.number_of_cells(),
+           "unknowns": 2 * model.number_of_cells(),
+           "parameters": int(T.size), "values": hist.values,
+           "projected_grad_norms": hist.grad_norms, "steps": hist.steps,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "wall_s": time.perf_counter() - t0}
+    log("# dict-history-match: " + json.dumps(out))
+    if not (len(hist.values) > 1 and np.all(np.isfinite(hist.values))
+            and hist.values[-1] < hist.values[0]):
+        raise RuntimeError(f"dict-history-match: misfit not lowered: "
+                           f"{hist.values}")
+    return out
+
+
+TIGHT_F64 = dict(tolerances={"mass_conservation/CNV": 1e-8,
+                             "mass_conservation/MB": 1e-10},
+                 max_nonlinear_iterations=40)
+
+
+def phase_generic_setup(case, h=1e-4, device="cuda"):
+    """``solve_adjoint_generic`` on DICT_GRID's case in float64 on the
+    card: x = log-Transmissibilities, mapped by ``exp`` in ``setup_fn``;
+    G = dt Σ S_w² / nc over 2 report steps (tight f64 forwards with the
+    defaults' engine and solver). <∇_x G, δ> (δ ~ N(0, 1), seed 5) against
+    the central difference (G(x + hδ) − G(x − hδ)) / 2h within 1e-4."""
+    from jutul.jl_tpu_torch import simulate, solve_adjoint_generic
+
+    model, state0, params, forces = case
+    nc = model.number_of_cells()
+    dts = [DT] * 2
+    G = sat_objective(nc)
+    base = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in
+            params.items()}
+    base = {k: v.to(torch.float64) if v.is_floating_point() else v
+            for k, v in base.items()}
+    st0 = {k: torch.as_tensor(np.asarray(v, np.float64), device=device)
+           for k, v in state0.items()}
+
+    def setup_fn(x):
+        return st0, {**base, "Transmissibilities": torch.exp(x)}
+
+    x0 = np.log(np.asarray(params["Transmissibilities"], np.float64))
+    delta = np.random.default_rng(5).normal(size=x0.shape)
+    t0 = time.perf_counter()
+    v, dx = solve_adjoint_generic(x0, setup_fn, model, dts, G, forces=forces,
+                                  sim_kwargs=TIGHT_F64, device=device,
+                                  dtype=torch.float64)
+
+    def total(x):
+        p = {**params, "Transmissibilities": np.exp(x)}
+        res = simulate(state0, model, dts, forces=forces, parameters=p,
+                       info_level=-1, device=device, dtype=torch.float64,
+                       **TIGHT_F64)
+        return _G_np(res.states, dts, nc)
+
+    fd = (total(x0 + h * delta) - total(x0 - h * delta)) / (2 * h)
+    dot = float(np.sum(dx * delta))
+    out = {"cells": nc, "objective": v, "dot": dot, "fd": fd, "h": h,
+           "rel_err": abs(fd - dot) / abs(dot),
+           "seconds": time.perf_counter() - t0}
+    log("# generic-setup (f64 card FD): " + json.dumps(out))
+    if not out["rel_err"] <= 1e-4:
+        raise RuntimeError(f"generic-setup: off by {out['rel_err']:.3e}")
+    return out
+
+
+def phase_force_gradient(dims=WELL_SMALL_EW, h=1e-4, device="cuda"):
+    """``solve_adjoint_forces`` on the well model at ``dims`` in float64 on
+    the card, per-step forces with the rate ramp, 2 report steps of 1.5 h:
+    the injectors' rate gradient along δ (the rates times N(0, 1), seed 3)
+    against the central difference of tight f64 forwards with the rates at
+    (1 ± h δ), within 1e-5 relative."""
+    from jutul.jl_tpu_torch import PhaseSourceTerm, simulate
+    from jutul.jl_tpu_torch import solve_adjoint_forces
+
+    model, state0, params, forces = build_well_flagship(*dims)
+    nc = model.domain.mesh._nc_base
+    dts = [ADJ_DT] * 2
+    sched = rate_schedule(forces, 2)
+    rates = [np.asarray(f["rate"].values, np.float64) for f in sched]
+    delta = [r * np.random.default_rng(3 + i).normal(size=r.shape)
+             for i, r in enumerate(rates)]
+    G = sat_objective(nc)
+
+    def run(sign):
+        fs = [{**f, "rate": PhaseSourceTerm(f["rate"].cells,
+                                            r + sign * h * d)}
+              for f, r, d in zip(sched, rates, delta)]
+        return simulate(state0, model, dts, forces=fs, parameters=params,
+                        info_level=-1, device=device, dtype=torch.float64,
+                        **TIGHT_F64).states
+
+    t0 = time.perf_counter()
+    states = run(0.0)
+    grads = solve_adjoint_forces(model, states, dts, G, params, state0,
+                                 sched, device=device, dtype=torch.float64)
+    dot = sum(float(np.sum(gf["rate"].values.cpu().numpy() * d))
+              for gf, d in zip(grads, delta))
+    fd = (_G_np(run(1.0), dts, nc) - _G_np(run(-1.0), dts, nc)) / (2 * h)
+    out = {"cells": model.number_of_cells(), "dot": dot, "fd": fd, "h": h,
+           "rel_err": abs(fd - dot) / abs(dot),
+           "grad_bhp_pressure": [float(gf["bhp"].pressure) for gf in grads],
+           "seconds": time.perf_counter() - t0}
+    log("# force-gradient (f64 card FD): " + json.dumps(out))
+    if not out["rel_err"] <= 1e-5:
+        raise RuntimeError(f"force-gradient: off by {out['rel_err']:.3e}")
+    return out
+
+
+def phase_eager_options(case, n_step=3, device="cuda"):
+    """The eager loop's options on the well flagship at AB_GRID, stencil
+    engine, float32 on the card, Jacobi GMG (bench's settings):
+    ``n_step`` report steps writing per-step files to a temporary
+    ``output_path``; ``restart=1`` from those files must give the
+    uninterrupted run's final state bit for bit. Then one run with
+    ``ConvergenceMonitorCuttingCriterion`` and a
+    ``VariableChangeTimestepSelector`` beside the selectors, hooks
+    counting iterations and ministeps, and ``extra_timing``: it must
+    complete; its counts and phase timings are printed."""
+    import tempfile
+
+    from jutul.jl_tpu_torch import (
+        ConvergenceMonitorCuttingCriterion,
+        Simulator,
+        VariableChangeTimestepSelector,
+        report_stats,
+        timing_breakdown,
+    )
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model, state0, params, forces = case
+    sched = rate_schedule(forces, n_step)
+    out = {"cells": model.number_of_cells()}
+    with tempfile.TemporaryDirectory() as path:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        full = Simulator(model, state0, params, use_stencil=True,
+                         device=device).simulate(
+            [DT] * n_step, forces=sched, output_path=path,
+            **sim_config(16384))
+        torch.cuda.synchronize()
+        out["full_wall_s"] = time.perf_counter() - t0
+        launches = launch_counts()
+        files = sorted(os.listdir(path))
+        rest = Simulator(model, state0, params, use_stencil=True,
+                         device=device).simulate(
+            [DT] * n_step, forces=sched, output_path=path, restart=1,
+            **sim_config(16384))
+    out["files"] = files
+    if not all(r["success"] for r in full.reports + rest.reports) or \
+            len(rest.states) != n_step - 1:
+        raise RuntimeError("eager-options: a run failed")
+    diff = [k for k, v in full.states[-1].items()
+            if not np.array_equal(v, rest.states[-1][k])]
+    if diff:
+        raise RuntimeError(f"eager-options: the restart's final state "
+                           f"differs in {diff}")
+    out["restart_bitwise_equal"] = True
+    _check_launches("eager-options", "eager-options", launches)
+    counts = {"iterations": 0, "ministeps": 0}
+
+    def post_it(state, err, it):
+        counts["iterations"] += 1
+
+    def post_mini(state, report):
+        counts["ministeps"] += 1
+
+    cfg = sim_config(16384)
+    cfg["timestep_selectors"] = cfg["timestep_selectors"] + [
+        VariableChangeTimestepSelector("Pressure", 10e5)]
+    cutter = ConvergenceMonitorCuttingCriterion()
+    t0 = time.perf_counter()
+    res = Simulator(model, state0, params, use_stencil=True,
+                    device=device).simulate(
+        [DT] * n_step, forces=sched, cutting_criterion=cutter,
+        post_iteration_hook=post_it, post_ministep_hook=post_mini,
+        extra_timing=True, **cfg)
+    torch.cuda.synchronize()
+    st = report_stats(res.reports)
+    if not all(r["success"] for r in res.reports) or \
+            len(res.reports) != n_step:
+        raise RuntimeError("eager-options: the monitored run failed")
+    tb = timing_breakdown(st)
+    out["monitored"] = {
+        **{k: st[k] for k in ("ministeps", "newtons", "failed_ministeps",
+                              "linear_iterations")},
+        "cuts_by_criterion": sum(
+            m.get("failure") == "cutting_criterion"
+            for r in res.reports for m in r["ministeps"]),
+        "hook_iterations": counts["iterations"],
+        "hook_ministeps": counts["ministeps"],
+        "timing_fractions": {k: v["fraction"] for k, v in tb.items()
+                             if isinstance(v, dict)},
+        "wall_s": time.perf_counter() - t0}
+    out["launches"] = launches
+    log("# eager-options: " + json.dumps(out))
+    return out
+
+
+def phase_generic_adjoint_cross_check(dims, stencil_grads, lam_rtol=1e-14,
+                                      devices=("cuda", "cpu")):
+    """The generic adjoint at ``dims`` (well models) in float64, λ by
+    ILU(0)-BiCGStab at ``lam_rtol``, on the card and on the CPU, on
+    ``phase_adjoint_cross_check``'s states: card against CPU within 1e-9,
+    and against that phase's stencil-adjoint gradients within 1e-9."""
+    from jutul.jl_tpu_torch import solve_adjoint_sensitivities_jit
+
+    model, state0, params, forces = build_well_flagship(*dims)
+    sched = rate_schedule(forces, 2)
+    dts = [ADJ_DT] * 2
+    states = stencil_grads.pop("states")
+    G = sat_objective(model.domain.mesh._nc_base)
+    grads = {dev: solve_adjoint_sensitivities_jit(
+        model, states, dts, G, parameters=params, state0=state0,
+        forces=sched, include_state0=True, linear_solver=(
+            generic_lambda_solver(lam_rtol, 2000)), device=dev,
+        dtype=torch.float64) for dev in devices}
+    card, cpu = (grads[d] for d in devices)
+    keys = ("Transmissibilities", "FluidVolume", "state0")
+    out = {"card_vs_cpu": {k: float(
+        np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max())
+        for k in keys},
+        "generic_vs_stencil": {k: float(
+            np.abs(card[k] - stencil_grads[k]).max()
+            / np.abs(stencil_grads[k]).max()) for k in keys}}
+    log(f"# generic-adjoint cross-check ({'x'.join(map(str, dims))}, "
+        "f64): " + json.dumps(out))
+    if not all(v <= 1e-9 for d in out.values() for v in d.values()):
+        raise RuntimeError(f"generic-adjoint cross-check: gradients "
+                           f"differ: {out}")
     return out
 
 
@@ -2204,23 +2669,41 @@ def main():
     log(f"# generic phases: {time.perf_counter() - t0:.1f} s")
     del case
     t0 = time.perf_counter()
-    adjoint, _ = phase_adjoint(case_w)
-    del case_w
+    adjoint, g_stencil, adj_states = phase_adjoint(case_w)
+    t1 = time.perf_counter()
+    gen_adj = phase_generic_adjoint(case_w, adj_states, g_stencil,
+                                    adjoint["forward_run_s"])
+    log(f"# generic-adjoint phase: {time.perf_counter() - t1:.1f} s")
+    del case_w, adj_states, g_stencil
     torch.cuda.empty_cache()
     case_ab = build_well_flagship(*AB_GRID)
-    adjoint["dot_test"] = phase_adjoint_dot(case_ab)
+    adjoint["dot_test"], fd, states64 = phase_adjoint_dot(case_ab)
+    gen_adj["dot_test"] = phase_generic_adjoint_dot(case_ab, fd, states64)
     adjoint["history_match"] = phase_history_match(case_ab)
     log(f"# adjoint phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    case_dict = build_flagship(*DICT_GRID)
+    dict_hm = phase_dict_history_match(case_dict)
+    gen_setup = phase_generic_setup(case_dict)
+    force = phase_force_gradient()
+    del case_dict
+    torch.cuda.empty_cache()
+    log(f"# DictParameters, setup-map and force gradients: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     ab = phase_ab(case_ab)
     log(f"# A/B: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eager = phase_eager_options(case_ab)
+    log(f"# eager-options: {time.perf_counter() - t0:.1f} s")
     phase_cross_check(build_flagship, SMALL, "jacobi", "srcwells")
     phase_cross_check(build_well_flagship, WELL_SMALL, "chebyshev", "wells")
     phase_cross_check(build_well_flagship, WELL_SMALL, "jacobi",
                       "wells-jacobi-phases", phases=True)
     phase_cross_check(build_well_flagship, WELL_SMALL_EW, "jacobi",
                       "wells-product", product=True)
-    phase_adjoint_cross_check(WELL_SMALL_EW)
+    stencil_x = phase_adjoint_cross_check(WELL_SMALL_EW)
+    phase_generic_adjoint_cross_check(WELL_SMALL_EW, stencil_x)
     phase_generic_cross_check()
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
@@ -2233,7 +2716,9 @@ def main():
             "main_slice": MAIN_SLICE[name],
             "launches_by_slice": {
                 **{k: v["launches"][name] for k, v in slices.items()},
-                "wells-adjoint": adjoint["launches"][name]},
+                "wells-adjoint": adjoint["launches"][name],
+                "generic-adjoint": gen_adj["launches"][name],
+                "eager-options": eager["launches"][name]},
             "max_abs_err": rec.max_abs["float32"],
             "max_rel_err_f32": rec.max_rel["float32"],
             # None: the bfloat16-coefficient entries take float32 vectors
@@ -2251,6 +2736,15 @@ def main():
     log("# wells-adjoint " + json.dumps({k: adjoint[k] for k in (
         "forward_run_s", "sweep_s", "overhead", "lambda_iterations_per_step",
         "peak_mem_bytes")}))
+    log("# generic-adjoint " + json.dumps({k: gen_adj[k] for k in (
+        "sweep_s", "overhead", "lambda_iterations_per_step",
+        "lambda_converged_per_step", "bicgstab_iteration_ms",
+        "peak_mem_bytes", "grad_trans_rel_diff_vs_stencil")})
+        + " dot " + json.dumps(gen_adj["dot_test"]["rel_err_f64"])
+        + " dict-history-match " + json.dumps(dict_hm["values"])
+        + " generic-setup " + json.dumps(gen_setup["rel_err"])
+        + " force-gradient " + json.dumps(force["rel_err"])
+        + " eager-options " + json.dumps(eager["monitored"]))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

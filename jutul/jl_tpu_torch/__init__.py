@@ -4,22 +4,24 @@ A second package beside the JAX one, with the same module layout. It runs
 the structured-grid main path — two-phase immiscible Darcy flow on a
 Cartesian lattice, with wells as source terms or as well models (bordered
 stencil + Schur-eliminated wellbores), through
-``Simulator(use_stencil=True)`` (the port's default): fused-form stencil
-assembly,
+``Simulator(use_stencil=True)``: fused-form stencil assembly,
 CPR(GMG)-preconditioned BiCGStab with a Jacobi or Chebyshev smoother
 (optionally streaming its coefficients in bfloat16), adaptive ministeps
 through the eager loop (``simulate``) or the schedule path with
 Eisenstat-Walker forcing (``simulate_jit`` / ``lower_schedule``), and
 mixed-precision refinement of an accepted step (``refine_solution``),
-and the discrete adjoint on the stencil engine with its objectives and the
-parameter-optimization harness (``adjoint/``, ``core/case.py``) —
-and the generic block-ELL engine on any mesh through
-``Simulator(use_stencil=False)`` (``ops/assembly.py``, ``ops/blockell.py``)
-with its linear solvers: GMRES and BiCGStab (``GenericKrylov``), the
-preconditioners, aggregation and smoothed-aggregation AMG, CPR(AMG +
-ILU(0)) and the dense direct solve (``linsolve/``), and the analytic test
-systems (``models/test_systems.py``) — in PyTorch, with hand-written CUDA kernels for Hopper (``ops/cuda``,
-sources in ``csrc/``) where the JAX package has Pallas kernels. On CPU
+the eager loop's hooks, criteria, output files and restarts
+(``simulator/``), the discrete adjoint on either engine with the force
+gradient, the setup-map adjoint, the objectives, the
+parameter-optimization harness and ``DictParameters`` (``adjoint/``,
+``core/case.py``) — and the generic block-ELL engine on any mesh, the
+default as in the JAX package (``Simulator(use_stencil=False)``,
+``ops/assembly.py``, ``ops/blockell.py``) with its linear solvers: GMRES
+and BiCGStab (``GenericKrylov``), the preconditioners, aggregation and
+smoothed-aggregation AMG, CPR(AMG + ILU(0)) and the dense direct solve
+(``linsolve/``), and the analytic test systems
+(``models/test_systems.py``) — in PyTorch, with hand-written CUDA kernels
+for Hopper (``ops/cuda``, sources in ``csrc/``) where the JAX package has Pallas kernels. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
 
 The port imports neither ``jax`` nor ``jutul.jl_tpu``; states and
@@ -37,6 +39,15 @@ from .adjoint.gradients import (
     solve_numerical_sensitivities,
     state_gradient,
 )
+from .adjoint.dict_opt import (
+    DictParameters,
+    DictParametersSampler,
+    free_optimization_parameter,
+    freeze_optimization_parameter,
+    optimize,
+    parameters_gradient,
+)
+from .adjoint.generic import solve_adjoint_generic
 from .adjoint.lbfgs import unit_box_bfgs
 from .adjoint.objectives import GlobalObjective, SumObjective
 from .adjoint.optimization import (
@@ -86,7 +97,23 @@ from .models.wells import WellGraphMesh, WellSpec, setup_well_graph_model
 from .ops.assembly import CompiledModel, compile_model
 from .ops.blockell import BlockELL, ELLStructure
 from .ops.stencil import GMG, StencilCPR, StencilKrylovSolver
-from .simulator.io import report_stats
+from .simulator.convergence_monitors import (
+    ConvergenceMonitorCuttingCriterion,
+    ConvergenceMonitorRelaxation,
+)
+from .simulator.distance_functions import (
+    compute_distance,
+    nonconverged_equations,
+    scaled_residual_norm,
+)
+from .simulator.io import (
+    print_stats,
+    read_results,
+    report_stats,
+    store_output,
+    timing_breakdown,
+    valid_restart_indices,
+)
 from .simulator.relaxation import NoRelaxation, SimpleRelaxation
 from .simulator.simulator import (
     SimResult,
@@ -95,29 +122,48 @@ from .simulator.simulator import (
     simulate,
     simulator_config,
 )
-from .simulator.timesteps import IterationTimestepSelector, TimestepSelector
+from .simulator.reporting import (
+    EndTimeTerminationCriterion,
+    TerminationCriterion,
+)
+from .simulator.timesteps import (
+    IterationTimestepSelector,
+    LimitByFailedTimestepSelector,
+    TimestepSelector,
+    VariableChangeTimestepSelector,
+)
 from .units import si_unit, si_units
 
 __all__ = [
     "AMGPreconditioner", "AdjointStorage", "BlockELL",
     "BlockJacobiPreconditioner", "CPRPreconditioner", "CartesianMesh",
-    "CompiledModel", "ConstantVariables", "DataDomain", "DirectSolver",
-    "DiscretizedDomain", "ELLStructure", "FunctionSecondaryVariable", "GMG",
+    "CompiledModel", "ConstantVariables",
+    "ConvergenceMonitorCuttingCriterion", "ConvergenceMonitorRelaxation",
+    "DataDomain", "DictParameters", "DictParametersSampler",
+    "DirectSolver", "DiscretizedDomain", "ELLStructure",
+    "EndTimeTerminationCriterion", "FunctionSecondaryVariable", "GMG",
     "GenericKrylov", "GlobalObjective", "ILU0Preconditioner",
     "ImmiscibleFluid", "IterationTimestepSelector", "JacobiPreconditioner",
-    "JutulCase", "JutulConfig", "LinearizedSystem", "NoRelaxation",
-    "PhaseSourceTerm", "PoissonSource", "PressureBoundaryCondition",
-    "SPAI0Preconditioner", "ScalarTestDomain", "ScalarTestForce",
-    "ScalarTestSystem", "SimResult", "SimpleHeatSystem", "SimpleRelaxation",
-    "SimulationModel", "Simulator", "SmoothedAggregationAMG", "StencilCPR",
-    "StencilKrylovSolver", "SumObjective", "TimestepSelector",
-    "TrivialPreconditioner", "VariablePoissonSystem", "WellGraphMesh",
-    "WellSpec", "box_trust_region", "compile_model",
-    "expand_to_ministeps", "from_numpy", "optimization_config",
-    "report_stats", "secondary_variable", "setup_adjoint_storage", "setup_darcy_model",
-    "setup_forces", "setup_parameter_optimization", "setup_parameters",
-    "setup_state", "setup_well_graph_model", "si_unit", "si_units",
-    "simulate", "simulator_config", "solve_adjoint_forces",
-    "solve_adjoint_sensitivities", "solve_adjoint_sensitivities_jit",
-    "solve_numerical_sensitivities", "state_gradient", "unit_box_bfgs",
+    "JutulCase", "JutulConfig", "LimitByFailedTimestepSelector",
+    "LinearizedSystem", "NoRelaxation", "PhaseSourceTerm", "PoissonSource",
+    "PressureBoundaryCondition", "SPAI0Preconditioner", "ScalarTestDomain",
+    "ScalarTestForce", "ScalarTestSystem", "SimResult", "SimpleHeatSystem",
+    "SimpleRelaxation", "SimulationModel", "Simulator",
+    "SmoothedAggregationAMG", "StencilCPR", "StencilKrylovSolver",
+    "SumObjective", "TerminationCriterion", "TimestepSelector",
+    "TrivialPreconditioner", "VariableChangeTimestepSelector",
+    "VariablePoissonSystem", "WellGraphMesh", "WellSpec",
+    "box_trust_region", "compile_model", "compute_distance",
+    "expand_to_ministeps", "free_optimization_parameter",
+    "freeze_optimization_parameter", "from_numpy",
+    "nonconverged_equations", "optimization_config", "optimize",
+    "parameters_gradient", "print_stats", "read_results", "report_stats",
+    "scaled_residual_norm", "secondary_variable", "setup_adjoint_storage",
+    "setup_darcy_model", "setup_forces", "setup_parameter_optimization",
+    "setup_parameters", "setup_state", "setup_well_graph_model", "si_unit",
+    "si_units", "simulate", "simulator_config", "solve_adjoint_forces",
+    "solve_adjoint_generic", "solve_adjoint_sensitivities",
+    "solve_adjoint_sensitivities_jit", "solve_numerical_sensitivities",
+    "state_gradient", "store_output", "timing_breakdown", "unit_box_bfgs",
+    "valid_restart_indices",
 ]

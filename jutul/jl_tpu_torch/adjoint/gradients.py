@@ -1,52 +1,57 @@
-"""Discrete adjoint gradients on the stencil engine.
+"""Discrete adjoint gradients.
 
-Port of the stencil part of the JAX package's ``adjoint/gradients.py``
-(reference: src/ad/gradients.jl — ``solve_adjoint_sensitivities`` :17,230,
+Port of the JAX package's ``adjoint/gradients.py`` (reference:
+src/ad/gradients.jl — ``solve_adjoint_sensitivities`` :17,230,
 ``setup_adjoint_storage`` :108, ``update_sensitivities!`` :483,
-``next_lagrange_multiplier!`` :519).
+``next_lagrange_multiplier!`` :519; src/ad/force_gradients.jl for
+``solve_adjoint_forces``).
 
 Backward in time, with F_n the residual of step n and G = Σ_n g_n:
 
     (dF_n/dx_n)ᵀ λ_n = −(dg_n/dx_n)ᵀ − (dF_{n+1}/dx_n)ᵀ λ_{n+1}
     ∇_p G = Σ_n dg_n/dp + (dF_n/dp)ᵀ λ_n
 
-- dF_n/dx_n is the Jacobian the forward engine assembles (the
-  three-axis K3, and the per-axis K3 for the perforations, on the card);
-  its transpose is again a (bordered) block stencil, so each λ-solve runs
-  the forward solver stack, CPR(GMG)-BiCGStab on K1 and K2;
-- (dF_{n+1}/dx_n)ᵀ λ and (dF_n/dp)ᵀ λ are one ``torch.func.vjp`` through
-  the engine's ``residual_differentiable``: plain torch, as the JAX
-  package's XLA residual, which no Pallas kernel and no custom VJP
-  touches. K3 writes into buffers autograd cannot see, so the vjp never
-  runs through it.
+On either engine, as in the JAX package:
+- the generic block-ELL engine (``use_stencil=False``, the default):
+  dF_n/dx_n is the compiled model's BlockELL Jacobian
+  (``jacobian_blocks``), and each λ-solve is a dense direct solve of its
+  transpose (``n·ndof ≤ direct_limit``), a ``GenericKrylov`` on the
+  transposed BlockELL (``linear_solver``), or else unpreconditioned
+  MGS-GMRES on ``ell_rmatvec``;
+- the stencil engine (``use_stencil=True``): the Jacobian the forward
+  engine assembles (the three-axis K3, and the per-axis K3 for the
+  perforations, on the card); its transpose is again a (bordered) block
+  stencil, so each λ-solve runs the forward solver stack,
+  CPR(GMG)-BiCGStab on K1 and K2.
+(dF_{n+1}/dx_n)ᵀ λ and (dF_n/dp)ᵀ λ are one ``torch.func.vjp`` through
+the engine's differentiable residual: plain torch, as the JAX package's
+XLA residual, which no Pallas kernel touches (K3 writes into buffers
+autograd cannot see, so the vjp never runs through it).
 
 States must be the accepted ministep sequence for the gradient to be
 exact (the reference requires it too): use ``expand_to_ministeps`` with
-``output_substates=True`` when ministeps were cut.
-
-The adjoint on the generic block-ELL engine (its BlockELL λ-solves) is
-not ported (ROADMAP A10): ``use_stencil=False`` and the force gradient
-raise, and so does a MultiModel (ROADMAP A13).
+``output_substates=True`` when ministeps were cut. MultiModel adjoints
+wait for the MultiModel port (ROADMAP A13).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
 from ..dtypes import float_type, resolve_device
-from ..models.forces import force_structure
+from ..models.forces import (
+    as_value,
+    force_structure,
+    force_values,
+    with_force_values,
+)
 from ..models.setup import from_numpy, merge_state
 from ..ops.assembly import compile_model
-
-
-def _refuse_generic(use_stencil):
-    if not use_stencil:
-        raise NotImplementedError(
-            "only the stencil adjoint (use_stencil=True) is ported; the "
-            "generic block-ELL engine's adjoint is ROADMAP A10")
+from ..ops.blockell import BlockELL, ell_rmatvec, ell_to_dense, ell_transpose
 
 
 def _refuse_multimodel(model):
@@ -58,20 +63,30 @@ def _refuse_multimodel(model):
 class AdjointStorage:
     """What an adjoint sweep reuses across calls (reference
     setup_adjoint_storage, gradients.jl:108): the compiled model, the
-    stencil engine, the λ-solver and the integer parameters.
+    engine, the λ-solver and the integer parameters.
 
     ``device`` (default the CUDA card; with none it raises — pass
     ``device="cpu"`` for the CPU) and ``dtype`` (default
     ``float_type(device)``) place every tensor of the sweep, as in
-    ``Simulator``. ``linear_solver`` must be a ``StencilKrylovSolver``
-    (None: CPR(GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384))-
-    BiCGStab at rtol 1e-8, 100 iterations). ``lambda_iterations`` and
-    ``lambda_converged`` list each λ-solve's BiCGStab iterations and
-    whether it met its tolerance, in the order solved."""
+    ``Simulator``.
+
+    ``use_stencil=False`` (the default, as in the JAX package): the
+    generic engine. ``linear_solver`` is None (a direct solve of the
+    dense transpose up to ``direct_limit`` unknowns, else MGS-GMRES at
+    rtol 1e-10 over 500 iterations) or a ``GenericKrylov`` on the
+    transposed BlockELL, whose transpose tables are built here, once
+    (``setup_s`` seconds with the ELL structure).
+    ``use_stencil=True``: ``linear_solver`` must be a
+    ``StencilKrylovSolver`` (None: CPR(GMG(n_smooth=2, n_coarse_sweeps=12,
+    min_cells=16384))-BiCGStab at rtol 1e-8, 100 iterations).
+    ``lambda_iterations`` and ``lambda_converged`` list each iterative
+    λ-solve's iterations and whether it met its tolerance, in the order
+    solved."""
 
     def __init__(self, model, parameters: dict, forces=None,
-                 linear_solver=None, use_stencil: bool = True, device=None,
-                 dtype=None):
+                 direct_limit: int = 20_000, linear_solver=None,
+                 use_stencil: bool = False, device=None, dtype=None):
+        from ..linsolve.krylov import GenericKrylov
         from ..models.wells import WellGraphMesh
         from ..ops.stencil import (
             GMG,
@@ -81,24 +96,42 @@ class AdjointStorage:
         )
         from ..ops.stencil_wells import BorderedStencilModel
 
-        _refuse_generic(use_stencil)
         _refuse_multimodel(model)
         self.device = resolve_device(device)
         self.dtype = dtype or float_type(self.device)
         self.model = model
         self.comp = compile_model(model)
-        if isinstance(model.domain.mesh, WellGraphMesh):
-            self._stencil = BorderedStencilModel(self.comp, self.device)
-        else:
-            self._stencil = StencilCompiledModel(self.comp)
-        if linear_solver is None:
-            linear_solver = StencilKrylovSolver(
-                preconditioner=StencilCPR(gmg=GMG(
-                    n_smooth=2, n_coarse_sweeps=12, min_cells=16384)),
-                rtol=1e-8, max_iterations=100)
-        if not isinstance(linear_solver, StencilKrylovSolver):
-            raise TypeError("use_stencil=True needs a StencilKrylovSolver "
-                            "(or None for the CPR-GMG default)")
+        self.direct_limit = direct_limit
+        self._stencil = None  # None: the generic engine
+        self.setup_s = 0.0
+        if use_stencil:
+            if isinstance(model.domain.mesh, WellGraphMesh):
+                self._stencil = BorderedStencilModel(self.comp, self.device)
+            else:
+                self._stencil = StencilCompiledModel(self.comp)
+            if linear_solver is None:
+                linear_solver = StencilKrylovSolver(
+                    preconditioner=StencilCPR(gmg=GMG(
+                        n_smooth=2, n_coarse_sweeps=12, min_cells=16384)),
+                    rtol=1e-8, max_iterations=100)
+            if not isinstance(linear_solver, StencilKrylovSolver):
+                raise TypeError("use_stencil=True needs a "
+                                "StencilKrylovSolver (or None for the "
+                                "CPR-GMG default)")
+        elif linear_solver is not None:
+            if not isinstance(linear_solver, GenericKrylov):
+                raise TypeError(
+                    "use_stencil=False (the generic block-ELL engine) "
+                    "needs a GenericKrylov for its λ-solves (or None for "
+                    "the direct / MGS-GMRES ones), not a "
+                    f"{type(linear_solver).__name__}")
+            # the ELL structure and its transpose table (host set-up, which
+            # also checks that the pattern is structurally symmetric),
+            # built here once and kept out of the sweeps
+            t0 = time.perf_counter()
+            ell = self.comp.ell
+            ell._on("tidx", self.device, ell.transpose_idx)
+            self.setup_s = time.perf_counter() - t0
         self.linear_solver = linear_solver
         self.parameters = from_numpy(parameters, self.device, self.dtype)
         # integer parameters are not differentiable: close over them,
@@ -125,17 +158,27 @@ class AdjointStorage:
 
     def residual_from_dofs(self, u, u0, params, dt, forces):
         comp = self.comp
+        if self._stencil is None:
+            return comp.residual(self._state(u, params),
+                                 self._state(u0, params), dt, forces)
         state = comp.evaluate_secondaries(self._state(u, params))
         state0 = comp.evaluate_secondaries(self._state(u0, params))
         return self._stencil.residual_differentiable(state, state0, dt,
                                                      forces)
 
     def _jac_blocks(self, u, u0, params, dt, forces):
-        """The step's Jacobian as the forward engine assembles it."""
+        """The step's Jacobian as the forward engine assembles it: the
+        BlockELL blocks (generic) or the (bordered) stencil matrix."""
         with torch.no_grad():
-            return self._stencil.assemble(self._state(u, params),
-                                          self._state(u0, params), dt,
-                                          forces)[1]
+            if self._stencil is not None:
+                return self._stencil.assemble(self._state(u, params),
+                                              self._state(u0, params), dt,
+                                              forces)[1]
+            comp = self.comp
+            return comp.jacobian_blocks(
+                comp.evaluate_secondaries(self._state(u, params)),
+                comp.evaluate_secondaries(self._state(u0, params)), dt,
+                forces)
 
     def _vjp_u0_p(self, u, u0, params, dt, forces, lam):
         """(λᵀ dF/du0, λᵀ dF/dp) of the step from ``u0`` to ``u``."""
@@ -160,31 +203,59 @@ class AdjointStorage:
         return out
 
     # -- transposed solve --------------------------------------------------
-    def solve_transposed(self, blocks, rhs):
-        """Solve Jᵀ λ = rhs for rhs (n, ndof) -> λ (n, neq): the transposed
-        (bordered) stencil through the forward CPR(GMG)-BiCGStab, which
-        solves A du = −r, hence −rhs."""
-        from ..ops.stencil import stencil_transpose
-        from ..ops.stencil_wells import (
-            BorderedStencilMatrix,
-            bordered_transpose,
-        )
-
-        comp = self.comp
-        tr = (bordered_transpose if isinstance(blocks, BorderedStencilMatrix)
-              else stencil_transpose)
-        lam, stats = self.linear_solver.solve(
-            tr(blocks), -rhs.reshape(comp.n_cells, comp.ndof))
+    def _record(self, stats):
         self.lambda_iterations.append(int(stats["iterations"]))
         self.lambda_converged.append(bool(stats["converged"]))
-        return lam.reshape(comp.n_cells, comp.neq_total)
+
+    def solve_transposed(self, blocks, rhs):
+        """Solve Jᵀ λ = rhs for rhs (n, ndof) -> λ (n, neq). The forward
+        solvers solve A du = −r, hence −rhs for them."""
+        comp = self.comp
+        n, ndof, neq = comp.n_cells, comp.ndof, comp.neq_total
+        if self._stencil is not None:
+            from ..ops.stencil import stencil_transpose
+            from ..ops.stencil_wells import (
+                BorderedStencilMatrix,
+                bordered_transpose,
+            )
+
+            tr = (bordered_transpose
+                  if isinstance(blocks, BorderedStencilMatrix)
+                  else stencil_transpose)
+            lam, stats = self.linear_solver.solve(tr(blocks),
+                                                  -rhs.reshape(n, ndof))
+            self._record(stats)
+            return lam.reshape(n, neq)
+        ell = comp.ell
+        if self.linear_solver is not None:
+            lam, stats = self.linear_solver.solve(
+                BlockELL(ell, ell_transpose(blocks, ell)),
+                -rhs.reshape(n, ndof))
+            self._record(stats)
+            return lam.reshape(n, neq)
+        if n * ndof <= self.direct_limit:
+            lam = torch.linalg.solve(ell_to_dense(blocks, ell).T,
+                                     rhs.reshape(-1))
+            return lam.reshape(n, neq)
+        from ..linsolve.krylov import gmres
+
+        def matvec(x):
+            return ell_rmatvec(blocks, ell, x.reshape(n, neq)).reshape(-1)
+
+        # the sequential MGS formulation, as the JAX package's f64 path
+        lam, stats = gmres(matvec, rhs.reshape(-1), rtol=1e-10, maxiter=500,
+                           orth="mgs")
+        self._record(stats)
+        return lam.reshape(n, neq)
 
 
 def setup_adjoint_storage(model, parameters: dict, forces=None,
-                          linear_solver=None, use_stencil: bool = True,
-                          device=None, dtype=None) -> AdjointStorage:
+                          direct_limit: int = 20_000, linear_solver=None,
+                          use_stencil: bool = False, device=None,
+                          dtype=None) -> AdjointStorage:
     """Reference-named constructor (gradients.jl:108)."""
     return AdjointStorage(model, parameters, forces=forces,
+                          direct_limit=direct_limit,
                           linear_solver=linear_solver,
                           use_stencil=use_stencil, device=device,
                           dtype=dtype)
@@ -256,7 +327,7 @@ def solve_adjoint_sensitivities(
     include_state0: bool = False,
     linear_solver=None,
     storage: AdjointStorage | None = None,
-    use_stencil: bool = True,
+    use_stencil: bool = False,
     device=None,
     dtype=None,
 ):
@@ -291,12 +362,12 @@ def solve_adjoint_sensitivities(
                                        dtype=np.float64))
     if parameters is None or state0 is None:
         raise ValueError("parameters and state0 are required")
-    _refuse_generic(use_stencil)
     _refuse_multimodel(model)
     if storage is None:
         storage = AdjointStorage(model, parameters, forces,
                                  linear_solver=linear_solver,
-                                 device=device, dtype=dtype)
+                                 use_stencil=use_stencil, device=device,
+                                 dtype=dtype)
     params = storage.float_params(parameters)
     us = [storage.dofs_of(s) for s in states]
     if len(us) != len(dts):
@@ -318,7 +389,7 @@ def solve_adjoint_sensitivities_jit(
     include_state0: bool = False,
     linear_solver=None,
     storage: AdjointStorage | None = None,
-    use_stencil: bool = True,
+    use_stencil: bool = False,
     device=None,
     dtype=None,
 ):
@@ -334,12 +405,12 @@ def solve_adjoint_sensitivities_jit(
     force names, types, cells and value shapes), else it raises."""
     if parameters is None or state0 is None:
         raise ValueError("parameters and state0 are required")
-    _refuse_generic(use_stencil)
     _refuse_multimodel(model)
     if storage is None:
         storage = AdjointStorage(model, parameters,
                                  linear_solver=linear_solver,
-                                 device=device, dtype=dtype)
+                                 use_stencil=use_stencil, device=device,
+                                 dtype=dtype)
     params = storage.float_params(parameters)
     us = [storage.dofs_of(s) for s in states]
     N = len(us)
@@ -410,13 +481,65 @@ def solve_numerical_sensitivities(model, states, dts, G, parameters,
     return grads
 
 
-def solve_adjoint_forces(*args, **kwargs):
-    """Gradient with respect to force values (the JAX package's
-    ``solve_adjoint_forces``): it runs on the generic block-ELL adjoint
-    storage, which is not ported."""
-    raise NotImplementedError(
-        "solve_adjoint_forces needs the generic block-ELL engine's adjoint "
-        "(ROADMAP A10)")
+def solve_adjoint_forces(model, states, dts, G, parameters, state0, forces,
+                         device=None, dtype=None):
+    """Gradient of G with respect to force VALUES (reference:
+    src/ad/force_gradients.jl — vectorize_forces + adjoint; here one
+    ``torch.func.vjp`` through the force-application path), on the
+    default adjoint storage (the generic engine, as the JAX package).
+
+    Returns the structure of ``forces`` (a forces dict for every step, or
+    a list with one per step) whose forces are copies holding gradient
+    tensors (detached, on the storage's device) in their value fields
+    (``JutulForce.value_fields``): the direct term ∂G/∂f plus the
+    λ-pullback, summed over the steps for a dict. Integer fields (cells)
+    are left as they are."""
+    storage = AdjointStorage(model, parameters, forces, device=device,
+                             dtype=dtype)
+    comp = storage.comp
+    params = storage.params_f
+    us = [storage.dofs_of(s) for s in states]
+    u0 = storage.dofs_of(state0)
+    N = len(us)
+    dts = np.atleast_1d(np.asarray(dts, dtype=np.float64))
+
+    def g_of(u, vals, f, dt, n):
+        state = comp.evaluate_secondaries(storage._state(u, params))
+        return G(model, state, dt, n, with_force_values(f, vals))
+
+    grad_g = torch.func.grad(g_of, argnums=(0, 1))
+    per_step = isinstance(forces, list)
+    grad_f = [None] * N if per_step else None
+    lam_next = None
+    for n in range(N - 1, -1, -1):
+        u_n = us[n]
+        u_prev = us[n - 1] if n > 0 else u0
+        dt_n = float(dts[n])
+        f_n = _forces_for(forces, n)
+        vals = [as_value(v, u0) for v in force_values(f_n)]
+        gu, gf_direct = grad_g(u_n, vals, f_n, dt_n, n)
+        rhs = -gu
+        if lam_next is not None:
+            du0_bar, _ = storage._vjp_u0_p(us[n + 1], u_n, params,
+                                           float(dts[n + 1]),
+                                           _forces_for(forces, n + 1),
+                                           lam_next)
+            rhs = rhs - du0_bar
+        blocks = storage._jac_blocks(u_n, u_prev, params, dt_n, f_n)
+        lam = storage.solve_transposed(blocks, rhs)
+        del blocks
+        _, pull = torch.func.vjp(
+            lambda v: storage.residual_from_dofs(
+                u_n, u_prev, params, dt_n, with_force_values(f_n, v)), vals)
+        (df_bar,) = pull(lam)
+        step = [(a + b).detach() for a, b in zip(df_bar, gf_direct)]
+        if per_step:
+            grad_f[n] = with_force_values(f_n, step)
+        else:
+            grad_f = step if grad_f is None else [
+                a + b for a, b in zip(grad_f, step)]
+        lam_next = lam
+    return grad_f if per_step else with_force_values(forces, grad_f)
 
 
 def solve_adjoint_sensitivities_multimodel(*args, **kwargs):

@@ -1,17 +1,17 @@
 """Parameter-optimization harness.
 
-Port of the JAX package's ``adjoint/optimization.py`` up to
-``setup_parameter_optimization`` (reference: src/simulator/optimization.jl
-— ``setup_parameter_optimization`` :40-157 returning F!/dF!/F_and_dF!
-closures + box limits + x0, with forward-sim and adjoint-storage caching;
-``optimization_config`` :319 with per-parameter rel/abs limits and
-linear/log scalers).
+Port of the JAX package's ``adjoint/optimization.py`` (reference:
+src/simulator/optimization.jl — ``setup_parameter_optimization`` :40-157
+returning F!/dF!/F_and_dF! closures + box limits + x0, with forward-sim
+and adjoint-storage caching; ``optimization_config`` :319 with
+per-parameter rel/abs limits and linear/log scalers).
 
 The closures drive the port's ``simulate`` (the eager path) and its
-stencil adjoint (``AdjointStorage(use_stencil=True)``, the port's only
-engine); the [0,1] box mapping with linear/log scaling matches the
-reference. The nested-dict optimizer and the setup-function chain rule
-(``dict_opt.py``, ``generic.py``) are not ported yet (ROADMAP A14).
+adjoint, on the generic engine by default as in the JAX package (a
+``use_stencil`` in the harness's keywords reaches both); the [0,1] box
+mapping with linear/log scaling matches the reference.
+``_case_objective_and_gradient`` is the value-and-gradient of
+``DictParameters`` (``dict_opt.py``).
 """
 
 from __future__ import annotations
@@ -81,12 +81,15 @@ class ParameterOptimization:
     """Closures + state for external optimizers (reference
     setup_parameter_optimization return value).
 
-    ``sim_kwargs`` go to the port's ``simulate``, ``device`` and ``dtype``
-    among them (they also place the adjoint); ``adjoint_linear_solver`` is
-    the λ-solver (a ``StencilKrylovSolver``). The forward run and the
-    ``AdjointStorage`` are cached between optimizer calls, as the
-    reference does: a repeated ``x`` costs nothing, and the storage is
-    built once. ``evaluations`` counts forward runs."""
+    ``sim_kwargs`` go to the port's ``simulate``, ``device``, ``dtype``
+    and ``use_stencil`` among them (they also place the adjoint and pick
+    its engine: the generic one by default, as in the JAX package);
+    ``adjoint_linear_solver`` is the λ-solver (a ``GenericKrylov`` or None
+    on the generic engine, a ``StencilKrylovSolver`` on the stencil one).
+    The forward run and the ``AdjointStorage`` are cached between
+    optimizer calls, as the reference does: a repeated ``x`` costs
+    nothing, and the storage is built once. ``evaluations`` counts
+    forward runs."""
 
     def __init__(self, case, G, config: dict, sim_kwargs: dict):
         self.case = case
@@ -96,6 +99,7 @@ class ParameterOptimization:
         self._adj_solver = self.sim_kwargs.pop("adjoint_linear_solver", None)
         self.device = self.sim_kwargs.get("device")
         self.dtype = self.sim_kwargs.get("dtype")
+        self.use_stencil = self.sim_kwargs.get("use_stencil", False)
         self.names = list(config)
         self._sizes = {n: np.asarray(case.parameters[n]).size
                        for n in self.names}
@@ -152,7 +156,8 @@ class ParameterOptimization:
             if self._adj_storage is None:
                 self._adj_storage = AdjointStorage(
                     case.model, params, linear_solver=self._adj_solver,
-                    device=self.device, dtype=self.dtype)
+                    use_stencil=self.use_stencil, device=self.device,
+                    dtype=self.dtype)
             adj = solve_adjoint_sensitivities(
                 case.model, states, case.dt, self.G, parameters=params,
                 state0=case.state0, forces=case.forces,
@@ -188,3 +193,55 @@ def setup_parameter_optimization(case, G, config: dict | None = None,
         config = optimization_config(case.model, case.parameters,
                                      targets=targets)
     return ParameterOptimization(case, G, config, sim_kwargs)
+
+
+def _case_objective_and_gradient(setup_function, params_nested, objective,
+                                 free_paths, sim_kwargs):
+    """Forward simulate a case built from a nested parameter dict and return
+    (objective value, nested gradient dict for the free paths).
+
+    The case's model parameters are the nested leaves themselves (possibly
+    under nested keys whose LAST component is the model parameter name),
+    the reference's common case; the general x -> case chain rule is
+    ``solve_adjoint_generic`` (generic.py). ``sim_kwargs`` go to
+    ``simulate``; their ``device``, ``dtype`` and ``use_stencil`` also
+    place the adjoint (the generic engine by default, as in the JAX
+    package)."""
+    from .dict_opt import _copy_nested, _get_path, _set_path
+
+    case = setup_function(params_nested)
+    states, _ = simulate(dict(case.state0), case.model, case.dt,
+                         forces=case.forces, parameters=case.parameters,
+                         info_level=-1, **sim_kwargs)
+    dev, dtype = sim_kwargs.get("device"), sim_kwargs.get("dtype")
+    total = 0.0
+    for n_step, st in enumerate(states):
+        f = case.forces[n_step] if isinstance(case.forces, list) \
+            else case.forces
+        total += float(objective(case.model, from_numpy(st, dev, dtype),
+                                 float(case.dt[n_step]), n_step, f))
+    adj = solve_adjoint_sensitivities(
+        case.model, states, case.dt, objective, parameters=case.parameters,
+        state0=case.state0, forces=case.forces,
+        use_stencil=sim_kwargs.get("use_stencil", False), device=dev,
+        dtype=dtype)
+    grads = _copy_nested(params_nested)
+
+    def zero(d):  # zero everything, then fill the free paths
+        for k in d:
+            if isinstance(d[k], dict):
+                zero(d[k])
+            else:
+                d[k] = np.zeros_like(np.asarray(d[k], dtype=np.float64))
+
+    zero(grads)
+    for path in free_paths:
+        name = path[-1]
+        if name not in adj:
+            raise KeyError(
+                f"free parameter path {path} does not end in a model "
+                f"parameter (known: {sorted(adj)}); use the generic adjoint "
+                "for derived parameters")
+        base = np.asarray(_get_path(params_nested, path))
+        _set_path(grads, path, np.asarray(adj[name]).reshape(base.shape))
+    return total, grads

@@ -35,7 +35,7 @@ from torch.func import jvp
 from ..core.entities import CELLS, FACES
 from ..discretization.tpfa import compute_face_gdz, compute_face_trans
 from .equations import ConservationLaw, ScalarAssemblyForm
-from .forces import JutulForce
+from .forces import JutulForce, as_value
 from .system import JutulSystem
 from .variables import (
     FractionVariables,
@@ -335,6 +335,8 @@ class ImmiscibleSystem(JutulSystem):
 class PhaseSourceTerm(JutulForce):
     """Phase mass sources q_α [kg/s] in given cells: residual -= q."""
 
+    value_fields = ("values",)
+
     def __init__(self, cells, values):
         self.cells = np.atleast_1d(np.asarray(cells, dtype=np.int64))
         self.values = values  # (ns, n_phases) mass rates
@@ -342,8 +344,7 @@ class PhaseSourceTerm(JutulForce):
     def apply(self, model, eq, eq_name, r, state, dt):
         if not isinstance(eq, TwoPhaseDarcyEquation):
             return r
-        v = torch.as_tensor(np.asarray(self.values), dtype=r.dtype,
-                            device=r.device)
+        v = as_value(self.values, r)
         cells = torch.as_tensor(self.cells, device=r.device)
         return r.index_add(0, cells, -torch.atleast_2d(v))
 
@@ -359,6 +360,8 @@ class PressureBoundaryCondition(JutulForce):
     ``torch.func.jvp`` per dof, with the flux's ``where`` differentiating
     the chosen branch as in JAX.
     """
+
+    value_fields = ("pressure", "trans", "saturations")
 
     def __init__(self, cells, pressure, trans, saturations=None):
         self.cells = np.atleast_1d(np.asarray(cells, dtype=np.int64))
@@ -391,7 +394,7 @@ class PressureBoundaryCondition(JutulForce):
 
     def _per_source(self, nph, like):
         ns = self.cells.shape[0]
-        as_t = lambda v: like.new_tensor(np.asarray(v, dtype=np.float64))  # noqa: E731
+        as_t = lambda v: as_value(v, like)  # noqa: E731
         pb = torch.broadcast_to(as_t(self.pressure), (ns,))
         T = torch.broadcast_to(as_t(self.trans), (ns,))
         if self.saturations is None:

@@ -13,15 +13,32 @@ A force implements
   with blocks (ns, neq, ndof) to add on the Jacobian's diagonal; None (the
   default) for state-independent sources.
 Forces hold host data (cells, rates); they move what they need to ``r``'s
-device.
+device. A force's ``value_fields`` name the float data it carries (a rate,
+a boundary pressure): ``force_values`` and ``with_force_values`` flatten
+them and put tensors in their place, which is how the force gradient
+(``solve_adjoint_forces``) differentiates through ``apply``; integer
+fields (cells) stay as they are.
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
+import torch
+
+
+def as_value(v, like):
+    """A force's value ``v`` (host data or a tensor) as a tensor of
+    ``like``'s dtype on its device; a tensor keeps its autograd history."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=like.dtype, device=like.device)
+    return like.new_tensor(np.asarray(v, dtype=np.float64))
 
 
 class JutulForce:
+    value_fields: tuple = ()
+
     def apply(self, model, eq, eq_name, r, state, dt):
         return r
 
@@ -61,3 +78,47 @@ def force_structure(forces):
                 tuple((k, None if v is None else np.shape(v))
                       for k, v in sorted(fields.items()) if k != "cells"))
     return ("value", np.shape(forces))
+
+
+def _force_items(forces):
+    """The forces of a forces container in a fixed order."""
+    if forces is None:
+        return []
+    if isinstance(forces, dict):
+        return [f for k in sorted(forces) for f in _force_items(forces[k])]
+    if isinstance(forces, (list, tuple)):
+        return [f for x in forces for f in _force_items(x)]
+    return [forces]
+
+
+def force_values(forces) -> list:
+    """The float values of every force in ``forces`` (a force, a dict or a
+    list of them), in a fixed order; fields that are None are skipped."""
+    return [getattr(f, k) for f in _force_items(forces)
+            for k in getattr(f, "value_fields", ())
+            if getattr(f, k) is not None]
+
+
+def with_force_values(forces, values):
+    """``forces`` with copies of its forces whose value fields take
+    ``values`` in ``force_values``'s order (same structure otherwise)."""
+    it = iter(values)
+
+    def walk(x):  # force_values's (sorted) order, the container's key order
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            new = {k: walk(x[k]) for k in sorted(x)}
+            return {k: new[k] for k in x}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        fields = getattr(x, "value_fields", ())
+        if not fields:
+            return x
+        g = copy.copy(x)
+        for k in fields:
+            if getattr(x, k) is not None:
+                setattr(g, k, next(it))
+        return g
+
+    return walk(forces)

@@ -29,7 +29,7 @@ import torch
 from ..core.entities import CELLS, FACES
 from ..discretization.tpfa import compute_face_trans
 from .equations import CellTermContribution, ConservationLaw
-from .forces import JutulForce
+from .forces import JutulForce, as_value
 from .system import JutulSystem
 from .variables import JutulParameter, ScalarVariable
 
@@ -44,12 +44,13 @@ class XVar(ScalarVariable):
 class ScalarTestForce(JutulForce):
     """d/dt X = value (reference scalar.jl ScalarTestForce + force apply)."""
 
+    value_fields = ("value",)
+
     def __init__(self, value):
         self.value = value
 
     def apply(self, model, eq, eq_name, r, state, dt):
-        return r - torch.as_tensor(np.asarray(self.value), dtype=r.dtype,
-                                   device=r.device)
+        return r - as_value(self.value, r)
 
 
 class ScalarTestSystem(JutulSystem):
@@ -150,6 +151,8 @@ class PoissonSource(JutulForce):
     """Point source: residual[cell] += value (reference
     variable_poisson.jl:79-86 — note the + sign)."""
 
+    value_fields = ("value",)
+
     def __init__(self, cell: int, value):
         self.cell = int(cell)
         self.value = value
@@ -158,7 +161,7 @@ class PoissonSource(JutulForce):
         if not isinstance(eq, _PoissonEquation):
             return r
         r = r.clone()
-        r[self.cell, 0] = r[self.cell, 0] + float(self.value)
+        r[self.cell, 0] = r[self.cell, 0] + as_value(self.value, r)
         return r
 
 

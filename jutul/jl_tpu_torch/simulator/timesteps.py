@@ -1,10 +1,11 @@
 """Adaptive timestep selectors.
 
+Port of the JAX package's ``simulator/timesteps.py`` (host-side Python).
 Counterpart of Jutul's timestep machinery (reference: src/timesteps.jl —
-``TimestepSelector`` :19, ``IterationTimestepSelector`` :68;
-composition & clamping in src/simulator/timesteps.jl:1-60 and cutting
-at :51). The variable-change and failed-step selectors are not ported
-yet. Selectors compose: the picked dt is the minimum over all selectors,
+``TimestepSelector`` :19, ``IterationTimestepSelector`` :68,
+``VariableChangeTimestepSelector`` :96, ``LimitByFailedTimestepSelector``
+:158; composition & clamping in src/simulator/timesteps.jl:1-60 and cutting
+at :51). Selectors compose: the picked dt is the minimum over all selectors,
 clamped by max increase/decrease factors, and growth is damped after cuts.
 """
 
@@ -68,6 +69,42 @@ class IterationTimestepSelector(AbstractTimestepSelector):
         its = max(last.iterations, 1)
         # dt* = dt_prev * (target + offset) / (its + offset)
         return dt_prev * (self.target + self.offset) / (its + self.offset)
+
+
+class VariableChangeTimestepSelector(AbstractTimestepSelector):
+    """Target change in a state variable (reference src/timesteps.jl:96).
+
+    Requires the simulator to record per-ministep max variable change under
+    ``history[i].dv`` (attached dynamically); falls back to no-op otherwise.
+    """
+
+    def __init__(self, variable: str, target_change: float,
+                 relative: bool = False):
+        self.variable = variable
+        self.target = target_change
+        self.relative = relative
+
+    def pick_next_timestep(self, dt_prev, history, config) -> float:
+        if not history:
+            return math.inf
+        dv = getattr(history[-1], "dv", None)
+        if not dv or self.variable not in dv:
+            return math.inf
+        change = max(dv[self.variable], 1e-20)
+        return dt_prev * self.target / change
+
+
+class LimitByFailedTimestepSelector(AbstractTimestepSelector):
+    """Cap dt by the last failed dt (reference src/timesteps.jl:158)."""
+
+    def __init__(self, factor: float = 0.9):
+        self.factor = factor
+
+    def pick_next_timestep(self, dt_prev, history, config) -> float:
+        failed = [h.dt for h in history if not h.success]
+        if not failed:
+            return math.inf
+        return self.factor * failed[-1]
 
 
 def pick_timestep(dt_prev: float, dt_remaining: float, history, selectors,

@@ -162,7 +162,7 @@ class GradientCase:
         tm, ts0, tp, tf = self.tcase
         return fn(tm, self.states, self.dts, G_sat(tpkg, self.G_scale),
                   parameters=tp, state0=ts0, forces=tf, device="cpu",
-                  include_state0=True,
+                  include_state0=True, use_stencil=True,
                   linear_solver=solver(tpkg, self.min_cells))
 
     def _jax_stencil(self):
@@ -361,7 +361,7 @@ def test_vjp_u0_p_matches_jax(name):
     st = _perturbed(js0)
     rng = np.random.default_rng(5)
     js = jgrad.AdjointStorage(jm, jp, use_stencil=True)
-    ts = tgrad.AdjointStorage(tm, tp, device="cpu")
+    ts = tgrad.AdjointStorage(tm, tp, use_stencil=True, device="cpu")
     assert set(ts.params_f) == set(js.params_f)
     u = ts.dofs_of(st)
     u0 = ts.dofs_of(ts0)
@@ -387,7 +387,7 @@ def test_lambda_solves_run_and_are_recorded(lattice):
     tm, ts0, tp, tf = lattice.tcase
     states, dts = lattice.states, lattice.dts
     storage = tgrad.AdjointStorage(tm, tp, linear_solver=solver(tpkg),
-                                   device="cpu")
+                                   use_stencil=True, device="cpu")
     tgrad.solve_adjoint_sensitivities(
         tm, states, dts, G_sat(tpkg), parameters=tp, state0=ts0, forces=tf,
         storage=storage)
@@ -411,7 +411,8 @@ def test_jit_and_ministeps_match_jax():
                           use_stencil=True).simulate(
         dts, forces=jf, linear_solver=solver(jpkg), **kw)
     tres = tpkg.simulate(ts0, tm, dts, forces=tf, parameters=tp,
-                         device="cpu", linear_solver=solver(tpkg), **kw)
+                         use_stencil=True, device="cpu",
+                         linear_solver=solver(tpkg), **kw)
     assert all(r["success"] for r in tres.reports)
     js_, jdt = jpkg.expand_to_ministeps(jres.states, jres.reports)
     ts_, tdt = tpkg.expand_to_ministeps(tres.states, tres.reports)
@@ -431,7 +432,8 @@ def test_jit_and_ministeps_match_jax():
         jm, states, jdt, G["jax"], parameters=jp, state0=js0, forces=jf,
         use_stencil=True, linear_solver=solver(jpkg), include_state0=True)
     tkw = dict(parameters=tp, state0=ts0, forces=tf, device="cpu",
-               linear_solver=solver(tpkg), include_state0=True)
+               linear_solver=solver(tpkg), include_state0=True,
+               use_stencil=True)
     jit = tgrad.solve_adjoint_sensitivities_jit(tm, states, jdt,
                                                 G["torch"], **tkw)
     host = tgrad.solve_adjoint_sensitivities(tm, states, jdt, G["torch"],
@@ -443,7 +445,7 @@ def test_jit_and_ministeps_match_jax():
 
 def test_output_substates_refused_on_schedule_path():
     tm, ts0, tp, tf = sweep_case(tpkg)
-    sim = tpkg.Simulator(tm, ts0, tp, device="cpu")
+    sim = tpkg.Simulator(tm, ts0, tp, use_stencil=True, device="cpu")
     with pytest.raises(ValueError, match="output_substates"):
         sim.simulate_jit([DAY], forces=tf, output_substates=True)
     with pytest.raises(ValueError, match="output_substates"):
@@ -469,7 +471,7 @@ def tiny_case():
         [0, 2], np.array([[0.5, 0.0], [-0.2, -0.2]]))}
     dts = [0.5 * DAY, 0.5 * DAY]
     res = tpkg.simulate(state0, model, dts, forces=forces, parameters=params,
-                        device="cpu", info_level=-1,
+                        use_stencil=True, device="cpu", info_level=-1,
                         linear_solver=solver(tpkg, 4), **TIGHT)
     return model, state0, params, forces, dts, res.states
 
@@ -501,11 +503,12 @@ def test_objective_gradient_matches_fd_checker(name):
     G = OBJECTIVES[name]()
     adj = tgrad.solve_adjoint_sensitivities(
         model, states, dts, G, parameters=params, state0=state0,
-        forces=forces, device="cpu", linear_solver=solver(tpkg, 4))
+        forces=forces, device="cpu", use_stencil=True,
+        linear_solver=solver(tpkg, 4))
     fd = tgrad.solve_numerical_sensitivities(
         model, states, dts, G, params, state0, forces=forces,
         targets=FD_TARGETS[name], eps_scale=1e-4, device="cpu",
-        linear_solver=solver(tpkg, 4), **TIGHT)
+        use_stencil=True, linear_solver=solver(tpkg, 4), **TIGHT)
     for k in FD_TARGETS[name]:
         assert adj[k].shape == fd[k].shape == np.shape(params[k])
         assert_close(adj[k], fd[k], 1e-6, k)
@@ -525,7 +528,8 @@ def test_objectives_evaluate_and_global_zero_steps():
     # an objective that ignores the state gives a zero gradient, no error
     g = tgrad.solve_adjoint_sensitivities(
         model, states[:1], dts[:1], Gg, parameters=params, state0=state0,
-        forces=forces, device="cpu", linear_solver=solver(tpkg, 4))
+        forces=forces, device="cpu", use_stencil=True,
+        linear_solver=solver(tpkg, 4))
     assert not np.any(g["Transmissibilities"]) and not np.any(
         g["FluidVolume"])
     sg = tgrad.state_gradient(model, states[-1], OBJECTIVES["sum"](), params,
@@ -541,15 +545,10 @@ def test_refusals():
     from jutul.jl_tpu.multimodel.core import MultiModel
 
     model, state0, params, forces, dts, states = tiny_case()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tgrad.AdjointStorage(model, params, use_stencil=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tgrad.solve_adjoint_sensitivities(
-            model, states, dts, G_sat(tpkg), parameters=params,
-            state0=state0, use_stencil=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tgrad.solve_adjoint_forces(model, states, dts, G_sat(tpkg), params,
-                                   state0, forces)
+    # a λ-solver of the other engine raises, naming the one it needs
+    with pytest.raises(TypeError, match="GenericKrylov"):
+        tgrad.AdjointStorage(model, params, linear_solver=solver(tpkg, 4),
+                             device="cpu")
     mm = MultiModel({"a": model, "b": model})
     for fn in (tgrad.solve_adjoint_sensitivities,
                tgrad.solve_adjoint_sensitivities_jit):
@@ -558,9 +557,9 @@ def test_refusals():
                state0=state0, device="cpu")
     with pytest.raises(TypeError, match="StencilKrylovSolver"):
         tgrad.AdjointStorage(model, params, linear_solver=object(),
-                             device="cpu")
+                             use_stencil=True, device="cpu")
     sched = [forces, {"other": forces["sources"]}]
     with pytest.raises(NotImplementedError, match="one structure"):
         tgrad.solve_adjoint_sensitivities_jit(
             model, states, dts, G_sat(tpkg), parameters=params,
-            state0=state0, forces=sched, device="cpu")
+            state0=state0, forces=sched, use_stencil=True, device="cpu")

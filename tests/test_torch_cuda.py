@@ -11,6 +11,7 @@ Tolerance: max |kernel - plain| / max |plain| <= 1e-4 in float32 and
 order (and with fused multiply-adds).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -459,7 +460,8 @@ def test_schedule_path_on_the_card_matches_the_cpu(dev, coef_dtype):
     dtype = torch.float64 if coef_dtype is None else torch.float32
     runs = {}
     for device in (dev, "cpu"):
-        sim = Simulator(model, state0, params, device=device, dtype=dtype)
+        sim = Simulator(model, state0, params, use_stencil=True,
+                        device=device, dtype=dtype)
         kernels.reset_launch_counts()
         res = sim.simulate_jit(
             [chip_smoke.DT] * 2, forces=chip_smoke.rate_schedule(forces, 2),
@@ -527,7 +529,7 @@ def test_adjoint_on_the_card_matches_the_cpu(dev):
         grads[device] = solve_adjoint_sensitivities_jit(
             model, states, dts, G, parameters=params, state0=state0,
             forces=sched, linear_solver=lam, include_state0=True,
-            device=device, dtype=torch.float64)
+            use_stencil=True, device=device, dtype=torch.float64)
         counts = kernels.launch_counts()
         if device == dev:
             assert counts["darcy_flux_jacobian_lattice"] == 2
@@ -596,3 +598,75 @@ def test_cpr_update_and_assemble_repeat_bitwise(dev, dtype):
     assert all(torch.equal(a, b) for a, b in zip(flat(s1), flat(s2)))
     x = torch.randn(r1.shape, dtype=dtype, device=dev)
     assert torch.equal(cpr.apply(s1, J1, x), cpr.apply(s2, J1, x))
+
+
+def _generic_adjoint_case():
+    """The 8x8x6 source-term flagship, 2 steps of 1.5 h with the rate
+    ramp, its states from one tight f64 CPU forward of the generic
+    engine, and G = dt Σ S_w² / nc."""
+    import chip_smoke
+    from jutul.jl_tpu_torch import simulate
+
+    model, state0, params, forces = _generic_flagship()
+    sched = chip_smoke.rate_schedule(forces, 2)
+    dts = [chip_smoke.ADJ_DT] * 2
+    states = simulate(state0, model, dts, forces=sched, parameters=params,
+                      device="cpu", info_level=-1, max_nonlinear_iterations=40,
+                      tolerances={"mass_conservation/CNV": 1e-8,
+                                  "mass_conservation/MB": 1e-10}).states
+    G = chip_smoke.sat_objective(model.number_of_cells())
+    return model, state0, params, sched, dts, states, G
+
+
+def _ilu_bicgstab(rtol):
+    from jutul.jl_tpu_torch import GenericKrylov, ILU0Preconditioner
+
+    return GenericKrylov("bicgstab", ILU0Preconditioner(), rtol=rtol,
+                         max_iterations=2000)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_generic_adjoint_sweeps_repeat_bitwise(dev, dtype):
+    """Two sweeps of the generic adjoint (ILU(0)-BiCGStab λ-solves) on the
+    card give equal bits and equal λ-iteration counts, and launch no
+    kernel of ops/cuda: every sum of the residual's pull-back and of the
+    transposed solve runs in a fixed order."""
+    from jutul.jl_tpu_torch import (
+        AdjointStorage,
+        solve_adjoint_sensitivities_jit,
+    )
+
+    model, state0, params, sched, dts, states, G = _generic_adjoint_case()
+    storage = AdjointStorage(model, params, linear_solver=_ilu_bicgstab(
+        1e-6 if dtype == torch.float32 else 1e-10), device=dev, dtype=dtype)
+    kernels.reset_launch_counts()
+    runs = [solve_adjoint_sensitivities_jit(
+        model, states, dts, G, parameters=params, state0=state0,
+        forces=sched, include_state0=True, storage=storage)
+        for _ in range(2)]
+    assert not any(kernels.launch_counts().values())
+    its = storage.lambda_iterations
+    assert its[:2] == its[2:]
+    for k in runs[0]:
+        assert np.array_equal(runs[0][k], runs[1][k]), k
+        assert np.all(np.isfinite(runs[0][k])), k
+
+
+@pytest.mark.parametrize("branch", ["direct", "krylov"])
+def test_generic_adjoint_matches_cpu(dev, branch):
+    """The generic adjoint at 8x8x6 in float64 on the card against the
+    CPU, λ at rtol 1e-14 in the Krylov branch: gradients within 1e-9."""
+    from jutul.jl_tpu_torch import solve_adjoint_sensitivities_jit
+
+    model, state0, params, sched, dts, states, G = _generic_adjoint_case()
+    grads = {}
+    for device in (dev, "cpu"):
+        kw = {} if branch == "direct" else dict(
+            linear_solver=_ilu_bicgstab(1e-14))
+        grads[device] = solve_adjoint_sensitivities_jit(
+            model, states, dts, G, parameters=params, state0=state0,
+            forces=sched, include_state0=True, device=device,
+            dtype=torch.float64, **kw)
+    for k in ("Transmissibilities", "FluidVolume", "state0"):
+        g, c = grads[dev][k], grads["cpu"][k]
+        assert abs(g - c).max() <= 1e-9 * abs(c).max(), k

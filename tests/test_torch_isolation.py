@@ -22,6 +22,13 @@ def test_port_imports_without_jax():
         "import jutul.jl_tpu_torch.linsolve.precond\n"
         "import jutul.jl_tpu_torch.linsolve.system\n"
         "import jutul.jl_tpu_torch.models.test_systems\n"
+        "import jutul.jl_tpu_torch.adjoint.generic\n"
+        "import jutul.jl_tpu_torch.adjoint.dict_opt\n"
+        "import jutul.jl_tpu_torch.simulator.io\n"
+        "import jutul.jl_tpu_torch.simulator.reporting\n"
+        "import jutul.jl_tpu_torch.simulator.distance_functions\n"
+        "import jutul.jl_tpu_torch.simulator.convergence_monitors\n"
+        "import jutul.jl_tpu_torch.simulator.timesteps\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'jutul.jl_tpu' not in sys.modules, 'jutul.jl_tpu imported'\n"
         "assert torch.get_default_dtype() == torch.float32\n"

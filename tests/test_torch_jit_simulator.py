@@ -223,7 +223,7 @@ def test_per_call_rtol_reaches_the_bordered_solve():
     from jutul.jl_tpu_torch.models.setup import merge_state
 
     tm, ts, tp, tf = chip_smoke.build_well_flagship(6, 6, 4)
-    sim = tpkg.Simulator(tm, ts, tp, device="cpu")
+    sim = tpkg.Simulator(tm, ts, tp, use_stencil=True, device="cpu")
     full = merge_state(sim.state0, sim.parameters)
     r, B, _ = sim._stencil.assemble(full, full, DT, tf)
     solver = _config(tpkg)["linear_solver"]

@@ -127,7 +127,7 @@ def _misfit_setup(pkg, obs):
     G = objectives.l2_misfit_objective({"Saturations": obs})
     kw = dict(TIGHT)
     if pkg is tpkg:
-        kw.update(device="cpu", linear_solver=solver(tpkg),
+        kw.update(device="cpu", use_stencil=True, linear_solver=solver(tpkg),
                   adjoint_linear_solver=solver(tpkg))
     return opt_mod.setup_parameter_optimization(
         case, G, targets=["Transmissibilities"], **kw)
@@ -142,7 +142,7 @@ def optimization():
     truth = dict(params)
     truth["Transmissibilities"] = 1.5 * params["Transmissibilities"]
     res = tpkg.simulate(state0, model, DTS, forces=forces, parameters=truth,
-                        device="cpu", info_level=-1,
+                        use_stencil=True, device="cpu", info_level=-1,
                         linear_solver=solver(tpkg), **TIGHT)
     obs = [s["Saturations"] for s in res.states]
     jopt = _misfit_setup(jpkg, obs)

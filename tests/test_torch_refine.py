@@ -49,7 +49,8 @@ def refined(request):
     wm = case == "wells"
     build = chip_smoke.build_well_flagship if wm else chip_smoke.build_flagship
     tm, ts, tp, tf = build(*dims)
-    tsim = tpkg.Simulator(tm, ts, tp, device="cpu", dtype=torch.float32)
+    tsim = tpkg.Simulator(tm, ts, tp, use_stencil=True, device="cpu",
+                          dtype=torch.float32)
     res = tsim.simulate_jit(
         [DT], forces=tf, linear_solver=_solver(tpkg, 1e-3),
         linear_forcing="ew", max_nonlinear_iterations=12,
