@@ -66,7 +66,7 @@ failure (nothing is caught, so any failure exits non-zero):
    transposed bordered matrix, each step's Jacobian one three-axis and one
    per-axis K3 launch, the differentiable residual none); ``adjoint-dot``
    (bench.py's dot test in float64 at 64x32x32: <g, δ> within 1e-3 of the
-   central difference); ``history-match`` (3 unit-box L-BFGS iterations of
+   central difference); ``history-match`` (2 unit-box L-BFGS iterations of
    ``setup_parameter_optimization`` at 64x32x32 must lower the misfit);
 8d. the generic engine's adjoint: ``generic-adjoint`` (bench.py run_adjoint
    under BENCH_ADJ_STENCIL=0: wells-adjoint's states, the sweep on
@@ -74,18 +74,21 @@ failure (nothing is caught, so any failure exits non-zero):
    float32, cold and twice warm: a finite gradient, no kernel launch, the
    warm sweeps equal bit for bit); ``generic-adjoint-dot`` (adjoint-dot's
    test with the generic sweep in float64, ≤ 1e-3);
-   ``dict-history-match`` (``DictParameters.optimize`` at 32x16x16 with the
+   ``dict-history-match`` (2 ``DictParameters.optimize`` iterations at
+   32x16x16 with the
    default engine and solvers: the misfit must fall); ``generic-setup``
    (``solve_adjoint_generic`` against a directional central difference,
    1e-4) and ``force-gradient`` (``solve_adjoint_forces`` on the 8x8x6 well
    model, 1e-5), both in float64;
-9. A/B at 64x32x32 on the card, float32: both opt-ins, the K5 phases
-   alone, neither, and neither from a 2-ulp perturbed initial pressure.
+9. A/B at 64x32x32 on the card, float32, 2 report steps: both opt-ins,
+   the K5 phases alone, neither, and neither from a 2-ulp perturbed
+   initial pressure.
    The phases alone must reproduce "neither" bit for bit; the fused body
    (another summation order) must succeed and pass the f64 verify, and
    its counts are reported beside the perturbed run's (phase_ab says why
    counts cannot be held equal there);
-9b. eager-options: the well flagship at 64x32x32, stencil engine: per-step
+9b. eager-options: the well flagship at 64x32x32, 2 report steps, stencil
+   engine: per-step
    files and a restart from them (the final state bit for bit), then a run
    with ``ConvergenceMonitorCuttingCriterion``, a
    ``VariableChangeTimestepSelector``, hooks and ``extra_timing``;
@@ -114,7 +117,26 @@ failure (nothing is caught, so any failure exits non-zero):
    generic assemble, CPR update and CPR apply twice: equal bits;
 14. the generic slice at 8x8x6 in float64 on the card against the CPU,
    eager and schedule path (EW forcing): identical counts, states within
-   1e-9.
+   1e-9;
+15. wells-multimodel: the well flagship with its 5 wells as one-cell
+   MultiModel submodels coupled by ``DarcyTransferCrossTerm`` perforations
+   (1,048,576 + 5 cells, float32), through the schedule path as
+   wells-product runs it (3 report steps, rate ramp, EW forcing), with
+   srcwells' Newton settings and BASELINE.json's CPR-GMRES on the
+   reservoir behind a Schur elimination of the wells; host set-up timed
+   apart, no kernel launch, every step successful, one host read per
+   Newton assembly; its f64 verify (CNV over every submodel, MB of the
+   coupled system);
+16. multimodel-fused: its first Newton system, Schur-reduced, solved by
+   BiCGStab on K6/K7 (once per iteration; K1-K5 never), true residual
+   within 10 rtol;
+17. multimodel-engine-check: wells-multimodel's last accepted ministep in
+   float64 at full size, the MultiModel's residual and J v against the
+   generic engine's on the well-graph model, within 1e-12;
+18. multimodel-cross-check: the well MultiModel at 8x8x6 in float64 on
+   the card against the CPU, eager and schedule path: identical counts,
+   states within 1e-12, two card runs bitwise equal; its dense-λ adjoint
+   card against CPU within 1e-10.
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
@@ -219,6 +241,9 @@ SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
 SLICE_KERNELS["generic"] = ()  # the generic path has no kernel of its own
 SLICE_KERNELS["eager-options"] = SLICE_KERNELS["wells-jacobi-eager"]
 SLICE_KERNELS["generic-fused"] = ("fused_alpha_s", "fused_omega_update")
+# the MultiModel assembles through the generic engine: no kernel of its own
+SLICE_KERNELS["wells-multimodel"] = ()
+SLICE_KERNELS["multimodel-fused"] = SLICE_KERNELS["generic-fused"]
 _F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", "scalar_jacobi_phase")
 # K1-K5 and every bf16 entry: the stencil engine's kernels
 _STENCIL_KERNELS = tuple(k for k in KERNEL_INFO
@@ -226,6 +251,8 @@ _STENCIL_KERNELS = tuple(k for k in KERNEL_INFO
 SLICE_FORBIDDEN = {  # kernels a slice must never launch
     "generic": tuple(KERNEL_INFO),  # GMRES launches no K6/K7 either
     "generic-fused": _STENCIL_KERNELS,
+    "wells-multimodel": tuple(KERNEL_INFO),
+    "multimodel-fused": _STENCIL_KERNELS,
     "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev"),
     "wells-product": tuple(k for k in KERNEL_INFO if k.endswith("_bf16c")),
     "wells-product-bf16": _F32_LEVEL,
@@ -302,33 +329,26 @@ def build_flagship(nx, ny, nz):
     return model, state0, params, forces
 
 
-def build_well_flagship(nx, ny, nz):
-    """The bench flagship with its 5 well models, through the port's API:
-    a copy of bench.py ``build(nx, ny, nz, gravity=True, wells=True,
-    well_models=True)`` — the same reservoir as ``build_flagship`` plus 4
-    rate-controlled injectors perforating the bottom layers and 1
-    BHP-controlled producer perforating the top layers (up to 8
-    completions each) as wellbore cells of a WellGraphMesh. Returns
-    (model, state0, parameters, forces); state0 and parameters are host
-    numpy dicts."""
-    from jutul.jl_tpu_torch import (
-        CartesianMesh,
-        ImmiscibleFluid,
-        PhaseSourceTerm,
-        PressureBoundaryCondition,
-        WellSpec,
-        setup_state,
-        setup_well_graph_model,
-        si_unit,
-    )
+def _well_case(nx, ny, nz, pkg):
+    """The numbers of bench.py ``build(nx, ny, nz, gravity=True,
+    wells=True, well_models=True)`` through ``pkg``'s classes: the
+    reservoir (mesh, fluid, permeability, initial pressure and
+    saturation), the 5 ``WellSpec``s (4 rate-controlled injectors
+    perforating the bottom layers, 1 BHP-controlled producer perforating
+    the top layers, up to 8 completions each), the wellbores' initial
+    pressure and saturation, the injection rate, the BHP and the control
+    transmissibility."""
+    import importlib
 
-    BAR = si_unit("bar")
-    DARCY = si_unit("darcy")
+    W = importlib.import_module(pkg.__name__ + ".models.wells")
+    D = importlib.import_module(pkg.__name__ + ".models.darcy")
+    BAR, DARCY = pkg.si_units("bar", "darcy")
     nc = nx * ny * nz
     rng = np.random.default_rng(0)
-    mesh = CartesianMesh((nx, ny, nz), (100.0 * nx / 128, 100.0 * ny / 128,
-                                        10.0 * nz / 64))
-    fluid = ImmiscibleFluid(viscosities=(1e-3, 2e-3))
+    mesh = pkg.CartesianMesh((nx, ny, nz), (100.0 * nx / 128,
+                                            100.0 * ny / 128,
+                                            10.0 * nz / 64))
+    fluid = D.ImmiscibleFluid(viscosities=(1e-3, 2e-3))
     perm = rng.lognormal(0.0, 1.0, nc) * 0.1 * DARCY
     sw = rng.uniform(0.2, 0.8, nc)
     geo = mesh.tpfv_geometry()
@@ -343,46 +363,107 @@ def build_well_flagship(nx, ny, nz):
 
     cell_vol = (100.0 / 128) ** 2 * (10.0 / 64)
     pore_mass = cell_vol * 0.25 * 1000.0  # kg of water per cell
-    q = 0.2 * pore_mass / 21600.0  # kg/s per injector
     ncomp = min(8, nz)
     inj_cols = [(1, 1), (nx - 2, 1), (1, ny - 2), (nx - 2, ny - 2)]
     WI = 2.5e-13  # Peaceman-style, ~ an interior face transmissibility
-    specs = [WellSpec(f"inj{i}",
-                      [cell(ix, iy, nz - 1 - k) for k in range(ncomp)],
-                      WI=WI, volume=1.0)
+    specs = [W.WellSpec(f"inj{i}",
+                        [cell(ix, iy, nz - 1 - k) for k in range(ncomp)],
+                        WI=WI, volume=1.0)
              for i, (ix, iy) in enumerate(inj_cols)]
-    specs.append(WellSpec(
+    specs.append(W.WellSpec(
         "prod", [cell(nx // 2, ny // 2, k) for k in range(ncomp)],
         WI=WI, volume=1.0))
-    model, wmesh, params = setup_well_graph_model(
-        mesh, fluid, specs, permeability=perm, porosity=0.25, gravity=True)
-    # wellbore initial state: completion-top pressure; injectors start
-    # water-filled, the producer at the completion saturation
-    pw = np.array([p0[s.cells[0]] for s in specs])
-    sww = np.array([1.0] * 4 + [float(sw[specs[-1].cells[0]])])
-    state0 = setup_state(
-        model, Pressure=np.concatenate([p0, pw]),
+    return dict(
+        W=W, D=D, mesh=mesh, fluid=fluid, perm=perm, sw=sw, p0=p0,
+        specs=specs,
+        # wellbore initial state: completion-top pressure; injectors start
+        # water-filled, the producer at the completion saturation
+        pw=np.array([p0[s.cells[0]] for s in specs]),
+        sww=np.array([1.0] * 4 + [float(sw[specs[-1].cells[0]])]),
+        q=0.2 * pore_mass / 21600.0,  # kg/s per injector
+        bhp=float(p0[specs[-1].cells[0]]) - 2.0 * BAR,
+        # BHP control: a fixed-pressure surface connection whose control
+        # transmissibility (10x the completions' WI) dominates the row
+        t_ctl=10.0 * WI * ncomp)
+
+
+def build_well_flagship(nx, ny, nz):
+    """The bench flagship with its 5 well models, through the port's API:
+    a copy of bench.py ``build(nx, ny, nz, gravity=True, wells=True,
+    well_models=True)`` — the same reservoir as ``build_flagship`` plus the
+    wells of ``_well_case`` as wellbore cells of a WellGraphMesh. Returns
+    (model, state0, parameters, forces); state0 and parameters are host
+    numpy dicts."""
+    import jutul.jl_tpu_torch as pkg
+
+    c = _well_case(nx, ny, nz, pkg)
+    model, wmesh, params = c["W"].setup_well_graph_model(
+        c["mesh"], c["fluid"], c["specs"], permeability=c["perm"],
+        porosity=0.25, gravity=True)
+    sw, sww = c["sw"], c["sww"]
+    state0 = pkg.setup_state(
+        model, Pressure=np.concatenate([c["p0"], c["pw"]]),
         Saturations=np.stack([np.concatenate([sw, sww]),
                               np.concatenate([1 - sw, 1 - sww])], axis=1))
     inj_cells = [wmesh.well_cells[f"inj{i}"] for i in range(4)]
-    bhp = float(p0[specs[-1].cells[0]]) - 2.0 * BAR
     forces = {
         # rate control: surface water stream into each injector
-        "rate": PhaseSourceTerm(inj_cells, np.array([[q, 0.0]] * 4)),
-        # BHP control: fixed-pressure surface connection whose control
-        # transmissibility (10x the completions' WI) dominates the row
-        "bhp": PressureBoundaryCondition(
-            [wmesh.well_cells["prod"]], bhp, 10.0 * WI * ncomp,
+        "rate": pkg.PhaseSourceTerm(inj_cells,
+                                    np.array([[c["q"], 0.0]] * 4)),
+        "bhp": pkg.PressureBoundaryCondition(
+            [wmesh.well_cells["prod"]], c["bhp"], c["t_ctl"],
             saturations=[0.5, 0.5]),
     }
     return model, state0, params, forces
+
+
+WELL_NAMES = ("inj0", "inj1", "inj2", "inj3", "prod")
+
+
+def build_well_multimodel(nx, ny, nz, pkg=None):
+    """The well flagship of ``build_well_flagship`` as a MultiModel: the
+    reservoir through ``setup_darcy_model`` on the CartesianMesh and the 5
+    wells as one-cell models coupled by skew-symmetric
+    ``DarcyTransferCrossTerm`` perforations (``setup_well_multimodel``),
+    from the same numbers, with the controls on the well models.
+    ``pkg``: the package whose classes to use (default the port; the CPU
+    tests pass the JAX package for the reference run). Returns
+    (multimodel, state0, parameters, forces), each a dict per submodel of
+    host numpy data (forces: of force objects)."""
+    if pkg is None:
+        import jutul.jl_tpu_torch as pkg
+    c = _well_case(nx, ny, nz, pkg)
+    D = c["D"]
+    res = D.setup_darcy_model(c["mesh"], c["fluid"], permeability=c["perm"],
+                              porosity=0.25, gravity=True)
+    mm, names = c["W"].setup_well_multimodel(res, c["specs"])
+    assert tuple(names) == WELL_NAMES
+    sw = c["sw"]
+    state0 = {"reservoir": pkg.setup_state(
+        res, Pressure=c["p0"], Saturations=np.stack([sw, 1 - sw], axis=1))}
+    for i, n in enumerate(names):
+        state0[n] = pkg.setup_state(
+            mm[n], Pressure=c["pw"][i:i + 1],
+            Saturations=np.array([[c["sww"][i], 1 - c["sww"][i]]]))
+    forces = {"reservoir": None}
+    for i in range(4):
+        forces[f"inj{i}"] = {"rate": D.PhaseSourceTerm(
+            [0], np.array([[c["q"], 0.0]]))}
+    forces["prod"] = {"bhp": D.PressureBoundaryCondition(
+        [0], c["bhp"], c["t_ctl"], saturations=[0.5, 0.5])}
+    return mm, state0, pkg.setup_parameters(mm), forces
 
 
 def rate_schedule(forces, n_step):
     """Per-report-step forces with the bench's rate ramp (bench.py:570-579):
     the rates (key ``"rate"`` with well models, ``"wells"`` with
     source-term wells) scale 0.75x -> 1.25x across the report steps; every
-    other force (the BHP producer) stays as it is."""
+    other force (the BHP producer) stays as it is. A MultiModel's forces
+    (a dict per submodel) ramp each submodel's rates the same way."""
+    if all(f is None or isinstance(f, dict) for f in forces.values()):
+        per = {m: (rate_schedule(f, n_step) if f and "rate" in f
+                   else [f] * n_step) for m, f in forces.items()}
+        return [{m: per[m][i] for m in forces} for i in range(n_step)]
     key = "rate" if "rate" in forces else "wells"
     src = forces[key]
     base = np.asarray(src.values)
@@ -451,6 +532,49 @@ def generic_config(pkg=None, solver=None, product=False):
         cfg["timestep_selectors"] = [
             pkg.TimestepSelector(initial_fraction=0.25),
             pkg.IterationTimestepSelector(target_iterations=6)]
+    return cfg
+
+
+def multimodel_solver(pkg=None):
+    """BASELINE.json's solver behind a Schur elimination of the five
+    wells: GMRES(20) at rtol 1e-3 over at most 50 iterations on the
+    reservoir, preconditioned per submodel by CPR(AMG + ILU(0))
+    (``GroupWisePreconditioner``), with the wellbores eliminated densely
+    (``SchurComplementSolver``). ``pkg``: as ``generic_solver``."""
+    import importlib
+
+    if pkg is None:
+        import jutul.jl_tpu_torch as pkg
+    P = importlib.import_module(pkg.__name__ + ".linsolve.precond")
+    S = importlib.import_module(pkg.__name__ + ".linsolve.schur")
+    return S.SchurComplementSolver(
+        inner=pkg.GenericKrylov(
+            "gmres", P.GroupWisePreconditioner(pkg.CPRPreconditioner()),
+            rtol=1e-3, max_iterations=50, restart=20),
+        elim_models=list(WELL_NAMES))
+
+
+def multimodel_config(pkg=None, product=False):
+    """The well MultiModel's settings: srcwells' Newton settings
+    (``generic_config``) with ``multimodel_solver``, and the bench's
+    tolerances named for every submodel's equation
+    (``"reservoir.mass_conservation/CNV"``, ...): the MultiModel's
+    equations carry their model's name, and the tolerance lookup (the JAX
+    package's ``tolerance_for``) does not map the bench's bare
+    ``"mass_conservation/CNV"`` onto them. The reservoir gets the bench's
+    CNV and MB; each one-cell well model gets the CNV tolerance for both,
+    since for one cell MB (|Σ r| dt / Σ ρ V) is CNV (max |r| dt / ρ V):
+    the well-graph model holds its wellbore rows to CNV and lets them
+    into a global MB dominated by the reservoir's mass. A wellbore's own
+    balance held to the bench's MB cannot be met in float32: one ulp of a
+    2e7 Pa pressure across a perforation (WI 2.5e-13) moves a 1 m³
+    wellbore's balance by ~3e-6 over a 1.5 h ministep."""
+    cfg = generic_config(pkg, multimodel_solver(pkg), product=product)
+    cfg["tolerances"] = {
+        "reservoir.mass_conservation/CNV": CNV_TOL,
+        "reservoir.mass_conservation/MB": MB_TOL,
+        **{f"{w}.mass_conservation/{c}": CNV_TOL
+           for w in WELL_NAMES for c in ("CNV", "MB")}}
     return cfg
 
 
@@ -1223,7 +1347,8 @@ def phase_kernels_krylov(records):
 
 
 def phase_warm_up():
-    """Every slice's path at 16x16x8 in float32 on the card, 2 report
+    """Every slice's path at 16x16x8 (the MultiModel's: one step at 8x8x6)
+    in float32 on the card, 2 report
     steps: the first use of each PyTorch op in a process loads its CUDA
     module (~12 s for the wells path), which the timed slices should not
     measure."""
@@ -1252,6 +1377,10 @@ def phase_warm_up():
         run = sim.simulate_jit if product else sim.simulate
         run([DT] * 2, forces=rate_schedule(forces, 2),
             **generic_config(product=product))
+    mm, state0, params, forces = build_well_multimodel(*WELL_SMALL_EW)
+    Simulator(mm, state0, params).simulate_jit(
+        [DT], forces=rate_schedule(forces, 2)[:1],
+        **multimodel_config(product=True))
     torch.cuda.synchronize()
     log(f"# warm-up (every slice's path at 16x16x8): "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1396,30 +1525,57 @@ def phase_refine(sim, res, forces):
     return out
 
 
+def _to64(tree):
+    return {k: _to64(v) if isinstance(v, dict) else v.double()
+            for k, v in tree.items()}
+
+
 def phase_f64_verify(sim, res, forces, name):
     """The final accepted ministep re-assembled in float64 on the card,
-    over every row (lattice and wellbore cells)."""
-    from jutul.jl_tpu_torch.models.setup import merge_state
-
-    to64 = lambda d: {k: v.double() for k, v in d.items()}  # noqa: E731
-    pr = to64(sim.parameters)
+    over every row (lattice and wellbore cells; for a MultiModel, CNV over
+    every submodel's rows and MB of the whole coupled system)."""
+    pr = _to64(sim.parameters)
     r, _, full = sim.engine.assemble(
-        merge_state(to64(res.final_state_device), pr),
-        merge_state(to64(res.final_ministep_start_state), pr),
+        sim._merge(_to64(res.final_state_device), pr),
+        sim._merge(_to64(res.final_ministep_start_state), pr),
         res.final_ministep_dt, forces)
-    crit = sim.compiled.convergence(r, full, res.final_ministep_dt)
-    c = crit["mass_conservation"]
-    out = {"rows": r.shape[0], "f64_max_abs_residual": float(r.abs().max()),
-           "f64_CNV": float(c["CNV"].max()), "f64_MB": float(c["MB"].max())}
+    dt = res.final_ministep_dt
+    crit = sim.compiled.convergence(r, full, dt)
+    if isinstance(r, dict):
+        # the MultiModel: CNV over every submodel's cells; MB the balance
+        # of the whole coupled system (the perforations cancel in it), as
+        # the well-graph model's global MB
+        num = den = 0.0
+        for m, c in sim.compiled.comps.items():
+            info = next(i for i in c.equations
+                        if i.name == "mass_conservation")
+            n_, d_ = info.eq.convergence_parts(
+                c.model, info.name, r[m][:, info.row_slice], full[m],
+                dt)["MB"][1]
+            num, den = num + n_, den + d_
+        out = {"rows": sum(x.shape[0] for x in r.values()),
+               "f64_max_abs_residual": max(float(x.abs().max())
+                                           for x in r.values()),
+               "f64_CNV": max(float(crit[f"{m}.mass_conservation"]["CNV"]
+                                    .max()) for m in r),
+               "f64_MB": float((num.abs() / den).max()),
+               "f64_MB_by_model": {m: float(
+                   crit[f"{m}.mass_conservation"]["MB"].max()) for m in r}}
+    else:
+        c = crit["mass_conservation"]
+        out = {"rows": r.shape[0],
+               "f64_max_abs_residual": float(r.abs().max()),
+               "f64_CNV": float(c["CNV"].max()),
+               "f64_MB": float(c["MB"].max())}
     log(f"# {name} f64 verify: " + json.dumps(out))
     if not (out["f64_CNV"] <= 10 * CNV_TOL and out["f64_MB"] <= 10 * MB_TOL):
         raise RuntimeError(f"{name} f64 verify: residual out of bound: {out}")
     return out
 
 
-def phase_ab(case_small):
+def phase_ab(case_small, n_step=3):
     """The well flagship at AB_GRID with Jacobi GMG on the card, float32,
-    3 report steps, in four runs: both opt-ins ("fused": K5 phases and the
+    ``n_step`` report steps, in four runs: both opt-ins ("fused": K5 phases and the
     K6/K7 body), the K5 phases alone ("phases"), neither (K2 chains, the
     plain BiCGStab chain), and neither again from an initial pressure
     scaled by 1 + 2^-22 (two float32 ulps: "neither_perturbed").
@@ -1436,7 +1592,7 @@ def phase_ab(case_small):
     from jutul.jl_tpu_torch import Simulator, report_stats
 
     model, state0, params, forces = case_small
-    schedule = rate_schedule(forces, 3)
+    schedule = rate_schedule(forces, n_step)
     runs, out = {}, {"cells": model.number_of_cells()}
     for tag, fused, phases, scale in (
             ("fused", True, True, 1.0), ("phases", False, True, 1.0),
@@ -1447,10 +1603,11 @@ def phase_ab(case_small):
         cfg = sim_config(16384, "jacobi", fused)
         cfg["linear_solver"].preconditioner.gmg.slab_double_buffer = phases
         t0 = time.perf_counter()
-        res = sim.simulate([DT] * 3, forces=schedule, **cfg)
+        res = sim.simulate([DT] * n_step, forces=schedule, **cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if not all(r["success"] for r in res.reports) or len(res.reports) != 3:
+        if not all(r["success"] for r in res.reports) or \
+                len(res.reports) != n_step:
             raise RuntimeError(f"A/B {tag}: a report step failed")
         st = report_stats(res.reports)
         runs[tag] = res
@@ -1801,6 +1958,338 @@ def phase_generic_cross_check(dims=WELL_SMALL_EW):
                                f"differ: {out[tag]}")
     log(f"# generic cross-check card vs CPU ({'x'.join(map(str, dims))}, "
         f"f64): " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the MultiModel: the well flagship's 5 wells as coupled one-cell models
+# ---------------------------------------------------------------------------
+def phase_multimodel(case_mm, n_step=3):
+    """``wells-multimodel``: the well MultiModel at full width in float32
+    on the card through the schedule path as ``wells-product`` runs it
+    (``lower_schedule`` with the rate ramp, EW forcing, 16 ministep
+    records per report step, then ``post(*run(*args))``), with srcwells'
+    Newton settings and ``multimodel_solver``. The host set-up (every
+    submodel's ELL structure and sum plans, the reservoir's AMG hierarchy)
+    is timed apart, before the run; no kernel may launch; every report
+    step must succeed and the Newton loop read the device once per
+    assembly. Returns (sim, res, last forces, record)."""
+    from jutul.jl_tpu_torch import Simulator, report_stats
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    mm, state0, params, forces = case_mm
+    nc = sum(m.number_of_cells() for m in mm.models.values())
+    sim = Simulator(mm, state0, params)  # the card
+    schedule = rate_schedule(forces, n_step)
+    cfg = multimodel_config(product=True)
+    cpr = cfg["linear_solver"].inner.preconditioner.preconditioners
+    t0 = time.perf_counter()
+    ells = {n: c.ell for n, c in sim.compiled.comps.items()}
+    tables_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hier = cpr.amg._symbolic(ells["reservoir"])
+    amg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run, args, post = sim.lower_schedule([DT] * n_step, forces=schedule,
+                                         **cfg)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = post(*run(*args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = report_stats(res.reports)
+    if not all(r["success"] for r in res.reports) or \
+            len(res.reports) != n_step:
+        raise RuntimeError("wells-multimodel: a report step failed")
+    for m, st in res.states[-1].items():
+        for k, v in st.items():
+            if not np.all(np.isfinite(v)):
+                raise RuntimeError(f"wells-multimodel: final {m}.{k} not "
+                                   "finite")
+    _check_launches("wells-multimodel", "wells-multimodel", launches)
+    newtons, lin = stats["newtons"], stats["linear_iterations"]
+    if sim.host_reads != newtons + stats["ministeps"]:
+        raise RuntimeError(f"wells-multimodel: {sim.host_reads} Newton host "
+                           f"reads for {newtons} solves in "
+                           f"{stats['ministeps']} ministeps")
+    max_it = cfg["max_nonlinear_iterations"]
+    out = {
+        "slice": "wells-multimodel",
+        "engine": "MultiModel (reservoir + 5 one-cell well models, "
+                  "DarcyTransferCrossTerm perforations; generic engine)",
+        "solver": "SchurComplementSolver(GenericKrylov(gmres, "
+                  "GroupWisePreconditioner(CPRPreconditioner()), rtol=1e-3, "
+                  "max_iterations=50, restart=20), elim_models=wells)",
+        "cells": nc, "path": "schedule (lower_schedule, EW forcing)",
+        "dtype": "float32", "report_steps": n_step,
+        "ministeps": stats["ministeps"], "newtons": newtons,
+        "failed_ministeps": stats["failed_ministeps"],
+        "linear_iterations": lin, "wall_s": wall,
+        "s_per_newton": wall / newtons,
+        "cell_newton_its_per_s": nc * newtons / wall,
+        "host_reads": sim.host_reads,
+        "host_reads_per_newton": sim.host_reads / newtons,
+        "newtons_in_capped_ministeps": sum(
+            m["iterations"] for r in res.reports for m in r["ministeps"]
+            if m["iterations"] >= max_it),
+        "peak_mem_bytes": peak, "launches": launches,
+        "setup_tables_s": tables_s, "setup_amg_hierarchy_s": amg_s,
+        "setup_lower_schedule_s": setup_s,
+        "amg_levels": [[lv.structure.n_rows, lv.structure.n_slots]
+                       for lv in hier.levels],
+        "per_ministep": [[m["iterations"], m["linear_iterations"]]
+                         for r in res.reports for m in r["ministeps"]],
+    }
+    log("# wells-multimodel: " + json.dumps(out))
+    return sim, res, schedule[-1], out
+
+
+def multimodel_engine_check(case_mm, case_graph, state, state0, dt,
+                            forces_mm, forces_graph, device, seed=11):
+    """One state through both well formulations in float64 on
+    ``device``: the MultiModel's residual and J v (v seeded) against the
+    generic engine's on the WellGraphMesh model, reservoir rows on
+    reservoir rows and well model i's row on wellbore cell nc + i;
+    relative to the graph's max. The two upwind rules differ only at an
+    exact pressure tie across a perforation (the cross term takes the
+    source side, the graph face the left, reservoir side): where one
+    exists, every pressure of the state is perturbed by a seeded relative
+    1e-9 and ``perturbed_for_ties`` counts the ties."""
+    from jutul.jl_tpu_torch import compile_model, from_numpy
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.multimodel.core import compile_multi_model
+
+    f64 = torch.float64
+    mm, _, params_mm, _ = case_mm
+    gmodel, _, params_g, _ = case_graph
+    st = from_numpy(state, device, f64)
+    st0 = from_numpy(state0, device, f64)
+    ties = sum(int((st["reservoir"]["Pressure"][torch.as_tensor(
+        p.target_cells, device=st["reservoir"]["Pressure"].device)]
+        == st[p.source]["Pressure"][0]).sum()) for p in mm.cross_terms)
+    if ties:
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        st = {m: {**s, "Pressure": s["Pressure"] * (1 + 1e-9 * torch.randn(
+            s["Pressure"].shape, generator=gen, device=device, dtype=f64))}
+            for m, s in st.items()}
+    order = ("reservoir",) + WELL_NAMES
+
+    def graph(d):
+        return {k: torch.cat([d[m][k] for m in order]) for k in d[order[0]]}
+
+    pr_mm = from_numpy(params_mm, device, f64)
+    pr_g = from_numpy(params_g, device, f64)
+    cm = compile_multi_model(mm)
+    r_m, J_m, _ = cm.assemble(
+        {m: merge_state(st[m], pr_mm[m]) for m in order},
+        {m: merge_state(st0[m], pr_mm[m]) for m in order}, dt, forces_mm)
+    r_g, J_g, _ = compile_model(gmodel).assemble(
+        merge_state(graph(st), pr_g), merge_state(graph(st0), pr_g), dt,
+        forces_graph)
+    v = torch.randn(r_g.shape, generator=torch.Generator(
+        device=device).manual_seed(seed), device=device, dtype=f64)
+    nc = st["reservoir"]["Pressure"].shape[0]
+    v_mm = {"reservoir": v[:nc], **{w: v[nc + i:nc + i + 1]
+                                    for i, w in enumerate(WELL_NAMES)}}
+    y_m = J_m.matvec(v_mm)
+    y_g = J_g.matvec(v)
+    return {"rows": r_g.shape[0], "dtype": "float64",
+            "perturbed_for_ties": ties,
+            "residual_rel": rel_err(torch.cat([r_m[m] for m in order]), r_g),
+            "jv_rel": rel_err(torch.cat([y_m[m] for m in order]), y_g)}
+
+
+def phase_multimodel_engine_check(case_mm, case_graph, res, n_step=3):
+    """``multimodel-engine-check``: wells-multimodel's last accepted
+    ministep (its end and start states, cast to float64, its dt and the
+    last step's forces) through ``multimodel_engine_check`` at full size
+    on the card: both deviations within 1e-12."""
+    forces_g = rate_schedule(case_graph[3], n_step)[-1]
+    forces_mm = rate_schedule(case_mm[3], n_step)[-1]
+    out = multimodel_engine_check(
+        case_mm, case_graph, res.final_state_device,
+        res.final_ministep_start_state, res.final_ministep_dt, forces_mm,
+        forces_g, "cuda")
+    log(f"# multimodel-engine-check ({out['rows']:,} rows, f64, card): "
+        + json.dumps(out))
+    if not (out["residual_rel"] <= 1e-12 and out["jv_rel"] <= 1e-12):
+        raise RuntimeError(f"multimodel engine check: the formulations "
+                           f"differ: {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_multimodel_fused(sim, case_mm, rtol=1e-3):
+    """``multimodel-fused``: the first Newton system of wells-multimodel
+    (the initial state over the first ministep, a quarter of the first
+    6 h step, under the first step's rates), Schur-reduced onto the
+    reservoir and solved by ``GenericKrylov("bicgstab",
+    GroupWisePreconditioner(CPRPreconditioner()), use_fused_body=True)``:
+    K6/K7 launch once per iteration on the flat coupled vector, K1-K5
+    never; the true residual of the whole coupled system (float64) within
+    10 rtol."""
+    from jutul.jl_tpu_torch import (CPRPreconditioner, GenericKrylov,
+                                    GroupWisePreconditioner,
+                                    SchurComplementSolver, from_numpy)
+    from jutul.jl_tpu_torch.multimodel.core import (CouplingBlock,
+                                                    MultiLinearizedSystem)
+    from jutul.jl_tpu_torch.ops.blockell import BlockELL
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    mm, state0, _, forces = case_mm
+    st = from_numpy(state0, sim.device, sim.dtype)
+    full0 = sim._merge(st, sim.parameters)
+    r, J, _ = sim.compiled.assemble(full0, full0, 0.25 * DT,
+                                    rate_schedule(forces, 3)[0])
+    solver = SchurComplementSolver(
+        inner=GenericKrylov("bicgstab",
+                            GroupWisePreconditioner(CPRPreconditioner()),
+                            rtol=rtol, max_iterations=50,
+                            use_fused_body=True),
+        elim_models=list(WELL_NAMES))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    du, stats = solver.solve(J, r)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    J64 = MultiLinearizedSystem(
+        {n: BlockELL(d.structure, d.blocks.double())
+         for n, d in J.diag.items()},
+        [CouplingBlock(c.target, c.source, c.rows, c.cols, c.blocks.double())
+         for c in J.couplings], J.layout)
+    b = {n: -v.double() for n, v in r.items()}
+    res_true = J64.matvec({n: v.double() for n, v in du.items()})
+    bnorm = float(torch.linalg.vector_norm(J64.flatten_res(b)))
+    true_rel = float(torch.linalg.vector_norm(
+        J64.flatten_res(b) - J64.flatten_res(res_true))) / bnorm
+    its = stats["iterations"]
+    out = {"iterations": its, "converged": bool(stats["converged"]),
+           "true_rel_residual": true_rel, "solve_s": wall,
+           "launches": launches}
+    log("# multimodel-fused: " + json.dumps(out))
+    _check_launches("multimodel-fused", "multimodel-fused", launches)
+    if not launches["fused_alpha_s"] == its == \
+            launches["fused_omega_update"]:
+        raise RuntimeError(f"multimodel-fused: K6/K7 launches {launches} "
+                           f"differ from its {its} iterations")
+    if not out["converged"] or true_rel > 10 * rtol:
+        raise RuntimeError(f"multimodel-fused: not converged: {out}")
+    del r, J, J64, du
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mm_state_devs(a, b):
+    """(max relative Pressure deviation, max absolute Saturations
+    deviation) over every submodel of two MultiModel states."""
+    dp = max(float(np.max(np.abs(a[m]["Pressure"] / b[m]["Pressure"] - 1)))
+             for m in b)
+    ds = max(float(np.max(np.abs(a[m]["Saturations"]
+                                 - b[m]["Saturations"]))) for m in b)
+    return dp, ds
+
+
+def phase_multimodel_cross_check(dims=WELL_SMALL_EW):
+    """``multimodel-cross-check``: the well MultiModel at ``dims`` in
+    float64, 2 report steps with the rate ramp, on the card and on the
+    CPU, through the eager path and the schedule path (EW forcing):
+    identical ministep, Newton and linear-iteration counts, states within
+    1e-12; the schedule path twice on the card, equal bit for bit. Then
+    ``solve_adjoint_sensitivities`` on the MultiModel (dense λ-solves) on
+    the card and on the CPU, on the same states (one tight float64 CPU
+    forward of 2 steps of 1.5 h, one ministep each) and the same G: each
+    parameter's gradient over the coupled system (every submodel's
+    entries together, as the well-graph model's one vector holds its
+    wellbore cells) within 1e-10 of the CPU's, relative to its largest
+    entry."""
+    from jutul.jl_tpu_torch import (DirectSolver, Simulator, report_stats,
+                                    solve_adjoint_sensitivities)
+
+    mm, state0, params, forces = build_well_multimodel(*dims)
+    sched = rate_schedule(forces, 2)
+    out = {}
+    for product in (False, True):
+        runs = []
+        for dev in ("cuda", "cuda", "cpu") if product else ("cuda", "cpu"):
+            sim = Simulator(mm, state0, params, device=dev,
+                            dtype=torch.float64)
+            run = sim.simulate_jit if product else sim.simulate
+            res = run([DT] * 2, forces=sched,
+                      **multimodel_config(product=product))
+            runs.append((res, [(m["iterations"], m["linear_iterations"],
+                                m["success"]) for r in res.reports
+                               for m in r["ministeps"]]))
+        tag = "schedule" if product else "eager"
+        if any(c != runs[-1][1] for _, c in runs):
+            raise RuntimeError(f"multimodel cross-check ({tag}): counts "
+                               f"differ: {[c for _, c in runs]}")
+        devs = [_mm_state_devs(a, b)
+                for a, b in zip(runs[0][0].states, runs[-1][0].states)]
+        out[tag] = {"ministeps": len(runs[-1][1]),
+                    "newtons": sum(c[0] for c in runs[-1][1]),
+                    "linear_iterations": sum(c[1] for c in runs[-1][1]),
+                    "max_rel_dev_pressure": max(d[0] for d in devs),
+                    "max_abs_dev_saturations": max(d[1] for d in devs)}
+        if product:
+            out[tag]["card_runs_bitwise"] = all(
+                np.array_equal(a[m][k], b[m][k])
+                for a, b in zip(runs[0][0].states, runs[1][0].states)
+                for m in a for k in a[m])
+    log(f"# multimodel cross-check card vs CPU ({'x'.join(map(str, dims))}"
+        f", f64): " + json.dumps(out))
+    for tag, o in out.items():
+        if not o.get("card_runs_bitwise", True):
+            raise RuntimeError(f"multimodel cross-check ({tag}): two card "
+                               f"runs differ: {o}")
+        if not (o["max_rel_dev_pressure"] <= 1e-12
+                and o["max_abs_dev_saturations"] <= 1e-12):
+            raise RuntimeError(f"multimodel cross-check ({tag}): states "
+                               f"differ: {o}")
+    dts = [ADJ_DT] * 2
+    fwd = Simulator(mm, state0, params, device="cpu",
+                    dtype=torch.float64).simulate(
+        dts, forces=sched, linear_solver=DirectSolver(), info_level=-1,
+        tolerances={"default": 1e-10}, max_nonlinear_iterations=40)
+    if report_stats(fwd.reports)["ministeps"] != len(dts):
+        raise RuntimeError("multimodel cross-check: the adjoint's forward "
+                           "took more than one ministep per step")
+    nc = mm["reservoir"].number_of_cells()
+
+    def G(mm_, state, dt, n, f):
+        return dt * torch.sum(
+            state["reservoir"]["Saturations"][:, 0] ** 2) / nc
+
+    grads = {dev: solve_adjoint_sensitivities(
+        mm, fwd.states, dts, G, parameters=params, state0=state0,
+        forces=sched, device=dev, dtype=torch.float64)
+        for dev in ("cuda", "cpu")}
+    def family(dev, k):  # one parameter over every submodel, flattened
+        return np.concatenate([np.ravel(g[k]) for g in grads[dev].values()
+                               if k in g])
+
+    keys = sorted({k for g in grads["cpu"].values() for k in g})
+    adj = {k: float(np.abs(family("cuda", k) - family("cpu", k)).max()
+                    / np.abs(family("cpu", k)).max())
+           for k in keys if np.any(family("cpu", k))}
+    # each submodel's entries against their own largest, for the record
+    by_model = {f"{m}.{k}": float(np.abs(grads["cuda"][m][k] - g[k]).max()
+                                  / np.abs(g[k]).max())
+                for m, g in grads["cpu"].items() for k in g if np.any(g[k])}
+    out["adjoint_rel_dev"] = max(adj.values())
+    out["adjoint_rel_dev_by_parameter"] = adj
+    out["adjoint_rel_dev_by_model"] = by_model
+    log("# multimodel adjoint card vs CPU (dense λ, f64): "
+        + json.dumps({"by_parameter": adj, "by_model": by_model}))
+    if not out["adjoint_rel_dev"] <= 1e-10:
+        raise RuntimeError(f"multimodel cross-check: adjoint gradients "
+                           f"differ: {adj}")
     return out
 
 
@@ -2674,16 +3163,29 @@ def main():
     gen_adj = phase_generic_adjoint(case_w, adj_states, g_stencil,
                                     adjoint["forward_run_s"])
     log(f"# generic-adjoint phase: {time.perf_counter() - t1:.1f} s")
-    del case_w, adj_states, g_stencil
+    del adj_states, g_stencil
     torch.cuda.empty_cache()
     case_ab = build_well_flagship(*AB_GRID)
     adjoint["dot_test"], fd, states64 = phase_adjoint_dot(case_ab)
     gen_adj["dot_test"] = phase_generic_adjoint_dot(case_ab, fd, states64)
-    adjoint["history_match"] = phase_history_match(case_ab)
+    adjoint["history_match"] = phase_history_match(case_ab,
+                                                   max_iterations=2)
     log(f"# adjoint phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    case_mm = build_well_multimodel(*GRID)
+    sim, res, last_forces, slices["wells-multimodel"] = phase_multimodel(
+        case_mm)
+    slices["wells-multimodel"]["f64_verify"] = phase_f64_verify(
+        sim, res, last_forces, "wells-multimodel")
+    slices["multimodel-fused"] = phase_multimodel_fused(sim, case_mm)
+    mm_engine = phase_multimodel_engine_check(case_mm, case_w, res)
+    del sim, res, case_mm, case_w
+    torch.cuda.empty_cache()
+    mm_cross = phase_multimodel_cross_check()
+    log(f"# multimodel phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     case_dict = build_flagship(*DICT_GRID)
-    dict_hm = phase_dict_history_match(case_dict)
+    dict_hm = phase_dict_history_match(case_dict, max_iterations=2)
     gen_setup = phase_generic_setup(case_dict)
     force = phase_force_gradient()
     del case_dict
@@ -2691,10 +3193,10 @@ def main():
     log(f"# DictParameters, setup-map and force gradients: "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    ab = phase_ab(case_ab)
+    ab = phase_ab(case_ab, n_step=2)
     log(f"# A/B: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    eager = phase_eager_options(case_ab)
+    eager = phase_eager_options(case_ab, n_step=2)
     log(f"# eager-options: {time.perf_counter() - t0:.1f} s")
     phase_cross_check(build_flagship, SMALL, "jacobi", "srcwells")
     phase_cross_check(build_well_flagship, WELL_SMALL, "chebyshev", "wells")
@@ -2745,6 +3247,18 @@ def main():
         + " generic-setup " + json.dumps(gen_setup["rel_err"])
         + " force-gradient " + json.dumps(force["rel_err"])
         + " eager-options " + json.dumps(eager["monitored"]))
+    log("# wells-multimodel " + json.dumps({k: slices["wells-multimodel"][k]
+                                            for k in (
+        "ministeps", "newtons", "linear_iterations", "s_per_newton",
+        "cell_newton_its_per_s", "host_reads_per_newton", "peak_mem_bytes",
+        "setup_tables_s", "setup_amg_hierarchy_s", "f64_verify")})
+        + " multimodel-fused " + json.dumps({k: slices["multimodel-fused"][k]
+                                             for k in ("iterations",
+                                                       "true_rel_residual")})
+        + " engine-check " + json.dumps({k: mm_engine[k] for k in (
+            "residual_rel", "jv_rel", "perturbed_for_ties")})
+        + " cross-check " + json.dumps({k: mm_cross[k] for k in (
+            "eager", "schedule", "adjoint_rel_dev")}))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

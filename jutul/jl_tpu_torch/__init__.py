@@ -19,8 +19,12 @@ default as in the JAX package (``Simulator(use_stencil=False)``,
 ``ops/assembly.py``, ``ops/blockell.py``) with its linear solvers: GMRES
 and BiCGStab (``GenericKrylov``), the preconditioners, aggregation and
 smoothed-aggregation AMG, CPR(AMG + ILU(0)) and the dense direct solve
-(``linsolve/``), and the analytic test systems
-(``models/test_systems.py``) — in PyTorch, with hand-written CUDA kernels
+(``linsolve/``), the analytic test systems
+(``models/test_systems.py``), and MultiModel — coupled submodels with
+cross-terms (``multimodel/``), Schur group reduction
+(``linsolve/schur.py``), per-submodel preconditioning, mixed-entity models
+(``ops/mixed.py``), the bench flagship's wells as coupled models
+(``setup_well_multimodel``) and their adjoint — in PyTorch, with hand-written CUDA kernels
 for Hopper (``ops/cuda``, sources in ``csrc/``) where the JAX package has Pallas kernels. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
 
@@ -64,11 +68,13 @@ from .linsolve.direct import DirectSolver
 from .linsolve.krylov import GenericKrylov
 from .linsolve.precond import (
     BlockJacobiPreconditioner,
+    GroupWisePreconditioner,
     ILU0Preconditioner,
     JacobiPreconditioner,
     SPAI0Preconditioner,
     TrivialPreconditioner,
 )
+from .linsolve.schur import SchurComplementSolver
 from .linsolve.system import LinearizedSystem
 from .meshes.cartesian import CartesianMesh
 from .models.darcy import (
@@ -82,6 +88,7 @@ from .models.setup import from_numpy, setup_parameters, setup_state
 from .models.system import SimulationModel
 from .models.test_systems import (
     PoissonSource,
+    ScalarTestCrossTerm,
     ScalarTestDomain,
     ScalarTestForce,
     ScalarTestSystem,
@@ -94,6 +101,12 @@ from .models.variables import (
     secondary_variable,
 )
 from .models.wells import WellGraphMesh, WellSpec, setup_well_graph_model
+from .multimodel.core import (
+    AdditiveCrossTerm,
+    CrossTerm,
+    MultiModel,
+    add_cross_term,
+)
 from .ops.assembly import CompiledModel, compile_model
 from .ops.blockell import BlockELL, ELLStructure
 from .ops.stencil import GMG, StencilCPR, StencilKrylovSolver
@@ -135,25 +148,28 @@ from .simulator.timesteps import (
 from .units import si_unit, si_units
 
 __all__ = [
-    "AMGPreconditioner", "AdjointStorage", "BlockELL",
+    "AMGPreconditioner", "AdditiveCrossTerm", "AdjointStorage", "BlockELL",
     "BlockJacobiPreconditioner", "CPRPreconditioner", "CartesianMesh",
-    "CompiledModel", "ConstantVariables",
+    "CompiledModel", "ConstantVariables", "CrossTerm",
     "ConvergenceMonitorCuttingCriterion", "ConvergenceMonitorRelaxation",
     "DataDomain", "DictParameters", "DictParametersSampler",
     "DirectSolver", "DiscretizedDomain", "ELLStructure",
     "EndTimeTerminationCriterion", "FunctionSecondaryVariable", "GMG",
-    "GenericKrylov", "GlobalObjective", "ILU0Preconditioner",
+    "GenericKrylov", "GlobalObjective", "GroupWisePreconditioner",
+    "ILU0Preconditioner",
     "ImmiscibleFluid", "IterationTimestepSelector", "JacobiPreconditioner",
     "JutulCase", "JutulConfig", "LimitByFailedTimestepSelector",
-    "LinearizedSystem", "NoRelaxation", "PhaseSourceTerm", "PoissonSource",
-    "PressureBoundaryCondition", "SPAI0Preconditioner", "ScalarTestDomain",
+    "LinearizedSystem", "MultiModel", "NoRelaxation", "PhaseSourceTerm",
+    "PoissonSource",
+    "PressureBoundaryCondition", "SPAI0Preconditioner",
+    "ScalarTestCrossTerm", "SchurComplementSolver", "ScalarTestDomain",
     "ScalarTestForce", "ScalarTestSystem", "SimResult", "SimpleHeatSystem",
     "SimpleRelaxation", "SimulationModel", "Simulator",
     "SmoothedAggregationAMG", "StencilCPR", "StencilKrylovSolver",
     "SumObjective", "TerminationCriterion", "TimestepSelector",
     "TrivialPreconditioner", "VariableChangeTimestepSelector",
     "VariablePoissonSystem", "WellGraphMesh", "WellSpec",
-    "box_trust_region", "compile_model", "compute_distance",
+    "add_cross_term", "box_trust_region", "compile_model", "compute_distance",
     "expand_to_ministeps", "free_optimization_parameter",
     "freeze_optimization_parameter", "from_numpy",
     "nonconverged_equations", "optimization_config", "optimize",

@@ -28,10 +28,17 @@ the engine's differentiable residual: plain torch, as the JAX package's
 XLA residual, which no Pallas kernel touches (K3 writes into buffers
 autograd cannot see, so the vjp never runs through it).
 
+A MultiModel's adjoint (``solve_adjoint_sensitivities_multimodel``, which
+both entry points dispatch to) runs the same recursion on the coupled
+MultiLinearizedSystem: a dense direct solve of its transpose up to
+``direct_limit`` unknowns, else BiCGStab on the transposed product
+(``MultiLinearizedSystem.rmatvec``, every repeated-row sum in a fixed
+order — the JAX package transposes its matvec with ``jax.linear_transpose``)
+with the transposed block-diagonal inverse as preconditioner.
+
 States must be the accepted ministep sequence for the gradient to be
 exact (the reference requires it too): use ``expand_to_ministeps`` with
-``output_substates=True`` when ministeps were cut. MultiModel adjoints
-wait for the MultiModel port (ROADMAP A13).
+``output_substates=True`` when ministeps were cut.
 """
 
 from __future__ import annotations
@@ -54,10 +61,10 @@ from ..ops.assembly import compile_model
 from ..ops.blockell import BlockELL, ell_rmatvec, ell_to_dense, ell_transpose
 
 
-def _refuse_multimodel(model):
-    if hasattr(model, "models"):
-        raise NotImplementedError(
-            "MultiModel adjoints are not ported (ROADMAP A13)")
+def _is_multi(model) -> bool:
+    from ..multimodel.core import MultiModel
+
+    return isinstance(model, MultiModel)
 
 
 class AdjointStorage:
@@ -96,7 +103,10 @@ class AdjointStorage:
         )
         from ..ops.stencil_wells import BorderedStencilModel
 
-        _refuse_multimodel(model)
+        if _is_multi(model):
+            raise TypeError(
+                "AdjointStorage holds one model's engine; a MultiModel's "
+                "adjoint is solve_adjoint_sensitivities(mm, ...)")
         self.device = resolve_device(device)
         self.dtype = dtype or float_type(self.device)
         self.model = model
@@ -362,7 +372,12 @@ def solve_adjoint_sensitivities(
                                        dtype=np.float64))
     if parameters is None or state0 is None:
         raise ValueError("parameters and state0 are required")
-    _refuse_multimodel(model)
+    if _is_multi(model):
+        _multimodel_options(include_state0, linear_solver, storage,
+                            use_stencil)
+        return solve_adjoint_sensitivities_multimodel(
+            model, states, dts, G, parameters, state0, forces,
+            device=device, dtype=dtype)
     if storage is None:
         storage = AdjointStorage(model, parameters, forces,
                                  linear_solver=linear_solver,
@@ -405,7 +420,12 @@ def solve_adjoint_sensitivities_jit(
     force names, types, cells and value shapes), else it raises."""
     if parameters is None or state0 is None:
         raise ValueError("parameters and state0 are required")
-    _refuse_multimodel(model)
+    if _is_multi(model):
+        _multimodel_options(include_state0, linear_solver, storage,
+                            use_stencil)
+        return solve_adjoint_sensitivities_multimodel(
+            model, states, timesteps, G, parameters, state0, forces,
+            device=device, dtype=dtype)
     if storage is None:
         storage = AdjointStorage(model, parameters,
                                  linear_solver=linear_solver,
@@ -542,12 +562,123 @@ def solve_adjoint_forces(model, states, dts, G, parameters, state0, forces,
     return grad_f if per_step else with_force_values(forces, grad_f)
 
 
-def solve_adjoint_sensitivities_multimodel(*args, **kwargs):
-    """MultiModel adjoint (the JAX package's
-    ``solve_adjoint_sensitivities_multimodel``): MultiModel is not
-    ported."""
-    raise NotImplementedError(
-        "MultiModel adjoints are not ported (ROADMAP A13)")
+def _multimodel_options(include_state0, linear_solver, storage,
+                        use_stencil):
+    """The MultiModel adjoint has its own λ-solves and no storage or
+    state0 gradient (as in the JAX package): refuse those options."""
+    given = [name for name, v in (("include_state0", include_state0),
+                                  ("linear_solver", linear_solver),
+                                  ("storage", storage),
+                                  ("use_stencil", use_stencil)) if v]
+    if given:
+        raise NotImplementedError(
+            f"MultiModel adjoint: {', '.join(given)} not supported (the "
+            "coupled λ-solves are solve_adjoint_sensitivities_multimodel's "
+            "own)")
+
+
+def solve_adjoint_sensitivities_multimodel(
+    mm, states: list, dts, G: Callable, parameters: dict, state0: dict,
+    forces=None, direct_limit: int = 20_000, device=None, dtype=None,
+):
+    """Discrete adjoint of a MultiModel run (reference:
+    src/multimodel/gradients.jl:2-160): the backward recursion with the
+    coupled MultiLinearizedSystem transposed — densely up to
+    ``direct_limit`` unknowns, else by BiCGStab (rtol 1e-10, 1000
+    iterations) on the transposed product with the transposed
+    block-diagonal inverse as preconditioner.
+
+    ``states``/``state0``/``parameters`` are dicts model-name -> dict
+    (numpy arrays or tensors); ``G(mm, state, dt, n, forces)`` sees the
+    nested, secondary-evaluated state and returns a 0-d tensor. Returns
+    nested numpy gradients for every parameter (zeros for integer ones).
+    """
+    from ..multimodel.core import compile_multi_model
+    from ..linsolve.krylov import bicgstab
+    from ..ops.smallmat import block_inv, bmv
+
+    dev = resolve_device(device)
+    dtype = dtype or float_type(dev)
+    comp = compile_multi_model(mm)
+    lay = comp.layout
+    params = from_numpy(parameters, dev, dtype)
+    params_f = {m: {k: v for k, v in p.items() if v.is_floating_point()}
+                for m, p in params.items()}
+    params_i = {m: {k: v for k, v in p.items() if not v.is_floating_point()}
+                for m, p in params.items()}
+    dts = [float(d) for d in np.atleast_1d(np.asarray(dts, np.float64))]
+
+    def dofs_of(state):
+        return {m: comp.comps[m].get_dofs(from_numpy(
+            {k: v for k, v in state[m].items()
+             if k in mm.models[m].primary_variables}, dev, dtype))
+            for m in comp.comps}
+
+    def merge_all(u, p):
+        return {m: merge_state(comp.comps[m].unpack_dofs(u[m]),
+                               {**params_i[m], **p[m]}) for m in comp.comps}
+
+    def residual_from_dofs(u, u0, p, dt, f):
+        return comp.residual(merge_all(u, p), merge_all(u0, p), dt, f)
+
+    def g_of(u, p, dt, n):
+        return G(mm, comp.evaluate_secondaries(merge_all(u, p)), dt, n,
+                 _forces_for(forces, n))
+
+    def transpose_solve(u_n, u_prev, dt_n, f_n, rhs):
+        with torch.no_grad():
+            _r, J, _fe = comp.assemble(merge_all(u_n, params_f),
+                                       merge_all(u_prev, params_f), dt_n,
+                                       f_n)
+        b = J.flatten_dofs(rhs)
+        if lay.total_dof <= direct_limit:
+            return J.unflatten_res(torch.linalg.solve(J.to_dense().T, b))
+        dinvT = {m: torch.transpose(block_inv(J.diag[m].blocks[:, 0]), 1, 2)
+                 for m in lay.names}
+
+        def precond(v):
+            x = J.unflatten_res(v)
+            return J.flatten_dofs({m: bmv(dinvT[m], x[m])
+                                   for m in lay.names})
+
+        lam, _stats = bicgstab(J.rmatvec_flat, b, maxiter=1000, rtol=1e-10,
+                               precond=precond)
+        return J.unflatten_res(lam)
+
+    grad_g = torch.func.grad(g_of, argnums=(0, 1))
+    u0 = dofs_of(state0)
+    us = [dofs_of(s) for s in states]
+    if len(us) != len(dts):
+        raise ValueError(f"{len(us)} states for {len(dts)} timesteps")
+    grad_p = {m: {k: torch.zeros_like(v) for k, v in p.items()}
+              for m, p in params_f.items()}
+    lam_next = None
+    for n in range(len(us) - 1, -1, -1):
+        u_n = us[n]
+        u_prev = us[n - 1] if n > 0 else u0
+        f_n = _forces_for(forces, n)
+        gu, gp = grad_g(u_n, params_f, dts[n], n)
+        rhs = {m: -v for m, v in gu.items()}
+        if lam_next is not None:
+            _, pull = torch.func.vjp(
+                lambda u0_: residual_from_dofs(
+                    us[n + 1], u0_, params_f, dts[n + 1],
+                    _forces_for(forces, n + 1)), u_n)
+            (du0_bar,) = pull(lam_next)
+            rhs = {m: rhs[m] - du0_bar[m] for m in rhs}
+        lam = transpose_solve(u_n, u_prev, dts[n], f_n, rhs)
+        _, pull = torch.func.vjp(
+            lambda p_: residual_from_dofs(u_n, u_prev, p_, dts[n], f_n),
+            params_f)
+        (dp_bar,) = pull(lam)
+        grad_p = {m: {k: grad_p[m][k] + gp[m][k] + dp_bar[m][k]
+                      for k in grad_p[m]} for m in grad_p}
+        lam_next = lam
+    out = {m: {k: v.detach().cpu().numpy() for k, v in g.items()}
+           for m, g in grad_p.items()}
+    for m, p in params_i.items():
+        out[m].update({k: np.zeros(tuple(v.shape)) for k, v in p.items()})
+    return out
 
 
 def state_gradient(model, state, G, parameters, dt: float = 1.0,

@@ -29,10 +29,18 @@ class DirectSolver:
                 f"DirectSolver: {n_unknowns} unknowns exceeds limit "
                 f"{self.limit}; configure a Krylov solver (GenericKrylov)")
 
-    def solve(self, J: BlockELL, r, rtol=None):
-        """Return du with J du = -r; shapes (n, ndof) / (n, neq). ``rtol``
-        (adaptive forcing) is accepted and ignored: a direct solve meets
-        any tolerance."""
+    def solve(self, J, r, rtol=None):
+        """Return du with J du = -r; shapes (n, ndof) / (n, neq), or dicts
+        of them for a coupled MultiLinearizedSystem (written to one dense
+        matrix). ``rtol`` (adaptive forcing) is accepted and ignored: a
+        direct solve meets any tolerance."""
+        from ..multimodel.core import MultiLinearizedSystem
+
+        if isinstance(J, MultiLinearizedSystem):
+            self.check(J.layout.total_dof)
+            du = torch.linalg.solve(J.to_dense(), -J.flatten_res(r))
+            return J.unflatten_dofs(du), {"solver": "direct",
+                                          "iterations": 1}
         if not isinstance(J, BlockELL):
             raise TypeError(
                 f"DirectSolver solves the generic engine's BlockELL "

@@ -243,7 +243,9 @@ class GenericKrylov:
     def solve(self, J, r, rtol=None):
         """Solve J du = -r; shapes (n, neq) -> (n, ndof). ``rtol``
         overrides the configured relative tolerance (a 0-d float64 tensor
-        under Eisenstat-Walker forcing)."""
+        under Eisenstat-Walker forcing). A coupled MultiLinearizedSystem
+        (dict-valued ``r`` and ``du``) solves over the flat concatenated
+        vector (``_solve_multi``)."""
         from ..ops.blockell import BlockELL
 
         if isinstance(r, dict):
@@ -264,18 +266,47 @@ class GenericKrylov:
             y = self.preconditioner.apply(pstate, J, x_flat.reshape(n, neq))
             return y.reshape(n * ndof)
 
-        b = (-r).reshape(n * neq).contiguous()
-        if self.solver == "gmres":
-            x, stats = gmres(matvec, b, restart=self.restart,
-                             maxiter=self.max_iterations, rtol=rtol,
-                             atol=self.atol, precond=precond, orth=self.orth)
-        else:
-            x, stats = resolve_bicgstab(b.dtype, self.use_fused_body)(
-                matvec, b, maxiter=self.max_iterations, rtol=rtol,
-                atol=self.atol, precond=precond)
+        x, stats = self._krylov(matvec, (-r).reshape(n * neq).contiguous(),
+                                rtol, precond)
         return x.reshape(n, ndof), stats
 
+    def _krylov(self, matvec, b, rtol, precond):
+        if self.solver == "gmres":
+            return gmres(matvec, b, restart=self.restart,
+                         maxiter=self.max_iterations, rtol=rtol,
+                         atol=self.atol, precond=precond, orth=self.orth)
+        return resolve_bicgstab(b.dtype, self.use_fused_body)(
+            matvec, b, maxiter=self.max_iterations, rtol=rtol,
+            atol=self.atol, precond=precond)
+
     def _solve_multi(self, J, r, rtol=None):
-        """The JAX package's coupled MultiLinearizedSystem solve."""
-        raise NotImplementedError(
-            "MultiModel linear systems are not ported (ROADMAP A13)")
+        """The coupled MultiLinearizedSystem solve (the JAX package's
+        ``_solve_multi``): one Krylov space over the concatenated vector;
+        a ``GroupWisePreconditioner`` applies per submodel, the default
+        (Trivial) becomes GroupWise(BlockJacobi) and any other
+        preconditioner is not applied, as there."""
+        from ..multimodel.core import MultiLinearizedSystem
+        from .precond import (
+            BlockJacobiPreconditioner,
+            GroupWisePreconditioner,
+            TrivialPreconditioner,
+        )
+
+        if not isinstance(J, MultiLinearizedSystem):
+            raise TypeError(
+                f"GenericKrylov: dict residuals need a coupled "
+                f"MultiLinearizedSystem, not a {type(J).__name__}")
+        rtol = self.rtol if rtol is None else rtol
+        p = self.preconditioner
+        if isinstance(p, TrivialPreconditioner):
+            p = GroupWisePreconditioner(BlockJacobiPreconditioner())
+        precond = None
+        if isinstance(p, GroupWisePreconditioner):
+            pstate = p.update(J)
+
+            def precond(v):
+                return J.flatten_dofs(p.apply(pstate, J, J.unflatten_res(v)))
+
+        x, stats = self._krylov(J.matvec_flat,
+                                -J.flatten_res(r).contiguous(), rtol, precond)
+        return J.unflatten_dofs(x), stats

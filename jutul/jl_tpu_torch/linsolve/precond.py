@@ -15,8 +15,8 @@ is a batch of gathers and small-block products over all cells.
 Protocol, as in the JAX package:
   ``state = p.update(J)``      (refactor)
   ``y = p.apply(state, J, x)`` (apply the approximate inverse)
-``GroupWisePreconditioner`` (MultiModel systems) waits for the MultiModel
-port.
+``GroupWisePreconditioner`` applies one of these per submodel of a
+MultiModel's coupled system.
 """
 
 from __future__ import annotations
@@ -141,3 +141,28 @@ class ILU0Preconditioner(Preconditioner):
         for _ in range(self.n_solve_sweeps):
             z = bmv(Udiag_inv, y - ell_matvec(U_off, st, z))
         return z
+
+
+class GroupWisePreconditioner(Preconditioner):
+    """Per-submodel preconditioner for a MultiLinearizedSystem (reference
+    precond/various.jl GroupWisePreconditioner): each submodel's diagonal
+    BlockELL gets its own inner preconditioner; the couplings are left to
+    the outer Krylov iteration (block-Jacobi across models)."""
+
+    def __init__(self, preconditioners):
+        # dict name -> Preconditioner, or one prototype applied to all
+        self.preconditioners = preconditioners
+
+    def _for(self, name):
+        if isinstance(self.preconditioners, dict):
+            return self.preconditioners[name]
+        return self.preconditioners
+
+    def update(self, J):
+        return {name: self._for(name).update(Jd)
+                for name, Jd in J.diag.items()}
+
+    def apply(self, state, J, x: dict) -> dict:
+        return {name: self._for(name).apply(state[name], J.diag[name],
+                                            x[name])
+                for name in J.diag}

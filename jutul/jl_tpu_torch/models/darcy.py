@@ -332,6 +332,37 @@ class ImmiscibleSystem(JutulSystem):
             cell_params=("FluidVolume",), constants=constants)
 
 
+class DarcyTransferCrossTerm:
+    """Pressure-driven, upwinded phase-mass transfer between two Darcy
+    models — the coupling used for faults, shared boundaries, or simple
+    aquifer/well connections (reference: the well-perforation cross terms
+    in downstream JutulDarcy compose the same ingredients; protocol per
+    src/multimodel/crossterm.jl:3-660).
+
+    For connection i with transmissibility ``trans[i]``, the transfer out
+    of the target is ``T_i * mob_up * rho_up * (p_t - p_s)`` per phase,
+    with mobilities and densities upwinded from the side the flow leaves.
+    Skew-symmetric: the source model receives the negated value.
+    ``trans`` is kept as float64 host data and reaches ``value`` in the
+    states' dtype (multimodel/core.py)."""
+
+    symmetric = True
+
+    def __init__(self, trans):
+        self.conn_data = {
+            "trans": np.atleast_1d(np.asarray(trans, dtype=np.float64))}
+
+    def value(self, model_t, model_s, local_t, local_s, dt, conn):
+        """(m, n_phases) transfers of the batch of m connections."""
+        dp = (local_t["Pressure"] - local_s["Pressure"])[:, None]
+        up = dp > 0  # flow leaves the target
+        mob = torch.where(up, local_t["PhaseMobilities"],
+                          local_s["PhaseMobilities"])
+        rho = torch.where(up, local_t["PhaseMassDensities"],
+                          local_s["PhaseMassDensities"])
+        return conn["trans"][:, None] * mob * rho * dp
+
+
 class PhaseSourceTerm(JutulForce):
     """Phase mass sources q_α [kg/s] in given cells: residual -= q."""
 

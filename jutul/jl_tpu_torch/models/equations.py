@@ -93,6 +93,30 @@ class ScalarAssemblyForm:
     constants: tuple = ()
 
 
+@dataclass
+class CrossCoupling:
+    """Cross-ENTITY residual coupling for mixed-entity models (reference:
+    equations on arbitrary entities with cross-entity alignment,
+    src/equations.jl:328-434). Declared by an equation via
+    ``cross_couplings(model)``; the mixed-entity compiler (ops/mixed.py)
+    adds the value to the owning equation's rows and derives both Jacobian
+    blocks (row-diagonal and the off-entity coupling block).
+
+    ``fn(model, local_row, local_source, dt, conn) -> (m, neq)`` receives
+    the row-entity and source-entity local states of the batch of (row,
+    col) pairs (leading axis m); ``conn`` holds the pairs' rows of
+    ``conn_data`` (or None). ``symmetric``: the negated value is also added
+    to the source entity's same-named equation (CTSkewSymmetry).
+    """
+
+    rows: np.ndarray  # (m,) row-entity indices (the equation's entity)
+    cols: np.ndarray  # (m,) source-entity indices
+    source_entity: JutulEntity
+    fn: Callable
+    conn_data: "dict | None" = None
+    symmetric: bool = False
+
+
 class JutulEquation:
     """Abstract equation (reference core_types.jl JutulEquation)."""
 
@@ -104,6 +128,10 @@ class JutulEquation:
 
     def contributions(self, model) -> list:
         raise NotImplementedError
+
+    def cross_couplings(self, model) -> "list[CrossCoupling]":
+        """Cross-entity couplings (mixed-entity models only)."""
+        return []
 
     # --- convergence -----------------------------------------------------
     def convergence_parts(self, model, eq_name, r, state, dt):

@@ -54,7 +54,12 @@ class JutulForce:
 def setup_forces(model, **forces) -> dict:
     """Collect named forces into the canonical forces dict
     (reference src/models.jl:914). Values may be a force, a list of forces,
-    or None."""
+    or None. For a MultiModel, keyword names are submodel names and values
+    the per-submodel forces dicts."""
+    from ..multimodel.core import MultiModel
+
+    if isinstance(model, MultiModel):
+        return model.setup_forces(**forces)
     return {k: v for k, v in forces.items() if v is not None}
 
 

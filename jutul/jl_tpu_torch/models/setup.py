@@ -20,10 +20,15 @@ def setup_state(model, values: dict | None = None, **kwargs) -> dict:
     """Initialize primary-variable state (reference models.jl:249).
 
     Unknown keys raise; values may be scalars, per-entity arrays, or
-    per-component defaults.
+    per-component defaults. For a MultiModel, keyword names are submodel
+    names and values their states (missing ones get the defaults).
     """
+    from ..multimodel.core import MultiModel
+
     init = dict(values or {})
     init.update(kwargs)
+    if isinstance(model, MultiModel):
+        return model.setup_state(**init)
     state: dict[str, np.ndarray] = {}
     for name, var in model.primary_variables.items():
         n = model.count_entities(var.associated_entity(model))
@@ -43,9 +48,15 @@ def setup_parameters(model, values: dict | None = None, **kwargs) -> dict:
     its default from the model's data domain (e.g. transmissibilities from
     geometry + permeability), mirroring the reference's
     parameters-from-DataDomain behavior (variables/vectorization.jl:208).
+    For a MultiModel, keyword names are submodel names, as in
+    ``setup_state``.
     """
+    from ..multimodel.core import MultiModel
+
     init = dict(values or {})
     init.update(kwargs)
+    if isinstance(model, MultiModel):
+        return model.setup_parameters(**init)
     params: dict[str, np.ndarray] = {}
     for name, var in model.parameters.items():
         n = model.count_entities(var.associated_entity(model))
@@ -64,13 +75,17 @@ def setup_parameters(model, values: dict | None = None, **kwargs) -> dict:
 
 def from_numpy(state_or_params: dict, device=None, dtype=None) -> dict:
     """Tensors on ``device`` for a dict of arrays (numpy arrays, JAX
-    arrays, tensors or other array-likes; non-tensors are copied).
-    Floating arrays become ``dtype`` (default: ``float_type(device)``);
-    integer arrays keep their integer type."""
+    arrays, tensors or other array-likes; non-tensors are copied), or for
+    a MultiModel's dict of such dicts (one per submodel). Floating arrays
+    become ``dtype`` (default: ``float_type(device)``); integer arrays
+    keep their integer type."""
     dev = resolve_device(device)
     dtype = dtype or float_type(dev)
     out = {}
     for k, v in state_or_params.items():
+        if isinstance(v, dict):
+            out[k] = from_numpy(v, dev, dtype)
+            continue
         t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
         out[k] = t.to(device=dev, dtype=dtype if t.is_floating_point()
                       else t.dtype)
@@ -82,3 +97,4 @@ def merge_state(state: dict, parameters: dict | None = None) -> dict:
     if parameters:
         out.update(parameters)
     return out
+

@@ -12,11 +12,15 @@ no cross-entity coupling. Counterparts of the reference's test systems
 - ``SimpleHeatSystem`` (heat_2d/heat_2d.jl): transient diffusion with unit
   coefficient.
 
+- ``ScalarTestCrossTerm`` (scalar.jl + CTSkewSymmetry): two coupled scalar
+  models relax to +-1/3 (reference test/test_systems/multimodel.jl).
+- ``FaceTestSystem``: unknowns and equations on Faces (a non-cell row
+  entity); ``MixedFluxSystem``: a Cells and a Faces equation in ONE model,
+  coupled through ``CrossCoupling``s (ops/mixed.py).
+
 They run on the generic block-ELL engine (``Simulator(use_stencil=False)``).
 Their functions are written over batches (component axis last, the stencil
 cells on the axis before it), as every model function of the port.
-``FaceTestSystem``, ``MixedFluxSystem`` and ``ScalarTestCrossTerm`` need
-mixed-entity models and wait for the MultiModel port.
 """
 
 from __future__ import annotations
@@ -28,7 +32,14 @@ import torch
 
 from ..core.entities import CELLS, FACES
 from ..discretization.tpfa import compute_face_trans
-from .equations import CellTermContribution, ConservationLaw
+from .equations import (
+    AccumulationContribution,
+    CellTermContribution,
+    ConservationLaw,
+    CrossCoupling,
+    FaceFluxContribution,
+    JutulEquation,
+)
 from .forces import JutulForce, as_value
 from .system import JutulSystem
 from .variables import JutulParameter, ScalarVariable
@@ -204,3 +215,197 @@ class SimpleHeatSystem(JutulSystem):
 
         return OrderedDict(heat=ConservationLaw(flux_fn=flux, mass_fn=mass,
                                                 neq=1))
+
+
+class ScalarTestCrossTerm:
+    """X_target - X_source, skew-symmetric
+    (reference scalar.jl ScalarTestCrossTerm + CTSkewSymmetry)."""
+
+    symmetric = True
+
+    def value(self, model_t, model_s, local_t, local_s, dt):
+        return (local_t["XVar"] - local_s["XVar"])[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Face-entity test system (equations on a NON-cell entity)
+# ---------------------------------------------------------------------------
+class FaceVal(ScalarVariable):
+    """Primary variable living on Faces (reference: variables may live on
+    any entity, core_types.jl:515-556)."""
+
+    def associated_entity(self, model=None):
+        return FACES
+
+
+class FaceSource(JutulParameter):
+    """Per-face source parameter."""
+
+    def __init__(self):
+        super().__init__(default=0.0, values_per_entity=1, entity=FACES)
+
+
+class FaceGraphDiffusionEquation(JutulEquation):
+    """Transient diffusion on the face-adjacency graph:
+
+        (v_f - v0_f)/dt + w * sum_{g ~ f} (v_f - v_g) - q_f = 0
+
+    with edges between faces that share a cell: an equation living on
+    ``Faces`` (reference: equations on arbitrary entities,
+    src/equations.jl:328-434), the non-cell conformance case for the
+    assembly engine."""
+
+    def __init__(self, edges: np.ndarray, weight: float = 1.0):
+        self.edges = np.asarray(edges, dtype=np.int64)
+        self.weight = float(weight)
+
+    def entity(self, model):
+        return FACES
+
+    def contributions(self, model):
+        w = self.weight
+
+        def acc(model_, fs, fs0, dt):
+            return ((fs["FaceVal"] - fs0["FaceVal"]) / dt
+                    - fs["FaceSource"])[..., None]
+
+        def edge_flux(model_, sides, es):
+            v = sides["FaceVal"]
+            return (w * (v[..., 0] - v[..., 1]))[..., None]
+
+        out = [AccumulationContribution(acc, name="face_acc")]
+        if len(self.edges):
+            out.append(FaceFluxContribution(
+                fn=edge_flux, stencil=self.edges,
+                plus=self.edges[:, 0], minus=self.edges[:, 1],
+                name="face_graph_flux"))
+        return out
+
+
+class FaceTestSystem(JutulSystem):
+    """System whose unknowns AND equations live on Faces."""
+
+    def __init__(self, edges, weight: float = 1.0):
+        self.edges = np.asarray(edges, dtype=np.int64)
+        self.weight = float(weight)
+
+    def select_primary_variables(self, model):
+        return OrderedDict(FaceVal=FaceVal())
+
+    def select_parameters(self, model):
+        return OrderedDict(FaceSource=FaceSource())
+
+    def select_equations(self, model):
+        return OrderedDict(face_diffusion=FaceGraphDiffusionEquation(
+            self.edges, self.weight))
+
+
+def face_adjacency_edges(mesh) -> np.ndarray:
+    """(n_edges, 2) pairs of interior faces sharing a cell (build-time)."""
+    nb = np.asarray(mesh.neighborship())
+    by_cell: dict[int, list[int]] = {}
+    for f in range(nb.shape[0]):
+        for c in nb[f]:
+            by_cell.setdefault(int(c), []).append(f)
+    edges = set()
+    for faces in by_cell.values():
+        for i in range(len(faces)):
+            for j in range(i + 1, len(faces)):
+                edges.add((faces[i], faces[j]))
+    return np.asarray(sorted(edges), dtype=np.int64).reshape(-1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Mixed-entity test system: Cells AND Faces equations in ONE model
+# (reference: per-equation entities, src/equations.jl:328-434)
+# ---------------------------------------------------------------------------
+class CellVal(ScalarVariable):
+    pass
+
+
+class CellSource(JutulParameter):
+    def __init__(self):
+        super().__init__(default=0.0, values_per_entity=1, entity=CELLS)
+
+
+class MixedCellMassEquation(JutulEquation):
+    """(c - c0)/dt + div(v) - q = 0 on Cells; the divergence reads the
+    FACE unknown v through a cross-entity incidence coupling."""
+
+    def __init__(self, neighbors: np.ndarray):
+        self.neighbors = np.asarray(neighbors, dtype=np.int64)
+
+    def contributions(self, model):
+        def acc(model_, cs, cs0, dt):
+            return ((cs["CellVal"] - cs0["CellVal"]) / dt
+                    - cs["CellSource"])[..., None]
+
+        return [AccumulationContribution(acc, name="mixed_cell_acc")]
+
+    def cross_couplings(self, model):
+        nb = self.neighbors
+        nf = nb.shape[0]
+
+        def div_term(model_, local_cell, local_face, dt, conn):
+            return (conn["sign"] * local_face["FaceVal"])[..., None]
+
+        return [CrossCoupling(
+            rows=np.concatenate([nb[:, 0], nb[:, 1]]),
+            cols=np.concatenate([np.arange(nf), np.arange(nf)]),
+            source_entity=FACES, fn=div_term,
+            conn_data={"sign": np.concatenate([np.ones(nf),
+                                               -np.ones(nf)])})]
+
+
+class MixedFaceClosureEquation(JutulEquation):
+    """v - w (c_L - c_R) = 0 on Faces; the closure reads the CELL unknown
+    through two cross-entity couplings (one per side)."""
+
+    def __init__(self, neighbors: np.ndarray, weight: float = 1.0):
+        self.neighbors = np.asarray(neighbors, dtype=np.int64)
+        self.weight = float(weight)
+
+    def entity(self, model):
+        return FACES
+
+    def contributions(self, model):
+        def local_v(model_, fs, fs0, dt):
+            return fs["FaceVal"][..., None]
+
+        return [AccumulationContribution(local_v, name="mixed_face_v")]
+
+    def cross_couplings(self, model):
+        nb = self.neighbors
+        nf = nb.shape[0]
+
+        def closure(model_, local_face, local_cell, dt, conn):
+            return (conn["sign"] * local_cell["CellVal"])[..., None]
+
+        return [CrossCoupling(
+            rows=np.concatenate([np.arange(nf), np.arange(nf)]),
+            cols=np.concatenate([nb[:, 0], nb[:, 1]]),
+            source_entity=CELLS, fn=closure,
+            conn_data={"sign": np.concatenate(
+                [-self.weight * np.ones(nf), self.weight * np.ones(nf)])})]
+
+
+class MixedFluxSystem(JutulSystem):
+    """ONE model with a Cells equation + a Faces equation (mixed form of
+    transient diffusion): cell mass balance with the face flux unknown,
+    plus the face flux closure."""
+
+    def __init__(self, neighbors, weight: float = 1.0):
+        self.neighbors = np.asarray(neighbors, dtype=np.int64)
+        self.weight = float(weight)
+
+    def select_primary_variables(self, model):
+        return OrderedDict(CellVal=CellVal(), FaceVal=FaceVal())
+
+    def select_parameters(self, model):
+        return OrderedDict(CellSource=CellSource())
+
+    def select_equations(self, model):
+        return OrderedDict(
+            cell_mass=MixedCellMassEquation(self.neighbors),
+            face_closure=MixedFaceClosureEquation(self.neighbors,
+                                                  self.weight))

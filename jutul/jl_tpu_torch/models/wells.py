@@ -1,4 +1,4 @@
-"""Well models: the augmented-graph wellbore formulation.
+"""Well models: wellbore-as-model coupling, two equivalent formulations.
 
 Port of the JAX package's ``models/wells.py`` (host-side numpy: mesh and
 parameter construction). Counterpart of the reference's well treatment:
@@ -9,17 +9,22 @@ models + Peaceman perforation cross-terms from it).
 A wellbore is a single storage cell with pressure/saturations and a
 mass-conservation equation; each perforation is a Peaceman connection
 ``q_a = WI * mob_up * rho_up * (p_res − p_well)`` with upwinded mobilities.
-``WellGraphMesh`` appends the well cells to the reservoir graph and the
-perforations as extra faces with transmissibility WI and zero gravity
-difference, so the standard TPFA upwind flux IS the Peaceman inflow. On a
-Cartesian base mesh the stencil fast path assembles it in bordered form
-(ops/stencil_wells.py).
+Both formulations share that physics:
+
+1. **MultiModel formulation** (``setup_well_multimodel``): per-well
+   one-cell models + skew-symmetric ``DarcyTransferCrossTerm``
+   perforations, solved monolithically or Schur-reduced through the
+   multimodel layer (multimodel/core.py, linsolve/schur.py).
+2. **Augmented-graph formulation** (``WellGraphMesh``): the well cells
+   appended to the reservoir graph and the perforations as extra faces
+   with transmissibility WI and zero gravity difference, so the standard
+   TPFA upwind flux IS the Peaceman inflow. On a Cartesian base mesh the
+   stencil fast path assembles it in bordered form (ops/stencil_wells.py).
 
 Controls map to existing forces: rate control is a ``PhaseSourceTerm`` on
 the well cell (the surface stream); BHP control is a
 ``PressureBoundaryCondition`` on the well cell (surface connection with a
-control transmissibility). The MultiModel formulation
-(``setup_well_multimodel``) waits for the MultiModel port.
+control transmissibility).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..meshes.cartesian import JutulMesh
+from ..meshes.cartesian import CartesianMesh, JutulMesh
 from ..meshes.geometry import TwoPointFiniteVolumeGeometry
 
 
@@ -177,3 +182,30 @@ def setup_well_graph_model(mesh, fluid, wells: "list[WellSpec]",
         gravity=gravity)
     params = wmesh.patch_well_parameters(setup_parameters(model))
     return model, wmesh, params
+
+
+def setup_well_multimodel(reservoir_model, wells: "list[WellSpec]",
+                          fluid=None):
+    """MultiModel well formulation: per-well one-cell submodels coupled to
+    the reservoir with skew-symmetric Peaceman perforation cross-terms
+    (``DarcyTransferCrossTerm`` with trans=WI — the physics of the
+    augmented graph). Returns (multimodel, well_names)."""
+    from ..multimodel.core import MultiModel
+    from .darcy import DarcyTransferCrossTerm, setup_darcy_model
+
+    if fluid is None:
+        fluid = reservoir_model.system.fluid
+    models = {"reservoir": reservoir_model}
+    for w in wells:
+        models[w.name] = setup_darcy_model(
+            CartesianMesh((1,), (w.volume,)), fluid,
+            permeability=1e-12, porosity=1.0, gravity=False)
+    mm = MultiModel(models)
+    for w in wells:
+        cells = [int(c) for c in np.atleast_1d(np.asarray(w.cells))]
+        mm.add_cross_term(
+            DarcyTransferCrossTerm(w.wi_array()),
+            target="reservoir", source=w.name,
+            equation="mass_conservation",
+            target_cells=cells, source_cells=[0] * len(cells))
+    return mm, [w.name for w in wells]

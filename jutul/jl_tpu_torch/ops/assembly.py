@@ -45,7 +45,7 @@ from ..models.equations import (
     CellTermContribution,
     FaceFluxContribution,
 )
-from .blockell import BlockELL, ELLStructure, SegmentSumPlan
+from .blockell import BlockELL, ELLStructure, IndexPlan, SegmentSumPlan
 
 
 @dataclass
@@ -75,20 +75,38 @@ class CompiledModel:
             for name, var in group.items():
                 self.cell_entry_entity[name] = var.associated_entity(model)
 
+        # equations live on ONE common row entity — Cells usually, but any
+        # entity works (reference: equations on arbitrary entities,
+        # src/equations.jl:328-434); primaries must share it so the block
+        # system stays square per row. Mixed-entity models compile through
+        # ops/mixed.py (``compile_model`` dispatches).
         self.equations: list[EquationInfo] = []
         ofs = 0
+        row_entity = None
         for name, eq in model.equations.items():
-            if eq.entity(model) != CELLS:
+            ent = eq.entity(model)
+            if row_entity is None:
+                row_entity = ent
+            elif ent != row_entity:
                 raise NotImplementedError(
-                    f"equation {name!r}: only cell equations are ported")
+                    f"single-entity engine: all equations must share one "
+                    f"entity; got {row_entity} and {ent}. Mixed-entity "
+                    f"models compile via ops/mixed.py — use compile_model")
             neq = eq.number_of_equations_per_entity(model)
             self.equations.append(EquationInfo(name, eq, neq, slice(ofs, ofs + neq)))
             ofs += neq
+        self.row_entity = row_entity if row_entity is not None else CELLS
         for name, var in model.primary_variables.items():
-            if var.associated_entity(model) != CELLS:
+            if var.associated_entity(model) != self.row_entity:
                 raise NotImplementedError(
-                    f"primary {name!r} lives on {var.associated_entity(model)}")
-        self.n_cells = model.count_entities(CELLS)
+                    f"primary {name!r} lives on "
+                    f"{var.associated_entity(model)}, equations on "
+                    f"{self.row_entity}")
+        # row-entity count; named n_cells for the common Cells case
+        self.n_cells = model.count_entities(self.row_entity)
+        # coupling ("face") parameters: entries on Faces when rows are not
+        # Faces themselves; a Faces-row model has no distinct coupling entity
+        self.coupling_entity = FACES if self.row_entity != FACES else None
         self.neq_total = ofs
         if self.neq_total != self.ndof:
             raise ValueError(
@@ -121,11 +139,11 @@ class CompiledModel:
 
     def _cell_entries(self, state: dict, include=("primary", "secondary",
                                                   "parameter")) -> dict:
-        """Subset of state living on cells."""
+        """Subset of state living on the row entity (Cells usually)."""
         model = self.model
         out = {}
         for name, val in state.items():
-            if self.cell_entry_entity.get(name) != CELLS:
+            if self.cell_entry_entity.get(name) != self.row_entity:
                 continue
             kind = (
                 "primary" if name in model.primary_variables
@@ -137,9 +155,12 @@ class CompiledModel:
         return out
 
     def _face_entries(self, state: dict) -> dict:
-        """Face parameters."""
+        """Coupling-entity entries (Faces parameters of a cell-row
+        model; none for a Faces-row model)."""
+        if self.coupling_entity is None:
+            return {}
         return {name: val for name, val in state.items()
-                if self.cell_entry_entity.get(name) == FACES}
+                if self.cell_entry_entity.get(name) == self.coupling_entity}
 
     def get_dofs(self, state: dict):
         """(n_cells, ndof) packed primary dof matrix."""
@@ -390,24 +411,12 @@ class CompiledModel:
         """Add each state-dependent force's diagonal blocks; repeated cells
         are summed in a fixed order first, so the write is atomic-free."""
         for sl, cells, jac in self._force_diagonal_blocks(state, dt, forces):
-            idx, plan = self._force_plan(cells, blocks.device)
-            if plan is not None:
-                jac = plan.apply(jac)
-            blocks[idx, 0, sl, :] = blocks[idx, 0, sl, :] + jac.to(
-                blocks.dtype)
+            key = cells.tobytes()  # one plan per force structure
+            if key not in self._force_plans:
+                self._force_plans[key] = IndexPlan(cells)
+            blocks = self._force_plans[key].add(blocks, jac, 0, sl,
+                                                inplace=True)
         return blocks
-
-    def _force_plan(self, cells, device):
-        """(distinct cells on ``device``, their sum plan or None when no
-        cell repeats), built once per force structure."""
-        key = (cells.tobytes(), str(device))
-        if key not in self._force_plans:
-            uniq, inv = np.unique(cells, return_inverse=True)
-            plan = (SegmentSumPlan(inv, uniq.shape[0])
-                    if uniq.shape[0] != cells.shape[0] else None)
-            self._force_plans[key] = (torch.as_tensor(uniq, device=device),
-                                      plan)
-        return self._force_plans[key]
 
     def assemble(self, state: dict, state0: dict, dt, forces=None,
                  with_jacobian: bool = True):
@@ -437,13 +446,13 @@ def _as_force_list(fv):
     return (fv,)
 
 
-def compile_model(model) -> CompiledModel:
-    """The compiled model. A model whose equations live on more than one
-    entity (the JAX package's ``MixedCompiledModel``, ops/mixed.py) waits
-    for the MultiModel port."""
-    ents = {eq.entity(model) for eq in model.equations.values()}
-    if len(ents) > 1:
-        raise NotImplementedError(
-            "mixed-entity models (equations on several entities, the JAX "
-            "package's ops/mixed.py) are not ported (ROADMAP A13)")
+def compile_model(model):
+    """The compiled model: a ``CompiledModel``, or for a model whose
+    equations live on more than one entity (reference equations.jl:
+    328-434) a ``MixedCompiledModel`` — per-entity views coupled through
+    the MultiModel assembly (ops/mixed.py)."""
+    from .mixed import MixedCompiledModel, is_mixed_entity
+
+    if is_mixed_entity(model):
+        return MixedCompiledModel(model)
     return CompiledModel(model)

@@ -84,6 +84,48 @@ class SegmentSumPlan:
         return out
 
 
+class IndexPlan:
+    """A host index array ``idx`` (m,) into the rows of a tensor, with
+    its device copies (``on``) and the fixed-order ``y[idx] += vals``
+    (``add``): entries that share a row are summed by a
+    ``SegmentSumPlan`` first, so the write goes to distinct rows only and
+    repeats its bits on the card. Built once per index structure (a
+    cross-term's connection list, a force's cells)."""
+
+    def __init__(self, idx):
+        self.idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+        uniq, inv = np.unique(self.idx, return_inverse=True)
+        if uniq.shape[0] == self.idx.shape[0]:  # no repeats: no sum
+            self.uniq, self.plan = self.idx, None
+        else:
+            self.uniq, self.plan = uniq, SegmentSumPlan(inv, uniq.shape[0])
+        self._dev = {}
+
+    def on(self, device):
+        """(idx, the distinct rows ``add`` writes) as int64 tensors on
+        ``device``."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = (torch.as_tensor(self.idx, device=device),
+                              torch.as_tensor(self.uniq, device=device))
+        return self._dev[key]
+
+    def gather(self, x):
+        """``x[idx]``."""
+        return x[self.on(x.device)[0]]
+
+    def add(self, y, vals, *tail, inplace: bool = False):
+        """``y`` with ``y[idx, *tail] += vals``; ``tail`` indexes the
+        trailing axes (a slot, an equation slice). Out of place unless
+        ``inplace`` (autograd and ``torch.func`` see a clone)."""
+        if self.plan is not None:  # one sum per distinct row
+            vals = self.plan.apply(vals)
+        key = (self.on(y.device)[1],) + tail
+        out = y if inplace else y.clone()
+        out[key] = y[key] + vals.to(y.dtype)
+        return out
+
+
 @dataclass(eq=False)  # identity eq/hash: one instance per model
 class ELLStructure:
     n_rows: int

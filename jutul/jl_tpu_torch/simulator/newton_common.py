@@ -51,16 +51,26 @@ def scaled_error(crit, tols, equations=(), model=None) -> float:
     return worst
 
 
+def max_abs(r):
+    """max |r| as a 0-d tensor, over every submodel's (or entity's) rows
+    when ``r`` is a dict."""
+    if isinstance(r, dict):
+        return torch.amax(torch.stack([torch.amax(torch.abs(v))
+                                       for v in r.values()]))
+    return torch.amax(torch.abs(r))
+
+
 def scaled_error_and_residual(crit, r, tols, equations=(), model=None):
     """(worst error/tolerance, max |r|) as host floats from ONE device read:
     every criterion's maximum is divided by its tolerance in the working
     dtype (as the reference's traced ``jnp.max(arr) / tol``), reduced on the
-    device — NaN propagates — and stacked with the residual's maximum."""
+    device — NaN propagates — and stacked with the residual's maximum
+    (over every submodel's rows for a MultiModel's dict)."""
     scaled = [arr.max() / tolerance_for(eq_name, crit_name, tols, equations,
                                         model)
               for eq_name, criteria in crit.items()
               for crit_name, arr in criteria.items()]
-    rmax = torch.amax(torch.abs(r))
+    rmax = max_abs(r)
     worst = (torch.clamp_min(torch.stack(scaled).amax(), 0.0) if scaled
              else torch.zeros_like(rmax))
     err, rnorm = torch.stack([worst.to(rmax.dtype), rmax]).tolist()

@@ -542,19 +542,30 @@ def test_objectives_evaluate_and_global_zero_steps():
 # what is not ported raises
 # ---------------------------------------------------------------------------
 def test_refusals():
-    from jutul.jl_tpu.multimodel.core import MultiModel
-
     model, state0, params, forces, dts, states = tiny_case()
     # a λ-solver of the other engine raises, naming the one it needs
     with pytest.raises(TypeError, match="GenericKrylov"):
         tgrad.AdjointStorage(model, params, linear_solver=solver(tpkg, 4),
                              device="cpu")
-    mm = MultiModel({"a": model, "b": model})
+    # a MultiModel (two uncoupled copies) takes the MultiModel adjoint in
+    # both entry points: a finite gradient for each submodel
+    mm = tpkg.MultiModel({"a": model, "b": model})
+    g = G_sat(tpkg)
+
+    def G_mm(m, state, dt, n, f):
+        return g(m, state["a"], dt, n, f) + g(m, state["b"], dt, n, f)
+
     for fn in (tgrad.solve_adjoint_sensitivities,
                tgrad.solve_adjoint_sensitivities_jit):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fn(mm, states, dts, G_sat(tpkg), parameters=params,
-               state0=state0, device="cpu")
+        grads = fn(mm, [{"a": s, "b": s} for s in states], dts, G_mm,
+                   parameters={"a": params, "b": params},
+                   state0={"a": state0, "b": state0},
+                   forces={"a": forces, "b": forces}, device="cpu")
+        for m in ("a", "b"):
+            assert np.all(np.isfinite(grads[m]["Transmissibilities"]))
+            assert np.any(grads[m]["Transmissibilities"])
+    with pytest.raises(TypeError, match="solve_adjoint_sensitivities"):
+        tgrad.AdjointStorage(mm, {"a": params, "b": params}, device="cpu")
     with pytest.raises(TypeError, match="StencilKrylovSolver"):
         tgrad.AdjointStorage(model, params, linear_solver=object(),
                              use_stencil=True, device="cpu")

@@ -2,11 +2,13 @@
 the JAX package's ``CompiledModel``, on the CPU at f64.
 
 Same seeded states through both packages; residual and Jacobian blocks
-within 1e-12 relative (their max), the ELL sparsity equal:
+(per dof column) within 1e-12 relative (their max), the ELL sparsity
+equal:
 - two-phase Darcy at 6x5x4 with gravity, a ``PhaseSourceTerm`` and a
   ``PressureBoundaryCondition`` (state-dependent: its diagonal Jacobian
   blocks), cells on both saturation clip bounds; once more with a
-  boundary cell named twice (its diagonal blocks summed in a fixed order);
+  boundary cell named twice (its diagonal blocks summed in a fixed order)
+  and with the boundary cells out of order;
 - VariablePoisson in 1D and 2D (face flux + cell term);
 - ScalarTestSystem (no faces: one ELL slot);
 - the well-graph model at 10x10x6 (reservoir + 5 wellbore cells,
@@ -87,6 +89,7 @@ def _wells(pkg):
 CASES = {
     "darcy": _darcy,
     "darcy_repeated_bc": lambda pkg: _darcy(pkg, bc_cells=(3, 10, 3)),
+    "darcy_unsorted_bc": lambda pkg: _darcy(pkg, bc_cells=(10, 3)),
     "poisson_1d": lambda pkg: _poisson(pkg, (7,)),
     "poisson_2d": lambda pkg: _poisson(pkg, (5, 4)),
     "scalar": _scalar,
@@ -122,7 +125,11 @@ def test_generic_assembly_matches_jax(name):
     jc, rj, Jj, tc, rt, Jt, args = _assemble_both(name)
     assert np.array_equal(tc.ell.cols, np.asarray(jc.ell.cols))
     assert _rel(rt, rj) < 1e-12
-    assert _rel(Jt.blocks, Jj.blocks) < 1e-12
+    # per dof column: the pressure column's entries are orders of
+    # magnitude below the saturation column's
+    Jjb = np.asarray(Jj.blocks)
+    for j in range(Jjb.shape[-1]):
+        assert _rel(Jt.blocks[..., j], Jjb[..., j]) < 1e-12, j
     rt2, Jt2, _ = tc.assemble(*args)
     assert torch.equal(rt2, rt) and torch.equal(Jt2.blocks, Jt.blocks)
 
@@ -143,8 +150,12 @@ def test_generic_against_stencil_engine():
 
 
 def test_mixed_entity_model_refused():
+    """A FACES equation beside the cell equations makes a mixed-entity
+    model: ``compile_model`` gives a ``MixedCompiledModel`` (per-entity
+    views), and the direct single-entity engine refuses it."""
     from jutul.jl_tpu_torch.core.entities import FACES
     from jutul.jl_tpu_torch.models.equations import JutulEquation
+    from jutul.jl_tpu_torch.ops.mixed import MixedCompiledModel
 
     class FaceEq(JutulEquation):
         def entity(self, model):
@@ -152,5 +163,13 @@ def test_mixed_entity_model_refused():
 
     model, _, _, _ = _darcy(tpkg)
     model.equations["face_eq"] = FaceEq()
-    with pytest.raises(NotImplementedError, match="A13"):
-        tpkg.compile_model(model)
+    with pytest.raises(ValueError, match="no primary variable"):
+        tpkg.compile_model(model)  # Faces rows need a Faces primary
+    mesh = tpkg.CartesianMesh((3, 2), (1.0, 1.0))
+    mixed = tpkg.SimulationModel(
+        tpkg.DataDomain(mesh), importlib.import_module(
+            "jutul.jl_tpu_torch.models.test_systems").MixedFluxSystem(
+                np.asarray(mesh.neighborship())))
+    assert isinstance(tpkg.compile_model(mixed), MixedCompiledModel)
+    with pytest.raises(NotImplementedError, match="Mixed-entity"):
+        tpkg.CompiledModel(mixed)

@@ -21,6 +21,9 @@ def test_port_imports_without_jax():
         "import jutul.jl_tpu_torch.linsolve.krylov\n"
         "import jutul.jl_tpu_torch.linsolve.precond\n"
         "import jutul.jl_tpu_torch.linsolve.system\n"
+        "import jutul.jl_tpu_torch.linsolve.schur\n"
+        "import jutul.jl_tpu_torch.multimodel.core\n"
+        "import jutul.jl_tpu_torch.ops.mixed\n"
         "import jutul.jl_tpu_torch.models.test_systems\n"
         "import jutul.jl_tpu_torch.adjoint.generic\n"
         "import jutul.jl_tpu_torch.adjoint.dict_opt\n"
