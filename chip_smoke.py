@@ -25,6 +25,8 @@ failure (nothing is caught, so any failure exits non-zero):
    transposed operator with the dot identity); beside each, its bound
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s, the larger) and, for
    K1, one cuSPARSE SpMV (torch.sparse.mm) of the same matrix in CSR;
+   K1 also against ``StencilCompiledModel.jacobian(...).matvec``, the
+   generic Jacobian's plain product;
 4. warm-up: the three slices at 16x16x8 on the card (first use of each op);
    source-term slice: the bench flagship with source-term wells at
    256x64x64 = 1,048,576 cells in float32 through
@@ -140,7 +142,7 @@ failure (nothing is caught, so any failure exits non-zero):
 19. weno-transport: BASELINE.json configuration 2 — WENO
    convection-diffusion (``TransportSystem("weno")``, a solid-body
    rotation) on a 1024 x 1024 quad ``UnstructuredMesh`` (1,048,576 cells,
-   2,095,104 faces, K = 10), float32, 3 report steps of 4h/pi through
+   2,095,104 faces, K = 10), float32, 2 report steps of 4h/pi through
    ``Simulator(use_stencil=False)`` with ILU(0)-GMRES(20); host set-up
    timed apart; no kernel may launch; its f64 verify (Max |r| within 10x
    the 1e-6 tolerance), mass drift and C within [-0.15, 1.15];
@@ -161,6 +163,23 @@ failure (nothing is caught, so any failure exits non-zero):
    standalone runs, a ``UnaryTabulatedVariable`` relperm against the
    analytic one, ``data_domain_parameter_gradient`` against central
    differences; each card against CPU within 1e-9.
+25. extruded-layers: an SPE10-style layered reservoir (``layered_reservoir``:
+   a moved 256 x 256 quad map of a 1 km square extruded into 16 seeded
+   layers, 1,048,576 cells; per-layer log-normal permeability through the
+   ``"layers"`` cell tags; 4 vertical injectors and a producer deviated in
+   three segments, their cells by ``find_enclosing_cells``) through
+   ``Simulator(use_stencil=False)`` with CPR-GMRES, float32, 2 report
+   steps; host set-up split by ``utils/timing`` scopes; no kernel may
+   launch; its f64 verify; ``export_mesh_vtu`` of the final state, timed;
+26. coarse-upscaled: its native Metis partition into 16,384 blocks with
+   each well's cells forced into one block, ``CoarseMesh`` +
+   ``coarsen_data_domain``, the same run; pore volume within 1e-12;
+27. cut-fault: the layered reservoir cut by one dipping ``PlaneCut`` at full
+   width (if the cut builds within 60 s), slivers merged; volume within
+   1e-12; the same run;
+28. meshes-cross-check: the layered case at 8 x 8 x 4 in float64, card
+   twice against the CPU: equal counts, states within 1e-12, bitwise
+   repeats.
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
@@ -971,6 +990,13 @@ def phase_kernels(case, records):
 
         _, A, _ = sc.assemble(merge_state(st, pr), merge_state(st, pr), DT)
         rec = records["stencil_matvec"]
+        # K1 against the generic Jacobian's plain matvec (ROADMAP A10's
+        # oracle: the same matrix assembled by jvps, no kernel)
+        A_gen = sc.jacobian(full, full, DT)
+        x = torch.randn((A.n, 2), generator=gen, device="cuda", dtype=dtype)
+        rec.compare(dtype, "K1 vs StencilCompiledModel.jacobian().matvec",
+                    SK.StencilMatvec(A)(x), A_gen.matvec(x))
+        del A_gen
         col = StencilMatrix(L, A.diag[:, :1],
                             {a: v[:, :1] for a, v in A.plus.items()},
                             {a: v[:, :1] for a, v in A.minus.items()})
@@ -1889,6 +1915,20 @@ def phase_generic(case, n_step=3):
     t0 = time.perf_counter()
     hier = cpr.amg._symbolic(ell)
     amg_s = time.perf_counter() - t0
+    # the fine level's aggregation, native (as the hierarchy ran it)
+    # against the numpy loop the port ran before it had the native library
+    from jutul.jl_tpu_torch.linsolve import amg as AMG
+
+    cols = np.asarray(ell.cols)
+    t0 = time.perf_counter()
+    agg = AMG.greedy_aggregate(cols, cols.shape[0])
+    agg_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agg_loop = AMG.greedy_aggregate_loop(cols, cols.shape[0])
+    agg_loop_s = time.perf_counter() - t0
+    if not np.array_equal(agg, agg_loop):
+        raise RuntimeError("generic slice: native aggregates differ from "
+                           "the loop's")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1951,6 +1991,7 @@ def phase_generic(case, n_step=3):
             if m["iterations"] >= max_it),
         "peak_mem_bytes": peak, "launches": launches,
         "setup_tables_s": tables_s, "setup_amg_hierarchy_s": amg_s,
+        "fine_aggregation_s": {"native": agg_native_s, "loop": agg_loop_s},
         "amg_levels": [[lv.structure.n_rows, lv.structure.n_slots]
                        for lv in hier.levels],
         "assemble_ms": assemble_ms, "cpr_update_ms": update_ms,
@@ -3903,6 +3944,477 @@ def phase_helpers_on_card(h=1e-4):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the meshes slice: an extruded layered reservoir with trajectory wells, its
+# partitioned coarse model and a cut fault, on the generic engine
+# ---------------------------------------------------------------------------
+LAYER_GRID = (256, 256, 16)  # map cells x, y and layers: 1,048,576 cells
+LAYER_SMALL = (8, 8, 4)  # the card-vs-CPU cross-check
+CUT_GRID_LIMIT_S = 60.0  # the cut runs at full width if it builds this fast
+CUT_GRID_REDUCED = (128, 128, 16)
+MAP_SIDE = 1000.0  # m, the square map's side
+COARSE_BLOCKS = 16384  # 64 fine cells per coarse block at LAYER_GRID
+FAULT_NORMAL = (1.0, 0.2, 0.5)  # the cut's normal: a dipping fault plane
+SLIVER_FRACTION = 0.01  # cut parts below this share of a cell are merged
+WELL_WI = 2.5e-13  # the flagship's completion index (_well_case)
+# build_well_flagship(*GRID)'s pore volume and injection rate per injector
+FLAGSHIP_PV = 0.25 * 200.0 * 50.0 * 10.0
+FLAGSHIP_Q = 0.2 * (100.0 / 128) ** 2 * (10.0 / 64) * 0.25 * 1000.0 / 21600.0
+
+
+def _timing(pkg):
+    return importlib.import_module(pkg.__name__ + ".utils.timing")
+
+
+def layered_reservoir(nx, ny, nl, pkg=None, seed=0, fault=False):
+    """An SPE10-style layered reservoir through ``pkg``'s mesh API (default
+    the port): the moved nx x ny quad map of ``perturbed_quad_mesh`` (seed
+    ``seed``) scaled to a MAP_SIDE square, extruded by ``extrude_mesh`` into
+    ``nl`` layers of seeded thicknesses in [2, 10] m (z down from 0);
+    per-layer log-normal permeability means with per-cell noise, assigned
+    through the ``"layers"`` cell tags and read back from them; porosity
+    and initial water saturation per cell; the bench flagship's fluid,
+    gravity and initial pressure (200 bar - rho g z + a smooth lateral
+    field). ``fault``: the extruded mesh cut by one dipping ``PlaneCut``
+    through the reservoir's centre, each cut cell's slivers merged back
+    (``_merge_slivers``); each part of a cut cell keeps its parent's
+    properties. Five wells by ``find_enclosing_cells`` on
+    trajectories: four vertical injectors near the corners, one producer
+    deviated through three segments across the middle; WellSpecs with the
+    flagship's completion index, through ``setup_well_graph_model``; rate
+    control at the flagship's rate scaled by the pore volume, the
+    producer on the flagship's BHP control. Host phases are timed by
+    ``pkg``'s ``utils/timing`` scopes when they are enabled. Returns a
+    dict: model, state0, params, forces (host numpy), and the mesh, its
+    layer interfaces, the cell fields, the well cells, the pore volume,
+    the uncut volume and the number of cells the cut added."""
+    if pkg is None:
+        import jutul.jl_tpu_torch as pkg
+    T = _timing(pkg)
+    CELLS = importlib.import_module(pkg.__name__ + ".core.entities").CELLS
+    W = importlib.import_module(pkg.__name__ + ".models.wells")
+    D = importlib.import_module(pkg.__name__ + ".models.darcy")
+    BAR, DARCY = pkg.si_units("bar", "darcy")
+    rng = np.random.default_rng(seed)
+    L = MAP_SIDE
+    z = np.concatenate([[0.0], np.cumsum(rng.uniform(2.0, 10.0, nl))])
+    H = z[-1]
+    with T.tic("2-D map"):
+        m = perturbed_quad_mesh(nx, ny, pkg, seed=seed)
+        m2 = pkg.UnstructuredMesh(m.points * L, m.face_nodes,
+                                  m.face_neighbors, m.boundary_face_nodes,
+                                  m.boundary_face_cells)
+    with T.tic("extrude"):
+        mesh = pkg.extrude_mesh(m2, z)
+    with T.tic("geometry"):
+        volume = float(mesh.tpfv_geometry().volumes.sum())
+    nc2 = nx * ny
+    nc = nc2 * nl
+    with T.tic("tags"):
+        for k in range(nl):
+            pkg.set_mesh_entity_tag(mesh, CELLS, "layers", f"layer{k}",
+                                    np.arange(k * nc2, (k + 1) * nc2))
+        mean = rng.normal(0.0, 1.0, nl)
+        noise = rng.normal(0.0, 0.5, nc)
+        perm = np.empty(nc)
+        for k in range(nl):
+            cells = pkg.get_mesh_entity_tag(mesh, CELLS, "layers",
+                                            f"layer{k}")
+            perm[cells] = np.exp(mean[k] + noise[cells]) * 0.1 * DARCY
+    poro = rng.uniform(0.15, 0.30, nc)
+    sw = rng.uniform(0.2, 0.8, nc)
+    added = 0
+    if fault:
+        with T.tic("cut"):
+            mesh = pkg.cut_mesh(mesh, pkg.PlaneCut((0.5 * L, 0.5 * L,
+                                                    0.5 * H), FAULT_NORMAL))
+        # each cut cell's part beyond the plane is a new cell, joined to
+        # its parent by one of the cap faces at the end of the face list
+        added = mesh.number_of_cells() - nc
+        caps = mesh.face_neighbors[mesh.number_of_faces() - added:]
+        if not np.array_equal(caps[:, 1], nc + np.arange(added)):
+            raise RuntimeError("cut-fault: a cut cell has no cap face")
+        with T.tic("geometry"):
+            mesh, parent, merged = _merge_slivers(pkg, mesh, caps[:, 0],
+                                                  nc)
+        added -= merged
+        perm, poro, sw = perm[parent], poro[parent], sw[parent]
+    geo = mesh.tpfv_geometry()
+    cc = geo.cell_centroids
+    p0 = (200.0 * BAR - 1000.0 * 9.80665 * cc[:, 2]
+          + 2.0 * BAR * np.sin(2 * np.pi * cc[:, 0] / L)
+          * np.cos(np.pi * cc[:, 1] / L))
+    with T.tic("trajectories"):
+        trajs = [np.array([[x * L, y * L, -1.0], [x * L, y * L, H + 1.0]])
+                 for x, y in ((0.1, 0.1), (0.9, 0.1), (0.1, 0.9),
+                              (0.9, 0.9))]
+        # the producer's lateral reach sets its completions, and so the
+        # widest row of the generic engine's ELL, which every row pads to
+        trajs.append(np.array([[0.495 * L, 0.496 * L, -1.0],
+                               [0.499 * L, 0.499 * L, 0.35 * H],
+                               [0.502 * L, 0.503 * L, 0.65 * H],
+                               [0.505 * L, 0.505 * L, H + 1.0]]))
+        well_cells = [pkg.find_enclosing_cells(mesh, t) for t in trajs]
+    pv = float(np.sum(poro * geo.volumes))
+    q = FLAGSHIP_Q * pv / FLAGSHIP_PV
+    specs = [W.WellSpec(name, cells, WI=WELL_WI, volume=1.0)
+             for name, cells in zip(WELL_NAMES, well_cells)]
+    with T.tic("model"):
+        model, wmesh, params = W.setup_well_graph_model(
+            mesh, D.ImmiscibleFluid(viscosities=(1e-3, 2e-3)), specs,
+            permeability=perm, porosity=poro, gravity=True)
+    pw = np.array([p0[c[0]] for c in well_cells])
+    sww = np.array([1.0] * 4 + [float(sw[well_cells[-1][0]])])
+    state0 = pkg.setup_state(
+        model, Pressure=np.concatenate([p0, pw]),
+        Saturations=np.stack([np.concatenate([sw, sww]),
+                              np.concatenate([1 - sw, 1 - sww])], axis=1))
+    forces = {
+        "rate": D.PhaseSourceTerm([wmesh.well_cells[f"inj{i}"]
+                                   for i in range(4)],
+                                  np.array([[q, 0.0]] * 4)),
+        "bhp": D.PressureBoundaryCondition(
+            [wmesh.well_cells["prod"]], float(pw[-1]) - 2.0 * BAR,
+            10.0 * WELL_WI * len(well_cells[-1]), saturations=[0.5, 0.5])}
+    return dict(model=model, state0=state0, params=params, forces=forces,
+                mesh=mesh, layer_z=z, perm=perm, poro=poro, sw=sw, p0=p0,
+                well_cells=well_cells, pw=pw, sww=sww, pore_volume=pv,
+                uncut_volume=volume, cells_added=added,
+                slivers_merged=merged if fault else 0)
+
+
+def _merge_slivers(pkg, mesh, cut_parents, nc):
+    """A cut mesh with every cut cell whose smaller part holds less than
+    SLIVER_FRACTION of its volume made whole again: the part beyond the
+    plane takes its parent's id, their cap face goes, the faces the cut
+    split stay split (a polyhedral cell may hold two faces to one
+    neighbour). A plane through a moved mesh cuts some cells into slivers
+    down to 1e-12 of a cell's volume, and at full width those hold the
+    ministeps near a minute (PERF.md §6), as simulators keep cells under a
+    minimum pore volume out of the flow. Returns (mesh, parent
+    cell of each new cell, number merged)."""
+    vol = mesh.tpfv_geometry().volumes
+    plus = nc + np.arange(len(cut_parents))
+    whole = vol[cut_parents] + vol[plus]
+    sliver = np.minimum(vol[cut_parents], vol[plus]) < SLIVER_FRACTION * whole
+    new_id = np.arange(mesh.number_of_cells())
+    new_id[plus[sliver]] = cut_parents[sliver]
+    new_id[plus[~sliver]] = nc + np.arange(int((~sliver).sum()))
+    nb = new_id[mesh.face_neighbors]
+    keep = np.flatnonzero(nb[:, 0] != nb[:, 1])
+    fn = mesh.face_nodes
+    cnt = fn.counts()[keep]
+    within = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    faces = pkg.IndirectionMap(
+        fn.vals[np.repeat(fn.pos[keep], cnt) + within],
+        np.concatenate([[0], np.cumsum(cnt)]))
+    out = pkg.UnstructuredMesh(mesh.points, faces, nb[keep],
+                               mesh.boundary_face_nodes,
+                               new_id[mesh.boundary_face_cells])
+    parent = np.concatenate([np.arange(nc), cut_parents[~sliver]])
+    return out, parent, int(sliver.sum())
+
+
+def coarse_reservoir(case, n_blocks, pkg=None):
+    """``case`` (a ``layered_reservoir``) on a coarse mesh: its reservoir
+    graph partitioned by ``MetisPartitioner`` into ``n_blocks`` blocks with
+    each well's completion cells forced into one block, ``CoarseMesh`` +
+    ``coarsen_data_domain`` (harmonic permeability, volume-weighted
+    porosity: the defaults), the initial pressure and saturation
+    volume-weighted; each well completes in its one coarse cell with the
+    sum of its fine completions' indices, and keeps its wellbore state and
+    controls. The reference's TPFA on the coarse geometry (summed face
+    areas, averaged normals and centroids) gives negative half-face
+    transmissibilities where a block is not convex or not connected, and
+    their harmonic means negative face transmissibilities up to ~200x the
+    median, on which Newton does not converge in either package (ROADMAP
+    §C): those faces are closed (transmissibility 0), and ``info``
+    counts them. Returns (model, state0, params, forces, info)."""
+    if pkg is None:
+        import jutul.jl_tpu_torch as pkg
+    T = _timing(pkg)
+    W = importlib.import_module(pkg.__name__ + ".models.wells")
+    D = importlib.import_module(pkg.__name__ + ".models.darcy")
+    C = importlib.import_module(pkg.__name__ + ".meshes.coarse")
+    P = importlib.import_module(pkg.__name__ + ".parallel.partition")
+    mesh = case["mesh"]
+    nc = mesh.number_of_cells()
+    nb = np.asarray(mesh.neighborship())
+    with T.tic("partition"):
+        part = pkg.MetisPartitioner().partition(
+            nb, nc, n_blocks, groups=case["well_cells"])
+    vol = mesh.tpfv_geometry().volumes
+    dd = pkg.DataDomain(mesh)
+    dd.set("permeability", case["perm"])
+    dd.set("porosity", case["poro"])
+    with T.tic("coarsen"):
+        cdd = pkg.coarsen_data_domain(dd, part)
+    wells = []
+    for cells in case["well_cells"]:
+        blocks = np.unique(part[cells])
+        if blocks.size != 1:
+            raise RuntimeError(f"coarse-upscaled: a well's completions lie "
+                               f"in blocks {blocks.tolist()}")
+        wells.append(int(blocks[0]))
+    specs = [W.WellSpec(name, [c], WI=WELL_WI * len(cells), volume=1.0)
+             for name, c, cells in zip(WELL_NAMES, wells,
+                                       case["well_cells"])]
+    with T.tic("model"):
+        model, wmesh, params = W.setup_well_graph_model(
+            cdd.mesh, D.ImmiscibleFluid(viscosities=(1e-3, 2e-3)), specs,
+            permeability=cdd["permeability"], porosity=cdd["porosity"],
+            gravity=True)
+    params = dict(params)
+    trans = np.asarray(params["Transmissibilities"])
+    negative = int(np.sum(trans < 0))
+    params["Transmissibilities"] = np.where(trans < 0, 0.0, trans)
+    p0 = C.coarsen_cell_value(case["p0"], part, vol, "volume")
+    sw = C.coarsen_cell_value(case["sw"], part, vol, "volume")
+    pw, sww = case["pw"], case["sww"]
+    state0 = pkg.setup_state(
+        model, Pressure=np.concatenate([p0, pw]),
+        Saturations=np.stack([np.concatenate([sw, sww]),
+                              np.concatenate([1 - sw, 1 - sww])], axis=1))
+    rate, bhp = case["forces"]["rate"], case["forces"]["bhp"]
+    forces = {
+        "rate": D.PhaseSourceTerm(
+            [wmesh.well_cells[f"inj{i}"] for i in range(4)], rate.values),
+        "bhp": D.PressureBoundaryCondition(
+            [wmesh.well_cells["prod"]], bhp.pressure, bhp.trans,
+            saturations=[0.5, 0.5])}
+    cg = cdd.mesh.tpfv_geometry()
+    info = dict(partition=part, n_blocks=int(part.max()) + 1,
+                load_balance=P.load_balance(part),
+                edge_cut=P.edge_cut(part, nb),
+                pore_volume=float(np.sum(cdd["porosity"] * cg.volumes)),
+                fine_pore_volume=case["pore_volume"], well_blocks=wells,
+                negative_transmissibilities=negative,
+                faces=int(trans.size))
+    return model, state0, params, forces, info
+
+
+def _layered_run(name, model, state0, params, forces, n_step, setup,
+                 extra=None):
+    """``Simulator(use_stencil=False)`` on the card in float32 with
+    ``generic_config`` (BASELINE.json configuration 3's CPR(AMG +
+    ILU(0))-GMRES(20)) over ``n_step`` 6 h report steps of the rate ramp:
+    the ELL tables and the AMG hierarchy (native aggregation) built and
+    timed first into ``setup``, no kernel may launch, every step must
+    succeed, the final state be finite and the last ministep pass the f64
+    verify. Returns (sim, res, record)."""
+    from jutul.jl_tpu_torch import Simulator, report_stats
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    nc = model.number_of_cells()
+    log(f"# {name}: host set-up " + json.dumps(setup))
+    t0 = time.perf_counter()
+    sim = Simulator(model, state0, params, use_stencil=False)  # the card
+    setup["simulator"] = time.perf_counter() - t0
+    schedule = rate_schedule(forces, n_step)
+    cfg = generic_config()
+    t0 = time.perf_counter()
+    ell = sim.compiled.ell
+    setup["ELL tables"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hier = cfg["linear_solver"].preconditioner.amg._symbolic(ell)
+    setup["AMG hierarchy"] = time.perf_counter() - t0
+    log(f"# {name}: ELL slots {ell.n_slots}, simulator, ELL and AMG "
+        f"set-up {setup['simulator']:.1f} + {setup['ELL tables']:.1f} + "
+        f"{setup['AMG hierarchy']:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.simulate([DT] * n_step, forces=schedule,
+                       post_ministep_hook=_progress(name, t0), **cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"{name}: a kernel launched: {launches}")
+    stats = report_stats(res.reports)
+    if not all(r["success"] for r in res.reports) or \
+            len(res.reports) != n_step:
+        raise RuntimeError(f"{name}: a report step failed")
+    for k, v in res.states[-1].items():
+        if not np.all(np.isfinite(v)):
+            raise RuntimeError(f"{name}: final {k} not finite")
+    newtons = stats["newtons"]
+    out = {"slice": name, "engine": "generic block-ELL (use_stencil=False)",
+           "solver": "GenericKrylov(gmres, CPRPreconditioner(), rtol=1e-3, "
+                     "max_iterations=50, restart=20)",
+           "cells": nc, "faces": int(model.domain.mesh.number_of_faces()),
+           "ell_slots": int(ell.n_slots), "amg_levels": [
+               [lv.structure.n_rows, lv.structure.n_slots]
+               for lv in hier.levels],
+           "dtype": "float32", "report_steps": n_step,
+           "ministeps": stats["ministeps"], "newtons": newtons,
+           "failed_ministeps": stats["failed_ministeps"],
+           "linear_iterations": stats["linear_iterations"], "wall_s": wall,
+           "s_per_newton": wall / newtons,
+           "cell_newton_its_per_s": nc * newtons / wall,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "host_setup_s": dict(setup),
+           **(extra or {}),
+           "per_ministep": [[m["iterations"], m["linear_iterations"]]
+                            for r_ in res.reports for m in r_["ministeps"]]}
+    t0 = time.perf_counter()
+    out["f64_verify"] = phase_f64_verify(sim, res, schedule[-1], name)
+    out["f64_verify_s"] = time.perf_counter() - t0
+    log(f"# {name}: " + json.dumps(out))
+    return sim, res, out
+
+
+def _timed_case(build, *args, **kw):
+    """``build(*args, **kw)`` with the port's ``utils/timing`` scopes on:
+    (result, {scope: seconds})."""
+    from jutul.jl_tpu_torch.utils import timing as T
+
+    T.reset_timings()
+    T.set_timing_enabled(True)
+    try:
+        out = build(*args, **kw)
+        times = {k: v["time"] for k, v in T.get_timings().items()}
+    finally:
+        T.set_timing_enabled(False)
+        T.reset_timings()
+    return out, times
+
+
+def phase_extruded_layers(n_step=2):
+    """The extruded layered reservoir (``layered_reservoir``) at full width
+    through the generic engine (``_layered_run``), its host set-up split
+    by ``utils/timing`` scopes; then ``export_mesh_vtu`` of the final
+    pressure and water saturation into chiprun_out/ (its bytes and
+    seconds; a file above 32 MiB is removed after it is measured, to keep
+    that output directory small). Returns (case, record)."""
+    from jutul.jl_tpu_torch.utils.vtk import export_mesh_vtu
+
+    case, setup = _timed_case(layered_reservoir, *LAYER_GRID)
+    sim, res, out = _layered_run(
+        "extruded-layers", case["model"], case["state0"], case["params"],
+        case["forces"], n_step, setup,
+        extra={"grid": list(LAYER_GRID), "completions": [
+            len(c) for c in case["well_cells"]],
+            "pore_volume_m3": case["pore_volume"]})
+    nc = case["mesh"].number_of_cells()
+    final = res.states[-1]
+    os.makedirs("chiprun_out", exist_ok=True)
+    t0 = time.perf_counter()
+    fn = export_mesh_vtu("chiprun_out/extruded-layers.vtu", case["mesh"], {
+        "Pressure": final["Pressure"][:nc],
+        "Sw": final["Saturations"][:nc, 0]})
+    out["vtu"] = {"seconds": time.perf_counter() - t0,
+                  "bytes": os.path.getsize(fn)}
+    if out["vtu"]["bytes"] > 32 * 2 ** 20:
+        os.remove(fn)
+        out["vtu"]["kept"] = False
+    log("# extruded-layers vtu: " + json.dumps(out["vtu"]))
+    del sim, res
+    torch.cuda.empty_cache()
+    return case, out
+
+
+def phase_coarse_upscaled(case, n_step=2):
+    """``case`` partitioned and coarsened (``coarse_reservoir``) through
+    the generic engine as ``extruded-layers``; the coarse pore volume must
+    equal the fine one within 1e-12 relative."""
+    (model, state0, params, forces, info), setup = _timed_case(
+        coarse_reservoir, case, COARSE_BLOCKS)
+    rel = abs(info["pore_volume"] / info["fine_pore_volume"] - 1.0)
+    if not rel <= 1e-12:
+        raise RuntimeError(f"coarse-upscaled: pore volume {rel:.3e} apart")
+    sim, res, out = _layered_run(
+        "coarse-upscaled", model, state0, params, forces, n_step, setup,
+        extra={"blocks": info["n_blocks"],
+               "load_balance": info["load_balance"],
+               "edge_cut": info["edge_cut"],
+               "pore_volume_rel_err": rel,
+               "closed_negative_transmissibilities":
+                   info["negative_transmissibilities"]})
+    del sim, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cut_fault(n_step=2, grid=None):
+    """``layered_reservoir(fault=True)``: the extruded reservoir cut by one
+    dipping plane through its centre, at ``grid`` if the cut builds within
+    CUT_GRID_LIMIT_S there, else at CUT_GRID_REDUCED; its total volume must
+    equal the uncut one within 1e-12 relative; then the run of
+    ``extruded-layers``."""
+    grid = grid or LAYER_GRID
+    case, setup = _timed_case(layered_reservoir, *grid, fault=True)
+    log(f"# cut-fault at {grid}: the cut {setup['cut']:.1f} s, "
+        f"{case['cells_added']} cells added")
+    if setup["cut"] > CUT_GRID_LIMIT_S and grid != CUT_GRID_REDUCED:
+        log(f"# cut-fault: the cut took {setup['cut']:.1f} s at {grid}")
+        return phase_cut_fault(n_step, CUT_GRID_REDUCED)
+    vol = float(case["mesh"].tpfv_geometry().volumes.sum())
+    rel = abs(vol / case["uncut_volume"] - 1.0)
+    if not rel <= 1e-12:
+        raise RuntimeError(f"cut-fault: volume {rel:.3e} from the uncut one")
+    sim, res, out = _layered_run(
+        "cut-fault", case["model"], case["state0"], case["params"],
+        case["forces"], n_step, setup,
+        extra={"grid": list(grid), "cut_s": setup["cut"],
+               "cells_added": case["cells_added"], "volume_rel_err": rel,
+               "completions": [len(c) for c in case["well_cells"]]})
+    del sim, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_meshes_cross_check(dims=LAYER_SMALL):
+    """``layered_reservoir`` at ``dims`` in float64, 2 report steps, on the
+    card twice and on the CPU: equal ministep, Newton and linear-iteration
+    counts, states within 1e-12, the two card runs bit for bit."""
+    from jutul.jl_tpu_torch import Simulator
+
+    c = layered_reservoir(*dims)
+    model, state0, params, forces = (c[k] for k in (
+        "model", "state0", "params", "forces"))
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        sim = Simulator(model, state0, params, use_stencil=False,
+                        device=dev, dtype=torch.float64)
+        res = sim.simulate([DT] * 2, forces=rate_schedule(forces, 2),
+                           **generic_config())
+        runs.append((res, [(m["iterations"], m["linear_iterations"],
+                            m["success"]) for r in res.reports
+                           for m in r["ministeps"]]))
+    (ga, ca), (gb, cb), (cpu, cc) = runs
+    if not (ca == cb == cc):
+        raise RuntimeError(f"meshes cross-check: counts differ: card {ca}, "
+                           f"{cb}, CPU {cc}")
+    bitwise = all(np.array_equal(x[k], y[k]) for x, y in zip(
+        ga.states, gb.states) for k in x)
+    dev = max(float(np.max(np.abs(x[k] - y[k]) / np.maximum(
+        np.abs(y[k]), 1.0 if k == "Saturations" else 1e-300)))
+        for x, y in zip(ga.states, cpu.states)
+        for k in ("Pressure", "Saturations"))
+    out = {"dims": list(dims), "ministeps": len(cc),
+           "newtons": sum(m[0] for m in cc),
+           "linear_iterations": sum(m[1] for m in cc),
+           "max_rel_dev_card_cpu": dev, "card_runs_bitwise": bitwise}
+    log("# meshes cross-check card vs CPU (f64): " + json.dumps(out))
+    if not (bitwise and dev <= 1e-12):
+        raise RuntimeError(f"meshes cross-check: {out}")
+    return out
+
+
+def meshes_phases(n_step=2):
+    """The meshes slice's phases: extruded-layers, coarse-upscaled,
+    cut-fault and the cross-check. Returns their records by name."""
+    out = {}
+    case, out["extruded-layers"] = phase_extruded_layers(n_step)
+    out["coarse-upscaled"] = phase_coarse_upscaled(case, n_step)
+    del case
+    out["cut-fault"] = phase_cut_fault(n_step)
+    out["meshes-cross-check"] = phase_meshes_cross_check()
+    return out
+
+
 def transport_phases(n_step=3, nx=None, amp=0.0):
     """The transport slice's phases at TRANSPORT_GRID (or nx x nx) on one
     quad UnstructuredMesh (its interior nodes moved by ``amp`` h, default
@@ -4013,11 +4525,16 @@ def main():
     mm_cross = phase_multimodel_cross_check()
     log(f"# multimodel phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    tr = transport_phases()
+    tr = transport_phases(n_step=2)
     slices.update({k: tr[k] for k in ("weno-transport",
                                       "weno-transport-fused",
                                       "nfvm-pressure")})
     log(f"# transport phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    me = meshes_phases()
+    slices.update({k: me[k] for k in ("extruded-layers", "coarse-upscaled",
+                                      "cut-fault")})
+    log(f"# meshes phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     case_dict = build_flagship(*DICT_GRID)
     dict_hm = phase_dict_history_match(case_dict, max_iterations=2)
@@ -4103,6 +4620,17 @@ def main():
                                             "true_rel_residual")})
         + " engine-check " + json.dumps(tr["weno-engine-check"])
         + " conditioning " + json.dumps(tr["stencil-conditioning"]))
+    log("# meshes " + json.dumps({k: {q: me[k][q] for q in (
+        "cells", "ministeps", "newtons", "linear_iterations", "s_per_newton",
+        "cell_newton_its_per_s", "peak_mem_bytes", "host_setup_s",
+        "f64_verify")} for k in ("extruded-layers", "coarse-upscaled",
+                                 "cut-fault")})
+        + " vtu " + json.dumps(me["extruded-layers"]["vtu"])
+        + " coarse " + json.dumps({k: me["coarse-upscaled"][k] for k in (
+            "blocks", "load_balance", "edge_cut", "pore_volume_rel_err")})
+        + " cut " + json.dumps({k: me["cut-fault"][k] for k in (
+            "grid", "cut_s", "cells_added", "volume_rel_err")})
+        + " cross-check " + json.dumps(me["meshes-cross-check"]))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -4172,6 +4700,11 @@ def profile(name):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile(sys.argv[2])
+    elif len(sys.argv) >= 2 and sys.argv[1] == "--meshes":
+        # the meshes slice's phases alone (a quick check; no result line):
+        # --meshes [n_step]
+        print(phase_device())
+        meshes_phases(*(int(a) for a in sys.argv[2:3]))
     elif len(sys.argv) >= 2 and sys.argv[1] == "--transport":
         # the transport slice's phases alone (a quick check; no result
         # line): --transport [n_step [nx [node offset]]]

@@ -30,7 +30,13 @@ WENO and NFVM face discretizations (``discretization/``),
 ``TransportSystem`` and ``NFVMPressureSystem`` (``models/transport.py``),
 ``CompositeSystem``, ``HelperSimulator``, the vectorization module with
 the DataDomain -> parameters chain rule, and table interpolation
-(``interpolation.py``) — in PyTorch, with hand-written CUDA kernels
+(``interpolation.py``) — and the rest of the meshes: extruded layers with
+quality checks, well trajectories, coarse meshes and data coarsening,
+radial and spiral meshes, plane and surface cuts, gluing, embedded
+fracture surfaces, entity tags (``meshes/``), the native C++ partitioner,
+RCM and AMG aggregation (``native/``, built with g++ at first use), the
+graph partitioners (``parallel/partition.py``) and the VTK, Gmsh, MRST,
+plotting and timing utilities (``utils/``) — in PyTorch, with hand-written CUDA kernels
 for Hopper (``ops/cuda``, sources in ``csrc/``) where the JAX package has Pallas kernels. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
 
@@ -98,6 +104,37 @@ from .linsolve.precond import (
 from .linsolve.schur import SchurComplementSolver
 from .linsolve.system import LinearizedSystem
 from .meshes.cartesian import CartesianMesh
+from .meshes.coarse import CoarseMesh, coarsen_data_domain
+from .meshes.cutcell import (
+    PlaneCut,
+    SurfaceCut,
+    cut_mesh,
+    embed_mesh,
+    glue_mesh,
+    merge_faces,
+)
+from .meshes.embedded import (
+    SurfaceMesh,
+    embed_surface,
+    fracture_matrix_trans,
+)
+from .meshes.extruded import (
+    check_and_fix_mesh,
+    check_mesh,
+    check_mesh_quality,
+    extrude_mesh,
+    face_planarity,
+)
+from .meshes.radial import radial_mesh, spiral_mesh
+from .meshes.tags import (
+    MeshEntityTags,
+    get_mesh_entity_tag,
+    set_mesh_entity_tag,
+)
+from .meshes.trajectories import (
+    find_enclosing_cells,
+    trajectory_intersections,
+)
 from .meshes.unstructured import (
     IndexRenumerator,
     IndirectionMap,
@@ -149,7 +186,17 @@ from .multimodel.core import (
 )
 from .ops.assembly import CompiledModel, compile_model
 from .ops.blockell import BlockELL, ELLStructure
-from .ops.stencil import GMG, StencilCPR, StencilKrylovSolver
+from .ops.stencil import (
+    GMG,
+    StencilCPR,
+    StencilCompiledModel,
+    StencilKrylovSolver,
+)
+from .parallel.partition import (
+    GreedyGraphPartitioner,
+    LinearPartitioner,
+    MetisPartitioner,
+)
 from .simulator.convergence_monitors import (
     ConvergenceMonitorCuttingCriterion,
     ConvergenceMonitorRelaxation,
@@ -186,47 +233,60 @@ from .simulator.timesteps import (
     VariableChangeTimestepSelector,
 )
 from .units import si_unit, si_units
+from .utils.gmsh import mesh_from_gmsh
+from .utils.mrst import mesh_from_mat, mesh_from_mrst_grid
+from .utils.plotting import triangulate_mesh
 
 __all__ = [
     "AMGPreconditioner", "AdditiveCrossTerm", "AdjointStorage",
     "BilinearInterpolant", "BlockELL", "BlockJacobiPreconditioner",
-    "CPRPreconditioner", "CartesianMesh", "CompiledModel", "CompositeSystem",
-    "ConstantVariables", "ConvergenceMonitorCuttingCriterion",
-    "ConvergenceMonitorRelaxation", "CrossTerm", "DataDomain",
-    "DictParameters", "DictParametersSampler", "DirectSolver",
-    "DiscretizedDomain", "ELLStructure", "EndTimeTerminationCriterion",
-    "FunctionSecondaryVariable", "GMG", "GenericKrylov", "GlobalObjective",
+    "CPRPreconditioner", "CartesianMesh", "CoarseMesh", "CompiledModel",
+    "CompositeSystem", "ConstantVariables",
+    "ConvergenceMonitorCuttingCriterion", "ConvergenceMonitorRelaxation",
+    "CrossTerm", "DataDomain", "DictParameters", "DictParametersSampler",
+    "DirectSolver", "DiscretizedDomain", "ELLStructure",
+    "EndTimeTerminationCriterion", "FunctionSecondaryVariable", "GMG",
+    "GenericKrylov", "GlobalObjective", "GreedyGraphPartitioner",
     "GroupWisePreconditioner", "HelperSimulator", "ILU0Preconditioner",
     "ImmiscibleFluid", "IndexRenumerator", "IndirectionMap",
     "IterationTimestepSelector", "JacobiPreconditioner", "JutulCase",
     "JutulConfig", "LimitByFailedTimestepSelector", "LinearInterpolant",
-    "LinearizedSystem", "MultiModel", "NFVMPressureSystem", "NoRelaxation",
-    "PhaseSourceTerm", "PoissonSource", "PressureBoundaryCondition",
-    "SPAI0Preconditioner", "ScalarTestCrossTerm", "ScalarTestDomain",
-    "ScalarTestForce", "ScalarTestSystem", "SchurComplementSolver",
-    "SimResult", "SimpleHeatSystem", "SimpleRelaxation", "SimulationModel",
-    "Simulator", "SmoothedAggregationAMG", "StencilCPR",
-    "StencilKrylovSolver", "SumObjective", "TerminationCriterion",
-    "TimestepSelector", "TransportSystem", "TrivialPreconditioner",
-    "UnaryTabulatedVariable", "UnstructuredMesh",
+    "LinearPartitioner", "LinearizedSystem", "MeshEntityTags",
+    "MetisPartitioner", "MultiModel", "NFVMPressureSystem", "NoRelaxation",
+    "PhaseSourceTerm", "PlaneCut", "PoissonSource",
+    "PressureBoundaryCondition", "SPAI0Preconditioner", "ScalarTestCrossTerm",
+    "ScalarTestDomain", "ScalarTestForce", "ScalarTestSystem",
+    "SchurComplementSolver", "SimResult", "SimpleHeatSystem",
+    "SimpleRelaxation", "SimulationModel", "Simulator",
+    "SmoothedAggregationAMG", "StencilCPR", "StencilCompiledModel",
+    "StencilKrylovSolver", "SumObjective", "SurfaceCut", "SurfaceMesh",
+    "TerminationCriterion", "TimestepSelector", "TransportSystem",
+    "TrivialPreconditioner", "UnaryTabulatedVariable", "UnstructuredMesh",
     "VariableChangeTimestepSelector", "VariablePoissonSystem",
     "WellGraphMesh", "WellSpec", "add_cross_term", "box_trust_region",
-    "compile_model", "compute_boundary_trans", "compute_distance",
-    "compute_face_gdz", "compute_face_trans", "compute_half_face_trans",
-    "data_domain_parameter_gradient", "devectorize_variables", "expand_perm",
-    "expand_to_ministeps", "free_optimization_parameter",
-    "freeze_optimization_parameter", "from_numpy", "get_1d_interpolator",
-    "get_2d_interpolator", "half_face_map", "model_accumulation",
-    "model_residual", "nonconverged_equations", "optimization_config",
-    "optimize", "parameters_from_data_domain", "parameters_gradient",
-    "parameters_jacobian_wrt_data_domain", "print_stats", "read_results",
-    "report_stats", "scaled_residual_norm", "secondary_variable",
+    "check_and_fix_mesh", "check_mesh", "check_mesh_quality",
+    "coarsen_data_domain", "compile_model", "compute_boundary_trans",
+    "compute_distance", "compute_face_gdz", "compute_face_trans",
+    "compute_half_face_trans", "cut_mesh", "data_domain_parameter_gradient",
+    "devectorize_variables", "embed_mesh", "embed_surface", "expand_perm",
+    "expand_to_ministeps", "extrude_mesh", "face_planarity",
+    "find_enclosing_cells", "fracture_matrix_trans",
+    "free_optimization_parameter", "freeze_optimization_parameter",
+    "from_numpy", "get_1d_interpolator", "get_2d_interpolator",
+    "get_mesh_entity_tag", "glue_mesh", "half_face_map", "merge_faces",
+    "mesh_from_gmsh", "mesh_from_mat", "mesh_from_mrst_grid",
+    "model_accumulation", "model_residual", "nonconverged_equations",
+    "optimization_config", "optimize", "parameters_from_data_domain",
+    "parameters_gradient", "parameters_jacobian_wrt_data_domain",
+    "print_stats", "radial_mesh", "read_results", "report_stats",
+    "scaled_residual_norm", "secondary_variable", "set_mesh_entity_tag",
     "setup_adjoint_storage", "setup_darcy_model", "setup_forces",
     "setup_parameter_optimization", "setup_parameters", "setup_state",
     "setup_well_graph_model", "si_unit", "si_units", "simulate",
     "simulator_config", "solve_adjoint_forces", "solve_adjoint_generic",
     "solve_adjoint_sensitivities", "solve_adjoint_sensitivities_jit",
-    "solve_numerical_sensitivities", "state_gradient", "store_output",
-    "timing_breakdown", "unit_box_bfgs", "valid_restart_indices",
+    "solve_numerical_sensitivities", "spiral_mesh", "state_gradient",
+    "store_output", "timing_breakdown", "trajectory_intersections",
+    "triangulate_mesh", "unit_box_bfgs", "valid_restart_indices",
     "vectorize_variables",
 ]

@@ -20,9 +20,10 @@ smoothed-aggregation P values) goes through a ``SegmentSumPlan`` built at
 the symbolic setup: the same bits on every call, where CUDA's
 ``index_add_`` would add float atomics in no fixed order.
 
-``greedy_aggregate`` is the JAX package's numpy loop (its C++ copy in
-``jutul/jl_tpu/native`` computes the same aggregates); the loop runs over
-Python lists, a few seconds at 1M cells, once per structure.
+``greedy_aggregate`` runs the native C++ aggregation, which the JAX
+package tries first (``native.native_aggregate``, built from the port's
+own copy of ``partitioner.cpp``); ``greedy_aggregate_loop``, the same
+aggregates by a loop over Python lists, is the tests' oracle.
 """
 
 from __future__ import annotations
@@ -32,11 +33,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..native import native_aggregate
 from ..ops.blockell import BlockELL, ELLStructure, SegmentSumPlan, ell_to_dense
 from .precond import Preconditioner
 
 
 def greedy_aggregate(cols: np.ndarray, n: int) -> np.ndarray:
+    """Vanek-style greedy aggregation on an ELL sparsity graph, by the
+    native library (``greedy_aggregate_loop`` says what it computes).
+    Returns (n,) aggregate ids in [0, n_agg)."""
+    return native_aggregate(cols, n)
+
+
+def greedy_aggregate_loop(cols: np.ndarray, n: int) -> np.ndarray:
     """Vanek-style greedy aggregation on an ELL sparsity graph.
 
     Pass 1: seed aggregates from nodes whose neighborhood is untouched.

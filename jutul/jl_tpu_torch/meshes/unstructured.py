@@ -346,3 +346,14 @@ def _fixed_map(rows: np.ndarray) -> IndirectionMap:
     """IndirectionMap of equal-length rows (n, m)."""
     n, m = rows.shape
     return IndirectionMap(rows.reshape(-1), np.arange(n + 1) * m)
+
+
+def _concat_maps(maps) -> IndirectionMap:
+    """The rows of several IndirectionMaps, one after another."""
+    vals = np.concatenate([m.vals for m in maps])
+    pos = [np.zeros(1, np.int64)]
+    off = 0
+    for m in maps:
+        pos.append(m.pos[1:] + off)
+        off += len(m.vals)
+    return IndirectionMap(vals, np.concatenate(pos))

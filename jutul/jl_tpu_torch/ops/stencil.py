@@ -60,6 +60,30 @@ class StencilMatrix:
     def n(self) -> int:
         return int(np.prod(self.L))
 
+    def matvec(self, x):
+        """y = A x with x (n, ndof) -> y (n, neq) in plain torch, all
+        slicing and padding of the lattice: the JAX package's
+        ``StencilMatrix.matvec``, K1's oracle (K1 sums the same seven
+        terms per row in another order)."""
+        L = self.L
+        neq, ndof, _ = self.diag.shape
+        xT = x.T  # (ndof, n)
+        y = (self.diag * xT[None]).sum(dim=1)  # (neq, n)
+        x_lat = xT.reshape((ndof,) + L)
+        y_lat = y.reshape((neq,) + L)
+        for a in range(3):
+            if a not in self.plus:
+                continue
+            sl_l, sl_r = AXIS_SLICES[a]
+            # row L couples to x at the RIGHT cell, row R to the LEFT one
+            contrib_l = (self.plus[a]
+                         * x_lat[(slice(None),) + sl_r][None]).sum(dim=1)
+            y_lat = y_lat + F.pad(contrib_l, _PADS[a])
+            contrib_r = (self.minus[a]
+                         * x_lat[(slice(None),) + sl_l][None]).sum(dim=1)
+            y_lat = y_lat + F.pad(contrib_r, _PADS_R[a])
+        return y_lat.reshape(neq, -1).T
+
 
 def stencil_transpose(A: StencilMatrix) -> StencilMatrix:
     """Aᵀ of a 7-point block stencil is again one: the entry (row L(f),
@@ -156,6 +180,70 @@ class StencilCompiledModel:
                 _, tj = jvp(local_fn, (U,), (ej,))  # (n, neq)
                 diag[:, j] += tj.T
         return r, diag, U
+
+    def jacobian(self, state, state0, dt, forces=None) -> StencilMatrix:
+        """The StencilMatrix of secondary-evaluated states by the generic
+        route of the JAX package's ``StencilCompiledModel.jacobian``: the
+        accumulation diagonal of ``accumulation``, then per axis one
+        ``torch.func.jvp`` per dof and side through the equation's own
+        flux function on the two-cell states of the sliced lattice (the
+        secondaries evaluated from the dofs), then the forces' diagonal
+        blocks. No kernel: it is the oracle of the fused assembly (K3)
+        and, through ``StencilMatrix.matvec``, of K1."""
+        comp = self.comp
+        model = comp.model
+        neq, ndof, n = self.neq, self.ndof, self.n_cells
+        _, diag, U = self.accumulation(state, state0, dt)
+        plus, minus = {}, {}
+        if self.flux_con is not None:
+            con = self.flux_con
+            params_cell = comp._cell_entries(state, include=("parameter",))
+            face_state = comp._face_entries(state)
+            diag_lat = diag.reshape((neq, ndof) + self.L)
+            U_lat = U.T.reshape((ndof,) + self.L)
+            for a in range(3):
+                fl = self.face_lat[a]
+                if fl is None:
+                    continue
+                p_l, p_r = self._axis_cell_states(params_cell, a)
+                sl_l, sl_r = AXIS_SLICES[a]
+                U_l = U_lat[(slice(None),) + sl_l].reshape(ndof, -1).T
+                U_r = U_lat[(slice(None),) + sl_r].reshape(ndof, -1).T
+                fs = self._axis_face_state(face_state, a)
+
+                def flux(ul, ur, _pl=p_l, _pr=p_r, _fs=fs):
+                    ll = dict(_pl)
+                    ll.update(comp.unpack_dofs(ul))
+                    ll = comp._eval_secondaries_local(ll)
+                    rr = dict(_pr)
+                    rr.update(comp.unpack_dofs(ur))
+                    rr = comp._eval_secondaries_local(rr)
+                    local = {k: torch.stack([ll[k], rr[k]], dim=1)
+                             for k in ll}
+                    return con.fn(model, local, _fs)  # (nf, neq)
+
+                zeros = torch.zeros_like(U_l)
+                cols_l, cols_r = [], []
+                for j in range(ndof):
+                    ej = torch.zeros_like(U_l)
+                    ej[:, j] = 1.0
+                    cols_l.append(jvp(flux, (U_l, U_r), (ej, zeros))[1])
+                    cols_r.append(jvp(flux, (U_l, U_r), (zeros, ej))[1])
+                # (neq, ndof, *fl): dF/du_L and dF/du_R
+                jl = torch.stack(cols_l).permute(2, 0, 1).reshape(
+                    (neq, ndof) + fl)
+                jr = torch.stack(cols_r).permute(2, 0, 1).reshape(
+                    (neq, ndof) + fl)
+                # residual[L] += F: d/du_L on diag(L), d/du_R on plus;
+                # residual[R] -= F: d/du_R on diag(R), d/du_L on minus
+                diag_lat = diag_lat + F.pad(jl, _PADS[a]) \
+                    - F.pad(jr, _PADS_R[a])
+                plus[a] = jr.contiguous()
+                minus[a] = -jl
+            diag = diag_lat.reshape(neq, ndof, n)
+        if forces:
+            diag = self._apply_force_diag(diag, state, dt, forces)
+        return StencilMatrix(self.L, diag, plus, minus)
 
     def residual(self, state, state0, dt, forces=None):
         """The residual (n, neq) alone, in the dtype of the states it is

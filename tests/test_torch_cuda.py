@@ -779,3 +779,60 @@ def test_transport_tables_repeat_bitwise_on_the_card(dev):
         rs.append((r, J.blocks))
     assert torch.equal(rs[0][0], rs[1][0])
     assert torch.equal(rs[0][1], rs[1][1])
+
+
+# ---------------------------------------------------------------------------
+# the meshes slice (extruded layers, trajectory wells, coarse, cut fault)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["layers", "coarse", "fault"])
+def test_layered_reservoir_on_the_card_matches_the_cpu(dev, kind):
+    """chip_smoke's layered reservoir at 8x8x4 (its coarse model at 16
+    blocks, its cut-fault mesh) in float64 with CPR-GMRES: the card's
+    counts equal the CPU's, its states lie within 1e-12 of them, a second
+    card run repeats the bits; no kernel of ops/cuda launches."""
+    import chip_smoke
+    from jutul.jl_tpu_torch import Simulator
+
+    case = chip_smoke.layered_reservoir(*chip_smoke.LAYER_SMALL,
+                                        fault=kind == "fault")
+    model, state0, params, forces = (case[k] for k in (
+        "model", "state0", "params", "forces"))
+    if kind == "coarse":
+        model, state0, params, forces, _ = chip_smoke.coarse_reservoir(case,
+                                                                       16)
+    runs = []
+    kernels.reset_launch_counts()
+    for d in (dev, dev, "cpu"):
+        sim = Simulator(model, state0, params, use_stencil=False, device=d,
+                        dtype=torch.float64)
+        res = sim.simulate([chip_smoke.DT] * 2,
+                           forces=chip_smoke.rate_schedule(forces, 2),
+                           **chip_smoke.generic_config())
+        assert all(r["success"] for r in res.reports)
+        runs.append(([(m["iterations"], m["linear_iterations"])
+                      for r in res.reports for m in r["ministeps"]],
+                     res.states))
+    assert not any(kernels.launch_counts().values())
+    assert runs[0][0] == runs[1][0] == runs[2][0]
+    for a, b, c in zip(runs[0][1], runs[1][1], runs[2][1]):
+        for k in ("Pressure", "Saturations"):
+            assert np.array_equal(a[k], b[k])
+            assert np.max(np.abs(a[k] - c[k]) / np.maximum(
+                np.abs(c[k]), 1.0)) <= 1e-12
+
+
+def test_stencil_jacobian_oracle_on_the_card(dev):
+    """K1 on the fused assembly's matrix against the generic
+    ``StencilCompiledModel.jacobian``'s plain ``matvec``, in float64."""
+    import chip_smoke
+
+    model, state0, params, _ = chip_smoke.build_flagship(12, 10, 8)
+    comp = compile_model(model)
+    sc = StencilCompiledModel(comp)
+    full = comp.evaluate_secondaries(merge_state(
+        from_numpy(state0, dev, torch.float64),
+        from_numpy(params, dev, torch.float64)))
+    _, A, _ = sc.assemble(full, full, chip_smoke.DT)
+    x = torch.randn((A.n, 2), device=dev, dtype=torch.float64)
+    assert _rel(SK.StencilMatvec(A)(x),
+                sc.jacobian(full, full, chip_smoke.DT).matvec(x)) <= 1e-12
