@@ -180,6 +180,32 @@ failure (nothing is caught, so any failure exits non-zero):
 28. meshes-cross-check: the layered case at 8 x 8 x 4 in float64, card
    twice against the CPU: equal counts, states within 1e-12, bitwise
    repeats.
+29. dd-cross-check (float64): the JAX package's dryrun_multichip case (a
+   6x5x4 ``UnstructuredMesh``, gravity, 2 well models, forced well groups
+   over 8 shards) through ``GeneralDistributedSimulator`` over
+   ``ShardGroup.threads(8)`` on the card (distributed CPR, Chebyshev
+   smoothing, ppermute halos), then ``solve_adjoint_sensitivities_general``;
+   and tests/test_sharded.py's case on 4 slabs (``DistributedSimulator``,
+   distributed CPR) with the slab adjoint: states and gradients within
+   1e-6 of the single-device ``Simulator`` and
+   ``solve_adjoint_sensitivities``; the dryrun run on the CPU within 1e-12
+   of the card's; a world-size-1 NCCL ``ShardGroup.process_group`` run
+   equal to ``threads(1)`` bit for bit;
+30. dd-slab: srcwells' case (1,048,576 cells, float32) through the slab
+   engine over ``ShardGroup.threads(8)`` (eight z-slabs of 8 planes),
+   distributed CPR (the global pressure stencil all-gathered and V-cycled
+   by GMG on every shard: K2 must launch), the eager loop with dt cuts
+   on srcwells' accepted ministep dts and forces of its first report
+   step; its f64 verify on the gathered state, and its final state
+   against srcwells' at the same time;
+31. dd-general: extruded-layers' case (1,048,576 + 5 cells) through
+   ``GeneralDistributedSimulator`` over ``ShardGroup.threads(8)`` on the
+   native partition with the wells' groups forced, all_to_all halos,
+   distributed CPR with Chebyshev smoothing, 2 report steps; no kernel may
+   launch; its f64 verify; then the general adjoint of the pressure
+   objective over the accepted ministeps in float64 against the
+   single-device generic adjoint of the same states: every λ-solve of
+   both converged, gradients within 1e-3.
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
@@ -4403,12 +4429,15 @@ def phase_meshes_cross_check(dims=LAYER_SMALL):
     return out
 
 
-def meshes_phases(n_step=2):
+def meshes_phases(n_step=2, keep_case=False):
     """The meshes slice's phases: extruded-layers, coarse-upscaled,
-    cut-fault and the cross-check. Returns their records by name."""
+    cut-fault and the cross-check. Returns their records by name (and
+    with ``keep_case``, extruded-layers' case under ``"case"``)."""
     out = {}
     case, out["extruded-layers"] = phase_extruded_layers(n_step)
     out["coarse-upscaled"] = phase_coarse_upscaled(case, n_step)
+    if keep_case:
+        out["case"] = case
     del case
     out["cut-fault"] = phase_cut_fault(n_step)
     out["meshes-cross-check"] = phase_meshes_cross_check()
@@ -4438,6 +4467,605 @@ def transport_phases(n_step=3, nx=None, amp=0.0):
     out["stencil-conditioning"] = phase_stencil_conditioning()
     out["transport-cross-check"] = phase_transport_cross_check()
     out["helpers-on-card"] = phase_helpers_on_card()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the distributed engines (parallel/): shard groups, slab and general
+# partitions, their CPR and adjoints
+# ---------------------------------------------------------------------------
+DD_SHARDS = 8  # the JAX package's fake-device count (tests/conftest.py)
+DRYRUN_GRID = (6, 5, 4)  # __graft_entry__.py dryrun_multichip
+SLAB_CROSS_GRID = (4, 3, 8)  # tests/test_sharded.py build_case
+DD_BAR = 1e-6  # dryrun_multichip's equivalence bars (states, gradients)
+DD_SLAB_REPORTS = 1  # srcwells' report steps that dd-slab runs again
+# dd-slab's final state against srcwells' (both float32, each ministep
+# accepted at CNV 1e-3, or 1e-2 at the Newton cap): a few times the spread
+# of two single-device float32 solver settings on the well flagship (the
+# A/B phase: 1.3e-4 pressure, 0.014 saturation)
+DD_SLAB_P_BAR, DD_SLAB_S_BAR = 1e-3, 0.05
+# dd-general's float64 adjoint: λ-solves at bench.py run_adjoint's rtol with
+# a cap the block-Jacobi solves of 1,048,581 cells reach; the gradients
+# against the single-device adjoint's of the same states
+DD_LAMBDA_RTOL, DD_LAMBDA_ITS, DD_LAMBDA_GRAD_BAR = 1e-6, 4000, 1e-3
+# MULTICHIP_r05.json's measurement of those bars (JAX package, 8 fake
+# devices): max|dP|/|P| and max rel |dGrad| of the dryrun case
+MULTICHIP_R05 = {"states": 4.19e-16, "gradients": 5.68e-11}
+SLICE_KERNELS["dd-slab"] = ("scalar_jacobi",)  # the global GMG V-cycle
+SLICE_FORBIDDEN["dd-slab"] = tuple(k for k in KERNEL_INFO
+                                   if k != "scalar_jacobi")
+# the general engine assembles and solves in face-block form: no kernel
+SLICE_KERNELS["dd-general"] = ()
+SLICE_FORBIDDEN["dd-general"] = tuple(KERNEL_INFO)
+
+
+def dryrun_case(pkg, n_shards, dims=DRYRUN_GRID):
+    """``dryrun_multichip``'s case (__graft_entry__.py:174-290) through
+    ``pkg``'s API: a 6x5x4 ``UnstructuredMesh`` with gravity, lognormal
+    permeability and 2 well models on the augmented well graph, forced
+    well groups in a ``GreedyGraphPartitioner`` partition over
+    ``n_shards``, a rate injector and a BHP producer, two steps of 0.1 and
+    0.2 days at tolerance 1e-10. Returns a dict (host numpy)."""
+    um = importlib.import_module(pkg.__name__ + ".meshes.unstructured")
+    dm = importlib.import_module(pkg.__name__ + ".models.darcy")
+    wm = importlib.import_module(pkg.__name__ + ".models.wells")
+    pm = importlib.import_module(pkg.__name__ + ".parallel.partition")
+    BAR, DARCY, DAY = pkg.si_units("bar", "darcy", "day")
+    nx, ny, nz = dims
+    base = um.UnstructuredMesh.from_cartesian(
+        pkg.CartesianMesh((nx, ny, nz), (60.0, 50.0, 20.0)))
+    nc = base.number_of_cells()
+    rng = np.random.default_rng(0)
+    perm = rng.lognormal(0.0, 1.0, nc) * 0.2 * DARCY
+    poro = np.full(nc, 0.25)
+
+    def cell(ix, iy, iz):
+        return (iz * ny + iy) * nx + ix
+
+    wells = [wm.WellSpec("inj", [cell(0, 0, 0), cell(0, 0, 1)],
+                         WI=[2e-12, 3e-12], volume=0.5),
+             wm.WellSpec("prod", [cell(nx - 1, ny - 1, nz - 1)], WI=4e-12,
+                         volume=0.5)]
+    model, wmesh, params = wm.setup_well_graph_model(
+        base, dm.ImmiscibleFluid(viscosities=(1e-3, 2e-3)), wells,
+        permeability=perm, porosity=poro, gravity=True)
+    forces = {
+        "rate": dm.PhaseSourceTerm([wmesh.well_cells["inj"]],
+                                   np.array([[0.05, 0.0]])),
+        "bhp": dm.PressureBoundaryCondition([wmesh.well_cells["prod"]],
+                                            120.0 * BAR, 1e-11,
+                                            saturations=[0.5, 0.5])}
+    groups = wmesh.partition_groups()
+    part = pm.GreedyGraphPartitioner().partition(
+        wmesh.neighborship(), wmesh.number_of_cells(), n_shards,
+        groups=groups)
+    state0 = pkg.setup_state(model, Pressure=np.full(
+        wmesh.number_of_cells(), 150.0 * BAR), Saturations=np.tile(
+            [0.3, 0.7], (wmesh.number_of_cells(), 1)))
+    return dict(model=model, wmesh=wmesh, params=params, forces=forces,
+                groups=groups, part=part, state0=state0, p_ref=150.0 * BAR,
+                data_fields={"permeability": np.concatenate(
+                    [perm, np.full(len(wells), perm.mean())]),
+                    "porosity": np.concatenate([poro, np.ones(len(wells))])},
+                dts=[0.1 * DAY, 0.2 * DAY], tols={"default": 1e-10})
+
+
+def slab_case(pkg, dims=SLAB_CROSS_GRID, smooth=False):
+    """tests/test_sharded.py ``build_case`` through ``pkg``: a Cartesian
+    two-phase model without gravity, seeded uniform permeability and
+    initial state; ``smooth``: constant permeability and a uniform start
+    (the adjoint tests' well-conditioned variant). One water injector.
+    Returns (mesh, system, data_fields, state0 kwargs, forces)."""
+    dm = importlib.import_module(pkg.__name__ + ".models.darcy")
+    BAR, DARCY = pkg.si_units("bar", "darcy")
+    nx, ny, nz = dims
+    nc = nx * ny * nz
+    mesh = pkg.CartesianMesh((nx, ny, nz), (10.0, 10.0, 10.0))
+    system = dm.ImmiscibleSystem(dm.ImmiscibleFluid(viscosities=(1e-3, 2e-3)),
+                                 gravity=False)
+    rng = np.random.default_rng(0)
+    perm = rng.uniform(0.5, 2.0, nc) * DARCY
+    p0 = 100.0 * BAR + rng.uniform(-1, 1, nc) * BAR
+    sw = rng.uniform(0.2, 0.8, nc)
+    if smooth:
+        perm, p0, sw = np.full(nc, DARCY), np.full(nc, 100.0 * BAR), \
+            np.full(nc, 0.3)
+    q = np.zeros((1, 2))
+    q[0, 0] = 0.5
+    return (mesh, system, {"permeability": perm,
+                           "porosity": np.full(nc, 0.25)},
+            dict(Pressure=p0, Saturations=np.stack([sw, 1 - sw], axis=1)),
+            {"src": dm.PhaseSourceTerm([0], q)})
+
+
+def unstructured_dd_case(pkg, dims=DRYRUN_GRID, seed=0):
+    """tests/test_general_dd.py ``build_unstructured_case`` through
+    ``pkg``: the dryrun mesh without wells, gravity on, seeded lognormal
+    permeability and initial state. Returns (mesh, system, data_fields,
+    state0 kwargs)."""
+    um = importlib.import_module(pkg.__name__ + ".meshes.unstructured")
+    dm = importlib.import_module(pkg.__name__ + ".models.darcy")
+    BAR, DARCY = pkg.si_units("bar", "darcy")
+    mesh = um.UnstructuredMesh.from_cartesian(
+        pkg.CartesianMesh(dims, (60.0, 50.0, 20.0)))
+    nc = mesh.number_of_cells()
+    rng = np.random.default_rng(seed)
+    perm = rng.lognormal(0.0, 1.0, nc) * 0.2 * DARCY
+    p0 = 150.0 * BAR + rng.uniform(-0.5, 0.5, nc) * BAR
+    sw = rng.uniform(0.25, 0.75, nc)
+    system = dm.ImmiscibleSystem(dm.ImmiscibleFluid(viscosities=(1e-3, 2e-3)),
+                                 gravity=True)
+    return (mesh, system, {"permeability": perm,
+                           "porosity": np.full(nc, 0.25)},
+            dict(Pressure=p0, Saturations=np.stack([sw, 1 - sw], axis=1)))
+
+
+def pressure_objective(p_ref):
+    """dryrun_multichip's objective: G = sum_n dt_n sum((p / p_ref)^2)."""
+    def G(model, state, dt, n, forces):
+        return dt * torch.sum((state["Pressure"] / p_ref) ** 2)
+    return G
+
+
+def _state_rel(a, b):
+    """max over the fields of ``a`` of max|a - b| / max|b|."""
+    return max(float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k])))
+                   / max(float(np.max(np.abs(np.asarray(b[k])))), 1e-300))
+               for k in a if k in b and k != "substates")
+
+
+def _grad_rel(g, ref):
+    return max(float(np.max(np.abs(np.asarray(g[k]).reshape(
+        np.shape(ref[k])) - ref[k])) / max(float(np.max(np.abs(ref[k]))),
+                                           1e-30)) for k in ref)
+
+
+def _dryrun_run(c, group, part, dtype=torch.float64):
+    """The dryrun case through ``GeneralDistributedSimulator`` on
+    ``group``: distributed CPR with Chebyshev smoothing, ppermute halos."""
+    from jutul.jl_tpu_torch import GeneralDistributedSimulator
+
+    dsim = GeneralDistributedSimulator(
+        c["wmesh"], c["model"].system, group, partition=part,
+        parameters=c["params"], data_fields=c["data_fields"],
+        halo_mode="ppermute", dtype=dtype)
+    states, reports = dsim.simulate(
+        c["state0"], c["dts"], forces=c["forces"], tolerances=c["tols"],
+        max_newton=40, preconditioner="cpr", cpr_smoother="chebyshev",
+        info_level=-1)
+    return dsim, states, reports
+
+
+def _counts(reports):
+    return [[m["iterations"], m["linear_iterations"]]
+            for r in reports for m in r["ministeps"]]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dd_cross_check(device="cuda"):
+    """The distributed engines in float64 against the port's single-device
+    engine, within dryrun_multichip's bars (states and gradients 1e-6,
+    beside MULTICHIP_r05.json's measurement of the JAX package):
+    - the dryrun case over ``ShardGroup.threads(8)`` on the card through
+      ``GeneralDistributedSimulator`` (distributed CPR, Chebyshev, ppermute
+      halos) against ``Simulator``, then
+      ``solve_adjoint_sensitivities_general`` against
+      ``solve_adjoint_sensitivities`` on the single-device states; the
+      same distributed run on the CPU within 1e-12 of the card's; a
+      world-size-1 NCCL ``ShardGroup.process_group`` run equal to
+      ``threads(1)`` bit for bit;
+    - tests/test_sharded.py's case on 4 slabs with the slab engine's
+      distributed CPR against ``Simulator``, then the slab adjoint against
+      the single-device one (its smooth variant)."""
+    import jutul.jl_tpu_torch as tp
+
+    f64 = torch.float64
+    out = {"bars": {"states": DD_BAR, "gradients": DD_BAR},
+           "multichip_r05": MULTICHIP_R05}
+    t0 = time.perf_counter()
+    c = dryrun_case(tp, DD_SHARDS)
+    dsim, sd, reps = _dryrun_run(c, tp.ShardGroup.threads(DD_SHARDS, device),
+                                 c["part"])
+    sim = tp.Simulator(c["model"], c["state0"], c["params"], device=device,
+                       dtype=f64)
+    ref = sim.simulate(c["dts"], forces=c["forces"], info_level=-1,
+                       tolerances=c["tols"], max_nonlinear_iterations=40)
+    sr = ref.states
+    out["dryrun"] = {
+        "cells": int(c["wmesh"].number_of_cells()), "shards": DD_SHARDS,
+        "counts": _counts(reps),
+        "states_rel": _state_rel(sd[-1], sr[-1]),
+        "pressure_rel": _state_rel({"p": sd[-1]["Pressure"]},
+                                   {"p": sr[-1]["Pressure"]}),
+        "saturation_abs": float(np.max(np.abs(
+            sd[-1]["Saturations"] - sr[-1]["Saturations"])))}
+    G = pressure_objective(c["p_ref"])
+    g_ref = tp.solve_adjoint_sensitivities(
+        c["model"], [dict(s) for s in sr], c["dts"], G,
+        parameters=c["params"], state0=c["state0"], forces=c["forces"],
+        device=device, dtype=f64)
+    g_dist = tp.solve_adjoint_sensitivities_general(
+        dsim, [dict(s) for s in sr], c["dts"], G, c["state0"],
+        forces=c["forces"], parameters=c["params"], rtol=1e-13,
+        max_lin_it=2000)
+    out["dryrun"]["gradients_rel"] = _grad_rel(g_dist, g_ref)
+    _d, s_cpu, reps_cpu = _dryrun_run(c, tp.ShardGroup.threads(DD_SHARDS,
+                                                                "cpu"),
+                                      c["part"])
+    out["dryrun"]["card_vs_cpu_rel"] = _state_rel(sd[-1], s_cpu[-1])
+    out["dryrun"]["cpu_counts"] = _counts(reps_cpu)
+    # one rank of NCCL against one thread: the same bits
+    import torch.distributed as dist
+
+    one = np.zeros(c["wmesh"].number_of_cells(), dtype=np.int64)
+    _d, s_th1, _r = _dryrun_run(c, tp.ShardGroup.threads(1, device), one)
+    dist.init_process_group("gloo" if device == "cpu" else "nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        _d, s_pg1, _r = _dryrun_run(c, tp.ShardGroup.process_group(), one)
+    finally:
+        dist.destroy_process_group()
+    out["dryrun"]["nccl1_equals_threads1"] = all(
+        np.array_equal(s_pg1[-1][k], s_th1[-1][k]) for k in s_th1[-1])
+    out["dryrun"]["seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mesh, system, df, init, forces = slab_case(tp)
+    slab = tp.DistributedSimulator(mesh, system, tp.ShardGroup.threads(
+        4, device), data_fields=df, local_preconditioner="cpr", dtype=f64)
+    st0 = slab.initial_state(**init)
+    DAY = tp.si_unit("day")
+    ss, sreps = slab.simulate(st0, [0.05 * DAY], forces=forces,
+                              tol_cnv=1e-10, max_newton=30, info_level=-1)
+    sref = tp.Simulator(slab.global_model, st0, device=device,
+                        dtype=f64).simulate(
+        [0.05 * DAY], forces=forces, info_level=-1,
+        tolerances={"default": 1e-10}, max_nonlinear_iterations=30)
+    mesh, system, df, init, forces = slab_case(tp, smooth=True)
+    smooth = tp.DistributedSimulator(mesh, system, tp.ShardGroup.threads(
+        4, device), data_fields=df, dtype=f64)
+    st0s = smooth.initial_state(**init)
+    params = tp.setup_parameters(smooth.global_model)
+    dts = [0.05 * DAY, 0.05 * DAY]
+    ref_s = tp.Simulator(smooth.global_model, st0s, params, device=device,
+                         dtype=f64).simulate(
+        dts, forces=forces, info_level=-1, tolerances={"default": 1e-10},
+        max_nonlinear_iterations=30).states
+    Gs = pressure_objective(100.0 * tp.si_unit("bar"))
+    gs_ref = tp.solve_adjoint_sensitivities(
+        smooth.global_model, [dict(s) for s in ref_s], dts, Gs,
+        parameters=params, state0=st0s, forces=forces, device=device,
+        dtype=f64)
+    gs = tp.solve_adjoint_sensitivities_distributed(
+        smooth, [dict(s) for s in ref_s], dts, Gs, st0s, forces=forces,
+        parameters=params, rtol=1e-13, max_lin_it=2000)
+    out["slab"] = {"cells": int(mesh.number_of_cells()), "shards": 4,
+                   "counts": _counts(sreps),
+                   "states_rel": _state_rel(ss[-1], sref.states[-1]),
+                   "gradients_rel": _grad_rel(gs, gs_ref),
+                   "seconds": time.perf_counter() - t0}
+    log("# dd-cross-check: " + json.dumps(out))
+    d, s = out["dryrun"], out["slab"]
+    if not (d["states_rel"] < DD_BAR and d["gradients_rel"] < DD_BAR
+            and s["states_rel"] < DD_BAR and s["gradients_rel"] < DD_BAR):
+        raise RuntimeError(f"dd-cross-check: beyond the bars: {out}")
+    if not d["card_vs_cpu_rel"] <= 1e-12:
+        raise RuntimeError(f"dd-cross-check: card and CPU differ: {out}")
+    if not d["nccl1_equals_threads1"]:
+        raise RuntimeError("dd-cross-check: the NCCL rank differs from the "
+                           "thread")
+    return out
+
+
+def dd_f64_verify(model, params, state, state0, dt, forces, name,
+                  device="cuda"):
+    """The final accepted ministep of a distributed run, gathered to the
+    global state, re-assembled in float64 on the card by the single-device
+    generic engine: CNV and MB within 10x their tolerances."""
+    from jutul.jl_tpu_torch import compile_model, from_numpy
+
+    comp = compile_model(model)
+    pr = from_numpy(params, device, torch.float64)
+    s = {**from_numpy(state, device, torch.float64), **pr}
+    s0 = {**from_numpy(state0, device, torch.float64), **pr}
+    r, _, full = comp.assemble(s, s0, dt, forces, with_jacobian=False)
+    c = comp.convergence(r, full, dt)["mass_conservation"]
+    out = {"rows": int(r.shape[0]),
+           "f64_max_abs_residual": float(r.abs().max()),
+           "f64_CNV": float(c["CNV"].max()), "f64_MB": float(c["MB"].max())}
+    log(f"# {name} f64 verify: " + json.dumps(out))
+    if not (out["f64_CNV"] <= 10 * CNV_TOL and out["f64_MB"] <= 10 * MB_TOL):
+        raise RuntimeError(f"{name} f64 verify: residual out of bound: {out}")
+    return out
+
+
+def dd_config():
+    """The Newton settings of the distributed runs: srcwells' tolerances,
+    Newton cap and final-iteration factor, BiCGStab at rtol 1e-3."""
+    return dict(tolerances={"mass_conservation/CNV": CNV_TOL,
+                            "mass_conservation/MB": MB_TOL},
+                max_newton=12, tol_factor_final_iteration=10.0, rtol=1e-3)
+
+
+def _dd_record(name, dsim, states, reports, wall, launches, setup, nc,
+               n_step):
+    from jutul.jl_tpu_torch import report_stats
+
+    stats = report_stats(reports)
+    if len(reports) != n_step or not all(r["success"] for r in reports):
+        raise RuntimeError(f"{name}: a report step failed")
+    for k, v in states[-1].items():
+        if k != "substates" and not np.all(np.isfinite(v)):
+            raise RuntimeError(f"{name}: final {k} not finite")
+    if dsim.device.type == "cuda":  # CPU tensors run the plain versions
+        _check_launches(name, name, launches)
+    newtons, lin = stats["newtons"], stats["linear_iterations"]
+    return {"slice": name, "cells": nc, "shards": dsim.n_devices,
+            "dtype": str(dsim.dtype).replace("torch.", ""),
+            "report_steps": n_step,
+            "ministeps": stats["ministeps"], "newtons": newtons,
+            "failed_ministeps": stats["failed_ministeps"],
+            "linear_iterations": lin, "wall_s": wall,
+            "s_per_newton": wall / newtons,
+            "cell_newton_its_per_s": nc * newtons / wall,
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                               if dsim.device.type == "cuda" else None),
+            "host_setup_s": setup, "launches": launches,
+            "launches_per_linear_iteration": {
+                k: v / max(lin, 1) for k, v in launches.items() if v},
+            "per_ministep": _counts(reports)}
+
+
+def _dd_sync(device, reset=False):
+    """Wait for the card (and reset its peak-memory mark); nothing on the
+    CPU, where the phases can run at small sizes."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+
+
+def slab_reference(res, forces, n_report=DD_SLAB_REPORTS, n_step=3):
+    """srcwells' run as dd-slab's reference: the dts and forces of the
+    accepted ministeps of its first ``n_report`` report steps (``res``:
+    its ``simulate`` result over ``n_step`` report steps of
+    ``rate_schedule(forces, n_step)``) and its state at their end."""
+    schedule = rate_schedule(forces, n_step)
+    dts, fs = [], []
+    for i, r in enumerate(res.reports[:n_report]):
+        for m in r["ministeps"]:
+            if m["success"]:
+                dts.append(float(m["dt"]))
+                fs.append(schedule[i])
+    return {"dts": dts, "forces": fs, "state": res.states[n_report - 1],
+            "report_steps": n_report}
+
+
+def phase_dd_slab(ref, grid=GRID, n_shards=DD_SHARDS, device="cuda"):
+    """The bench flagship with source-term wells at full width through the
+    slab engine: ``DistributedSimulator`` over ``ShardGroup.threads(8)`` on
+    the card (eight z-slabs), ``local_preconditioner="cpr"`` — the global
+    pressure stencil all-gathered once per Jacobian and V-cycled by GMG on
+    every shard (srcwells' GMG settings), stage 2 block-ILU(0) — in float32,
+    the eager loop with dt cuts, on srcwells' accepted ministep dts and
+    forces (``ref``: ``slab_reference`` of srcwells' run on ``grid``; the
+    slab engine has no timestep selector). K2 must launch (all shards count
+    into the process-wide counters); the final accepted ministep passes
+    the f64 verify, and the final state is held against srcwells' at the
+    same time: pressure within DD_SLAB_P_BAR relative, saturations within
+    DD_SLAB_S_BAR."""
+    from jutul.jl_tpu_torch import GMG, DistributedSimulator, ShardGroup
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model, state0, params, forces = build_flagship(*grid)
+    nc = model.number_of_cells()
+    setup = {}
+    t0 = time.perf_counter()
+    dd = model.data_domain
+    dsim = DistributedSimulator(
+        model.domain.mesh, model.system,
+        ShardGroup.threads(n_shards, device), parameters=params,
+        data_fields={"permeability": dd["permeability"],
+                     "porosity": dd["porosity"]},
+        local_preconditioner="cpr",
+        gmg=GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384))
+    setup["decomposition"] = time.perf_counter() - t0
+    cfg = dd_config()
+    _dd_sync(device, reset=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    states, reports = dsim.simulate(state0, ref["dts"], forces=ref["forces"],
+                                    max_lin_it=25, **cfg)
+    _dd_sync(device)
+    wall = time.perf_counter() - t0
+    out = _dd_record("dd-slab", dsim, states, reports, wall, launch_counts(),
+                     setup, nc, len(ref["dts"]))
+    out["k2_launches_per_linear_iteration"] = \
+        out["launches_per_linear_iteration"].get("scalar_jacobi", 0)
+    # a ministep at the Newton cap is accepted by the final-iteration
+    # factor (10x the tolerances), as srcwells' own capped ministeps
+    out["srcwells_report_steps"] = ref["report_steps"]
+    out["ministeps_at_newton_cap"] = sum(
+        m["iterations"] >= cfg["max_newton"] for r in reports
+        for m in r["ministeps"] if m["success"])
+    start, end, dt = dsim.last_ministep
+    out["f64_verify"] = dd_f64_verify(
+        model, params, dsim.gather_state(end), dsim.gather_state(start), dt,
+        ref["forces"][-1], "dd-slab", device)
+    a, b = states[-1], ref["state"]
+    out["vs_srcwells"] = {
+        "max_rel_dev_pressure": float(np.max(np.abs(
+            a["Pressure"] / b["Pressure"] - 1))),
+        "max_abs_dev_saturations": float(np.max(np.abs(
+            a["Saturations"] - b["Saturations"]))),
+        "bars": [DD_SLAB_P_BAR, DD_SLAB_S_BAR]}
+    log("# dd-slab: " + json.dumps(out))
+    v = out["vs_srcwells"]
+    if not (v["max_rel_dev_pressure"] <= DD_SLAB_P_BAR
+            and v["max_abs_dev_saturations"] <= DD_SLAB_S_BAR):
+        raise RuntimeError(f"dd-slab: the final state differs from "
+                           f"srcwells' at the same time: {v}")
+    return out
+
+
+def phase_dd_general(n_step=2, n_shards=DD_SHARDS, device="cuda",
+                     grid=LAYER_GRID, lam_rtol=DD_LAMBDA_RTOL,
+                     lam_its=DD_LAMBDA_ITS, case=None):
+    """BASELINE configuration 5's shape: extruded-layers' reservoir
+    (``layered_reservoir``: 1,048,576 extruded cells + 5 trajectory wells
+    as a well graph) through ``GeneralDistributedSimulator`` over
+    ``ShardGroup.threads(8)`` on the card, on the native partition into 8
+    blocks with ``partition_groups()`` forced; halo_mode "auto"
+    (all_to_all at 8 shards), the distributed CPR with Chebyshev
+    smoothing; float32, ``n_step`` report steps of 6 h of the rate ramp,
+    the final accepted ministep through the f64 verify. Then
+    ``solve_adjoint_sensitivities_general`` of dryrun_multichip's pressure
+    objective over the accepted ministeps in float64 (block-Jacobi
+    BiCGStab λ-solves at ``lam_rtol``, at most ``lam_its`` iterations; in
+    float32 neither engine reached that tolerance in 200) against the
+    single-device generic adjoint of the same states in float64
+    (ILU(0)-BiCGStab, same tolerance and cap): every λ-solve of both must
+    converge and the gradients agree within DD_LAMBDA_GRAD_BAR relative.
+    Reported: the sweep's seconds over the forward's, λ iterations per
+    step, the gradients' largest relative difference. ``case``:
+    extruded-layers' case, when this call built it already (its host
+    set-up is then reported there)."""
+    import jutul.jl_tpu_torch as tp
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from jutul.jl_tpu_torch.parallel.general_adjoint import (
+        GeneralDistributedAdjoint,
+    )
+
+    if case is None:
+        case, setup = _timed_case(layered_reservoir, *grid)
+    else:
+        setup = {"case": "extruded-layers' (built there)"}
+    model, params, state0 = case["model"], case["params"], case["state0"]
+    wmesh = model.domain.mesh
+    nc = model.number_of_cells()
+    t0 = time.perf_counter()
+    part = tp.GreedyGraphPartitioner().partition(
+        wmesh.neighborship(), nc, n_shards, groups=wmesh.partition_groups())
+    setup["partition"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dsim = tp.GeneralDistributedSimulator(
+        wmesh, None, tp.ShardGroup.threads(n_shards, device), partition=part,
+        parameters=params, model=model)
+    setup["decomposition"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dsim._cpr_tables(0)
+    setup["cpr aggregation"] = time.perf_counter() - t0
+    schedule = rate_schedule(case["forces"], n_step)
+    _dd_sync(device, reset=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    states, reports = dsim.simulate(
+        state0, [DT] * n_step, forces=schedule, max_lin_it=50,
+        preconditioner="cpr", cpr_smoother="chebyshev",
+        output_substates=True, **dd_config())
+    _dd_sync(device)
+    wall = time.perf_counter() - t0
+    out = _dd_record("dd-general", dsim, states, reports, wall,
+                     launch_counts(), setup, nc, n_step)
+    out.update(halo_mode=dsim.halo_mode, n_own_max=dsim.dec.n_own_max,
+               n_ghost_max=dsim.dec.n_ghost_max,
+               load_balance=float(np.bincount(part).max()
+                                  / (nc / n_shards)))
+    start, end, dt = dsim.last_ministep
+    out["f64_verify"] = dd_f64_verify(
+        model, params, dsim.gather_state(end), dsim.gather_state(start), dt,
+        schedule[-1], "dd-general", device)
+    # the adjoint over the accepted ministeps
+    ms, mdts = tp.expand_to_ministeps(states, reports)
+    mforces = [schedule[i] for i, r in enumerate(reports)
+               for m in r["ministeps"] if m["success"]]
+    G = pressure_objective(200.0 * tp.si_unit("bar"))
+    t0 = time.perf_counter()
+    dsim64 = tp.GeneralDistributedSimulator(
+        wmesh, None, tp.ShardGroup.threads(n_shards, device), partition=part,
+        parameters=params, model=model, dtype=torch.float64)
+    setup["float64 adjoint engine"] = time.perf_counter() - t0
+    adj = GeneralDistributedAdjoint(dsim64, parameters=params)
+    _dd_sync(device)
+    t0 = time.perf_counter()
+    g = adj.solve(ms, mdts, G, state0, forces=mforces, rtol=lam_rtol,
+                  max_lin_it=lam_its)
+    _dd_sync(device)
+    sweep = time.perf_counter() - t0
+    storage = tp.AdjointStorage(model, params, device=device,
+                                dtype=torch.float64,
+                                linear_solver=generic_lambda_solver(
+                                    lam_rtol, lam_its))
+    t0 = time.perf_counter()
+    g_ref = tp.solve_adjoint_sensitivities(
+        model, ms, mdts, G, parameters=params, state0=state0,
+        forces=mforces, storage=storage)
+    _dd_sync(device)
+    out["adjoint"] = a = {
+        "ministeps": len(ms), "dtype": "float64", "sweep_s": sweep,
+        "forward_s": wall, "sweep_over_forward": sweep / wall,
+        "lambda_iterations_per_step": adj.lambda_iterations[::-1],
+        "lambda_converged_per_step": adj.lambda_converged[::-1],
+        "lambda_rtol": lam_rtol, "lambda_max_iterations": lam_its,
+        "single_device_sweep_s": time.perf_counter() - t0,
+        "single_device_lambda_iterations": list(
+            storage.lambda_iterations[::-1]),
+        "single_device_lambda_converged": list(
+            storage.lambda_converged[::-1]),
+        "grad_rel_diff_vs_single_device": {
+            k: _grad_rel({k: g[k]}, {k: g_ref[k]}) for k in g_ref},
+        "grad_bar": DD_LAMBDA_GRAD_BAR}
+    log("# dd-general: " + json.dumps(out))
+    if not all(np.all(np.isfinite(v)) for v in g.values()):
+        raise RuntimeError("dd-general adjoint: non-finite gradient")
+    if not (all(a["lambda_converged_per_step"])
+            and all(a["single_device_lambda_converged"])):
+        raise RuntimeError("dd-general adjoint: a λ-solve did not converge")
+    if max(a["grad_rel_diff_vs_single_device"].values()) > \
+            DD_LAMBDA_GRAD_BAR:
+        raise RuntimeError("dd-general adjoint: the gradients differ from "
+                           "the single-device adjoint's")
+    return out
+
+
+def dd_phases(srcwells=None, extruded=None, layered=None, device="cuda"):
+    """The distributed phases: dd-cross-check, dd-slab and dd-general,
+    each beside its single-device counterpart of the same call when given
+    (``srcwells``: its record and ``slab_reference``; ``extruded``: its
+    record; ``layered``: extruded-layers' case). Without ``srcwells`` the
+    srcwells slice runs here first. Returns the records."""
+    out = {}
+    t0 = time.perf_counter()
+    out["dd-cross-check"] = phase_dd_cross_check(device)
+    log(f"# dd-cross-check: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if srcwells is None:
+        case = build_flagship(*GRID)
+        _, res, _, rec = phase_slice(case, "srcwells", "jacobi")
+        srcwells = (rec, slab_reference(res, case[3]))
+        del case, res
+    out["dd-slab"] = phase_dd_slab(srcwells[1], device=device)
+    torch.cuda.empty_cache()
+    log(f"# dd-slab: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["dd-general"] = phase_dd_general(device=device, case=layered)
+    torch.cuda.empty_cache()
+    log(f"# dd-general: {time.perf_counter() - t0:.1f} s")
+    keys = ("ministeps", "newtons", "linear_iterations", "s_per_newton",
+            "cell_newton_its_per_s", "peak_mem_bytes")
+    for name, ref, ref_name in (("dd-slab", srcwells[0], "srcwells"),
+                                ("dd-general", extruded, "extruded-layers")):
+        log(f"# {name} vs {ref_name} (same call): " + json.dumps({
+            name: {k: out[name][k] for k in keys},
+            ref_name: ({k: ref[k] for k in keys} if ref else None)}))
     return out
 
 
@@ -4475,6 +5103,8 @@ def main():
              dict(product=True, coef_dtype="bf16", phases=True, n_step=2))):
         sim, res, last_forces, slices[name] = phase_slice(c, name, smoother,
                                                           **kw)
+        if name == "srcwells":
+            slab_ref = slab_reference(res, c[3])
         slices[name]["f64_verify"] = phase_f64_verify(sim, res, last_forces,
                                                       name)
         if name == "wells-product":
@@ -4531,10 +5161,15 @@ def main():
                                       "nfvm-pressure")})
     log(f"# transport phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    me = meshes_phases()
+    me = meshes_phases(keep_case=True)
     slices.update({k: me[k] for k in ("extruded-layers", "coarse-upscaled",
                                       "cut-fault")})
     log(f"# meshes phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dd = dd_phases(srcwells=(slices["srcwells"], slab_ref),
+                   extruded=me["extruded-layers"], layered=me.pop("case"))
+    slices.update({k: dd[k] for k in ("dd-slab", "dd-general")})
+    log(f"# distributed phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     case_dict = build_flagship(*DICT_GRID)
     dict_hm = phase_dict_history_match(case_dict, max_iterations=2)
@@ -4631,6 +5266,14 @@ def main():
         + " cut " + json.dumps({k: me["cut-fault"][k] for k in (
             "grid", "cut_s", "cells_added", "volume_rel_err")})
         + " cross-check " + json.dumps(me["meshes-cross-check"]))
+    log("# distributed " + json.dumps({k: {q: dd[k][q] for q in (
+        "cells", "shards", "ministeps", "newtons", "linear_iterations",
+        "s_per_newton", "cell_newton_its_per_s", "peak_mem_bytes",
+        "host_setup_s", "f64_verify")} for k in ("dd-slab", "dd-general")})
+        + " k2_per_linear_iteration " + json.dumps(
+            dd["dd-slab"]["k2_launches_per_linear_iteration"])
+        + " adjoint " + json.dumps(dd["dd-general"]["adjoint"])
+        + " cross-check " + json.dumps(dd["dd-cross-check"]))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -4705,6 +5348,11 @@ if __name__ == "__main__":
         # --meshes [n_step]
         print(phase_device())
         meshes_phases(*(int(a) for a in sys.argv[2:3]))
+    elif len(sys.argv) >= 2 and sys.argv[1] == "--dd":
+        # the distributed phases alone (a quick check; no result line)
+        print(phase_device())
+        phase_build()
+        dd_phases()
     elif len(sys.argv) >= 2 and sys.argv[1] == "--transport":
         # the transport slice's phases alone (a quick check; no result
         # line): --transport [n_step [nx [node offset]]]

@@ -35,7 +35,11 @@ quality checks, well trajectories, coarse meshes and data coarsening,
 radial and spiral meshes, plane and surface cuts, gluing, embedded
 fracture surfaces, entity tags (``meshes/``), the native C++ partitioner,
 RCM and AMG aggregation (``native/``, built with g++ at first use), the
-graph partitioners (``parallel/partition.py``) and the VTK, Gmsh, MRST,
+graph partitioners (``parallel/partition.py``), the distributed engines —
+slab and general-partition SPMD Newton with their distributed CPR and
+adjoints and the dd submodel extraction, over a ``ShardGroup`` of threads
+on one device or of ``torch.distributed`` ranks (``parallel/``) — and the
+VTK, Gmsh, MRST,
 plotting and timing utilities (``utils/``) — in PyTorch, with hand-written CUDA kernels
 for Hopper (``ops/cuda``, sources in ``csrc/``) where the JAX package has Pallas kernels. On CPU
 tensors every kernel wrapper runs its plain PyTorch version.
@@ -192,11 +196,17 @@ from .ops.stencil import (
     StencilCompiledModel,
     StencilKrylovSolver,
 )
+from .parallel.adjoint import solve_adjoint_sensitivities_distributed
+from .parallel.comm import ShardGroup
+from .parallel.dd import subdomain, subforces, submodel, substate
+from .parallel.general import GeneralDistributedSimulator
+from .parallel.general_adjoint import solve_adjoint_sensitivities_general
 from .parallel.partition import (
     GreedyGraphPartitioner,
     LinearPartitioner,
     MetisPartitioner,
 )
+from .parallel.sharded import DistributedSimulator, simulate_parray
 from .simulator.convergence_monitors import (
     ConvergenceMonitorCuttingCriterion,
     ConvergenceMonitorRelaxation,
@@ -244,9 +254,11 @@ __all__ = [
     "CompositeSystem", "ConstantVariables",
     "ConvergenceMonitorCuttingCriterion", "ConvergenceMonitorRelaxation",
     "CrossTerm", "DataDomain", "DictParameters", "DictParametersSampler",
-    "DirectSolver", "DiscretizedDomain", "ELLStructure",
+    "DirectSolver", "DiscretizedDomain", "DistributedSimulator",
+    "ELLStructure",
     "EndTimeTerminationCriterion", "FunctionSecondaryVariable", "GMG",
-    "GenericKrylov", "GlobalObjective", "GreedyGraphPartitioner",
+    "GeneralDistributedSimulator", "GenericKrylov", "GlobalObjective",
+    "GreedyGraphPartitioner",
     "GroupWisePreconditioner", "HelperSimulator", "ILU0Preconditioner",
     "ImmiscibleFluid", "IndexRenumerator", "IndirectionMap",
     "IterationTimestepSelector", "JacobiPreconditioner", "JutulCase",
@@ -256,7 +268,7 @@ __all__ = [
     "PhaseSourceTerm", "PlaneCut", "PoissonSource",
     "PressureBoundaryCondition", "SPAI0Preconditioner", "ScalarTestCrossTerm",
     "ScalarTestDomain", "ScalarTestForce", "ScalarTestSystem",
-    "SchurComplementSolver", "SimResult", "SimpleHeatSystem",
+    "SchurComplementSolver", "ShardGroup", "SimResult", "SimpleHeatSystem",
     "SimpleRelaxation", "SimulationModel", "Simulator",
     "SmoothedAggregationAMG", "StencilCPR", "StencilCompiledModel",
     "StencilKrylovSolver", "SumObjective", "SurfaceCut", "SurfaceMesh",
@@ -283,10 +295,14 @@ __all__ = [
     "setup_adjoint_storage", "setup_darcy_model", "setup_forces",
     "setup_parameter_optimization", "setup_parameters", "setup_state",
     "setup_well_graph_model", "si_unit", "si_units", "simulate",
-    "simulator_config", "solve_adjoint_forces", "solve_adjoint_generic",
-    "solve_adjoint_sensitivities", "solve_adjoint_sensitivities_jit",
+    "simulate_parray", "simulator_config", "solve_adjoint_forces",
+    "solve_adjoint_generic", "solve_adjoint_sensitivities",
+    "solve_adjoint_sensitivities_distributed",
+    "solve_adjoint_sensitivities_general",
+    "solve_adjoint_sensitivities_jit",
     "solve_numerical_sensitivities", "spiral_mesh", "state_gradient",
-    "store_output", "timing_breakdown", "trajectory_intersections",
+    "store_output", "subdomain", "subforces", "submodel", "substate",
+    "timing_breakdown", "trajectory_intersections",
     "triangulate_mesh", "unit_box_bfgs", "valid_restart_indices",
     "vectorize_variables",
 ]

@@ -136,20 +136,27 @@ def gmres(matvec: Callable, b, x0=None, restart: int = 20,
 
 
 def bicgstab(matvec: Callable, b, maxiter: int = 200, rtol: float = 1e-8,
-             atol: float = 0.0, precond: Callable | None = None):
+             atol: float = 0.0, precond: Callable | None = None,
+             dot_fn: Callable | None = None):
     """Right-preconditioned BiCGStab from the zero initial guess.
 
     Shape-generic: every operation is elementwise or a full-reduction dot,
     so vectors may be any shape that ``matvec``/``precond`` consume and
     produce (the stencil path keeps (n, neq) blocks). ``rtol``: a Python
-    float, or a 0-d tensor for a per-call tolerance. Returns
-    ``(x, stats)`` with stats = dict(iterations, residual, converged).
+    float, or a 0-d tensor for a per-call tolerance. ``dot_fn`` overrides
+    the inner product: a shard passes a psum-reducing dot to make the
+    solve distributed (the reference's PVector dots over MPI, ext
+    krylov.jl). Returns ``(x, stats)`` with stats = dict(iterations,
+    residual, converged).
     """
     if precond is None:
         precond = _identity
 
     def dot(a, v):
         return torch.sum(a * v)
+
+    if dot_fn is not None:
+        dot = dot_fn
 
     def norm(v):
         return torch.sqrt(dot(v, v))

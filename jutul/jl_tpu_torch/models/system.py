@@ -96,6 +96,7 @@ class SimulationModel:
             system.select_equations(self)
         )
         self.output_variables: list[str] = list(system.select_output_variables(self))
+        self.extra: dict[str, Any] = {}  # e.g. a submodel's global map
 
     # --- counts ----------------------------------------------------------
     def count_entities(self, entity: JutulEntity) -> int:

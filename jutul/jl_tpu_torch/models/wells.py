@@ -149,6 +149,13 @@ class WellGraphMesh(JutulMesh):
             params["GravityPotentialDifference"] = gdz
         return params
 
+    def partition_groups(self):
+        """Forced groups for the partitioner: each well cell + its
+        completions stay in one block (reference partitioning.jl:239)."""
+        return [[self.well_cells[w.name]]
+                + [int(c) for c in np.atleast_1d(np.asarray(w.cells))]
+                for w in self.wells]
+
 
 def setup_well_graph_model(mesh, fluid, wells: "list[WellSpec]",
                            permeability=None, porosity=None, gravity=None):

@@ -1,1 +1,3 @@
-"""parallel — graph partitioning (host numpy); see the package docstring."""
+"""parallel — graph partitioning (host numpy), shard groups and their
+collectives (``comm``), the slab and general-partition SPMD engines with
+their distributed CPR and adjoints, and dd submodel extraction."""

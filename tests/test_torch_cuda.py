@@ -836,3 +836,69 @@ def test_stencil_jacobian_oracle_on_the_card(dev):
     x = torch.randn((A.n, 2), device=dev, dtype=torch.float64)
     assert _rel(SK.StencilMatvec(A)(x),
                 sc.jacobian(full, full, chip_smoke.DT).matvec(x)) <= 1e-12
+
+
+@pytest.mark.parametrize("halo_mode", ["all_to_all", "ppermute"])
+def test_general_dd_on_the_card_matches_the_cpu(dev, halo_mode):
+    """chip_smoke's dryrun case over ``ShardGroup.threads(4)`` on the card
+    in float64 (distributed CPR, Chebyshev): the card's counts equal the
+    CPU's, its states lie within 1e-12 of them, a second card run repeats
+    the bits; no kernel of ops/cuda launches."""
+    import chip_smoke
+    import jutul.jl_tpu_torch as tp
+
+    c = chip_smoke.dryrun_case(tp, 4)
+    runs = []
+    kernels.reset_launch_counts()
+    for d in (dev, dev, "cpu"):
+        dsim = tp.GeneralDistributedSimulator(
+            c["wmesh"], c["model"].system, tp.ShardGroup.threads(4, d),
+            partition=c["part"], parameters=c["params"],
+            data_fields=c["data_fields"], halo_mode=halo_mode,
+            dtype=torch.float64)
+        states, reps = dsim.simulate(
+            c["state0"], c["dts"], forces=c["forces"], tolerances=c["tols"],
+            max_newton=40, preconditioner="cpr", cpr_smoother="chebyshev",
+            info_level=-1)
+        runs.append((chip_smoke._counts(reps), states))
+    assert not any(kernels.launch_counts().values())
+    assert runs[0][0] == runs[1][0] == runs[2][0]
+    for a, b, cpu in zip(runs[0][1], runs[1][1], runs[2][1]):
+        for k in ("Pressure", "Saturations"):
+            assert np.array_equal(a[k], b[k])
+            assert chip_smoke._state_rel({k: a[k]}, {k: cpu[k]}) <= 1e-12
+
+
+def test_slab_dd_cpr_launches_k2_and_matches_the_cpu(dev):
+    """The slab engine's distributed CPR on the card (4 slabs, float64):
+    the global GMG V-cycle launches K2 from every shard thread; ministep
+    and Newton counts equal the CPU's, linear its within 2 per Newton (a
+    BiCGStab stop near its tolerance sees the devices' roundoff: 100
+    against 99 here), states within 1e-12; the slab adjoint's gradients
+    card against CPU within 1e-9 (λ-solves at rtol 1e-13)."""
+    import chip_smoke
+    import jutul.jl_tpu_torch as tp
+
+    out = []
+    for d in (dev, "cpu"):
+        mesh, system, df, init, forces = chip_smoke.slab_case(tp)
+        kernels.reset_launch_counts()
+        dsim = tp.DistributedSimulator(
+            mesh, system, tp.ShardGroup.threads(4, d), data_fields=df,
+            local_preconditioner="cpr", dtype=torch.float64)
+        states, reps = dsim.simulate(dsim.initial_state(**init), [4320.0],
+                                     forces=forces, tol_cnv=1e-10,
+                                     max_newton=30, info_level=-1)
+        launches = kernels.launch_counts()
+        grads = tp.solve_adjoint_sensitivities_distributed(
+            dsim, states, [4320.0], chip_smoke.pressure_objective(1e7),
+            dsim.initial_state(**init), forces=forces, rtol=1e-13,
+            max_lin_it=2000)
+        out.append((chip_smoke._counts(reps), states[-1], launches, grads))
+    (cg, sg, lg, gg), (cc, sc, lc, gc) = out
+    assert lg["scalar_jacobi"] > 0 and not any(lc.values())
+    assert [n for n, _ in cg] == [n for n, _ in cc]
+    assert all(abs(a[1] - b[1]) <= 2 * a[0] for a, b in zip(cg, cc))
+    assert chip_smoke._state_rel(sg, sc) <= 1e-12
+    for k in gc:
+        assert chip_smoke._grad_rel({k: gg[k]}, {k: gc[k]}) <= 1e-9, k

@@ -51,6 +51,14 @@ def test_port_imports_without_jax():
         "import jutul.jl_tpu_torch.interpolation\n"
         "import jutul.jl_tpu_torch.native\n"
         "import jutul.jl_tpu_torch.parallel.partition\n"
+        "import jutul.jl_tpu_torch.parallel.comm\n"
+        "import jutul.jl_tpu_torch.parallel.slab\n"
+        "import jutul.jl_tpu_torch.parallel.dd\n"
+        "import jutul.jl_tpu_torch.parallel.sharded\n"
+        "import jutul.jl_tpu_torch.parallel.adjoint\n"
+        "import jutul.jl_tpu_torch.parallel.general\n"
+        "import jutul.jl_tpu_torch.parallel.general_cpr\n"
+        "import jutul.jl_tpu_torch.parallel.general_adjoint\n"
         "import jutul.jl_tpu_torch.meshes.coarse\n"
         "import jutul.jl_tpu_torch.meshes.convexgeom\n"
         "import jutul.jl_tpu_torch.meshes.cutcell\n"
