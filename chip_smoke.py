@@ -212,7 +212,7 @@ failure (nothing is caught, so any failure exits non-zero):
    objective over the accepted ministeps in float64 against the
    single-device generic adjoint of the same states: every λ-solve of
    both converged, gradients within 1e-3.
-32. dd-multimodel (run right after the MultiModel phases): wells-multimodel's
+32. dd-multimodel (right after the MultiModel phases): wells-multimodel's
    case (1,048,576 reservoir cells over 8 native blocks, the 5 one-cell
    wells replicated, ``reduction="schur_apply"``) through
    ``GeneralDistributedMultiModel`` on ``ShardGroup.threads(8)``,
@@ -224,6 +224,12 @@ failure (nothing is caught, so any failure exits non-zero):
    over DD_MM_ADJOINT_STEPS ministeps against the single-device generic
    adjoint of the well-graph form of the same states (gradients within
    1e-3, every λ-solve converged).
+
+Phases 1-8 run alone. Then a second process on the same card
+(``side_phases``) runs phases 15-18 and 29-32 while this one runs the
+rest; both are bound by the host, and the eight shard threads of 29-32
+take turns in one interpreter. The second process's log follows this
+one's; its failure fails the script.
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
@@ -239,6 +245,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -265,6 +272,7 @@ REL_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+SCRIPT_LIMIT_S = 1200.0  # the whole script's time limit, the build included
 F32_FLOPS = 67e12
 KERNEL_INFO = {
     "stencil_matvec": ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
@@ -961,6 +969,87 @@ def _csr(coef, L, C, K):
     return coo.coalesce().to_sparse_csr()
 
 
+K1_COPIES = 4  # input copies a cold K1 timing rotates over
+
+
+def k1_entry(key, mv, x, timed=True, library=True):
+    """K1 (``mv``, a StencilMatvec) at one of the main path's shapes on
+    ``x``: its output must equal K1's original mapping
+    (``stencil_matvec_reference``, on the widened coefficients for a
+    bfloat16 entry) bit for bit, or this raises. ``timed``: graph ms in
+    turns with the reference (reference, K1, K1, reference), "warm" on
+    the same inputs at every call (as every other graph time here, so
+    what the 50 MB L2 keeps from the previous call is served from there)
+    and "cold" rotating over ``K1_COPIES`` copies of the inputs (each call
+    finds them evicted, as on the main path); eager and plain ms; the
+    bound (coef, x and y bytes once); with ``library``, cuSPARSE's CSR
+    SpMV on the same matrix. Returns the row."""
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+
+    L, C, K = mv.L, mv.C, mv.K
+    wide = mv.coef if mv.coef.dtype == x.dtype else mv.coef.to(x.dtype)
+    y = mv(x)
+    ref = SK.stencil_matvec_reference(wide, x, L, C, K)
+    torch.cuda.synchronize()
+    if not torch.equal(y, ref):
+        raise RuntimeError(f"K1 {key}: differs from the original mapping")
+    log(f"  K1 {key}: bitwise equal to the original mapping")
+    if not timed:
+        return None
+    copies = [(mv.coef, wide, x)] + [
+        (mv.coef.clone(), wide.clone(), x.clone())
+        for _ in range(K1_COPIES - 1)]
+    state = {"i": 0}
+
+    def rotating(reference):
+        def run():
+            c, w, xx = copies[state["i"] % K1_COPIES]
+            state["i"] += 1
+            if reference:
+                return SK.stencil_matvec_reference(w, xx, L, C, K)
+            return SK.stencil_matvec(c, xx, L, C, K)
+        return run
+
+    new = lambda: mv(x)  # noqa: E731
+    old = lambda: SK.stencil_matvec_reference(wide, x, L, C, K)  # noqa: E731
+    warm = [graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old)]
+    cold = [graph_ms(rotating(True)), graph_ms(rotating(False)),
+            graph_ms(rotating(False)), graph_ms(rotating(True))]
+    del copies[1:]
+    nbytes = sum(t.numel() * t.element_size() for t in (mv.coef, x, y))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"C": C, "K": K, "coef_dtype": str(mv.coef.dtype)[6:],
+           "graph_ms": (warm[1] + warm[2]) / 2,
+           "reference_graph_ms": (warm[0] + warm[3]) / 2,
+           "cold_graph_ms": (cold[1] + cold[2]) / 2,
+           "reference_cold_graph_ms": (cold[0] + cold[3]) / 2,
+           "graph_ms_turns_reference_k1_k1_reference": warm,
+           "cold_graph_ms_turns_reference_k1_k1_reference": cold,
+           "eager_ms": cuda_ms(new), "reference_eager_ms": cuda_ms(old),
+           "plain_ms": cuda_ms(
+               lambda: SK.stencil_matvec_plain(mv.coef, x, L, C, K)),
+           "bound_ms": bound, "bound_bytes": nbytes, "library_ms": None}
+    row["share_of_bound"] = bound / row["graph_ms"]
+    row["cold_share_of_bound"] = bound / row["cold_graph_ms"]
+    if library:
+        csr = _csr(wide, L, C, K)
+        xf = x.reshape(-1, 1)
+        row["library_vs_kernel_rel_err"] = rel_err(
+            torch.sparse.mm(csr, xf).reshape(-1, C), y)
+        row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, xf))
+        row["library_call"] = ("torch.sparse.mm (cuSPARSE SpMV), CSR, "
+                               f"{csr.values().numel()} nonzeros")
+        del csr
+    log(f"  K1 {key}: graph ms {row['graph_ms']:.4f} (original mapping "
+        f"{row['reference_graph_ms']:.4f}), cold {row['cold_graph_ms']:.4f} "
+        f"({row['reference_cold_graph_ms']:.4f}), eager {row['eager_ms']:.4f}"
+        f", plain {row['plain_ms']:.4f}, bound {bound:.4f} "
+        f"({row['share_of_bound']:.0%} warm, "
+        f"{row['cold_share_of_bound']:.0%} cold), cuSPARSE "
+        f"{row['library_ms']}")
+    return row
+
+
 def phase_kernels(case, records):
     from jutul.jl_tpu_torch import compile_model
     from jutul.jl_tpu_torch.models.setup import merge_state
@@ -1051,20 +1140,21 @@ def phase_kernels(case, records):
                             dtype=dtype)
             rec.compare(dtype, f"K1 {tag}", mv(x),
                         SK.stencil_matvec_plain(mv.coef, x, L, C, K))
+            # every entry the main path launches: timed beside the
+            # original mapping; f64 K = 1 (refine's stage 2) only checked
+            timed = dtype == torch.float32 or K == 2
+            key = f"{str(dtype)[6:]} {tag}"
+            row = k1_entry(key, mv, x, timed=timed)
+            if timed:
+                rec.extra.setdefault("entries", {})[key] = row
             if dtype == torch.float32 and K == 2:
                 rec.set_work([mv.coef, x, mv(x)],
                              2 * TERMS_K1 * C * K * A.n)
-                csr = _csr(mv.coef, L, C, K)
-                xf = x.reshape(-1, 1)
-                rec.extra["library_vs_kernel_rel_err"] = rel_err(
-                    torch.sparse.mm(csr, xf).reshape(-1, C), mv(x))
-                rec.library_ms = cuda_ms(lambda: torch.sparse.mm(csr, xf))
-                rec.extra["library_call"] = (
-                    "torch.sparse.mm (cuSPARSE SpMV), CSR, "
-                    f"{csr.values().numel()} nonzeros")
-                del csr
-                rec.ms = cuda_ms(lambda: mv(x))
-                rec.graph_ms = graph_ms(lambda: mv(x))
+                rec.library_ms = row["library_ms"]
+                rec.extra["library_vs_kernel_rel_err"] = \
+                    row["library_vs_kernel_rel_err"]
+                rec.extra["library_call"] = row["library_call"]
+                rec.ms, rec.graph_ms = row["eager_ms"], row["graph_ms"]
                 rec.plain_ms = cuda_ms(
                     lambda: SK.stencil_matvec_plain(mv.coef, x, L, C, K))
 
@@ -1322,7 +1412,9 @@ def phase_kernels_bf16(case, records):
     rounded to bfloat16 and widened — bit for bit, or it raises: the
     coefficient is widened at its load and nothing else changes — and
     against its plain version; timed eagerly and as graph replays in turns
-    with the float32 entry; the bound counts 2-byte coefficients."""
+    with the float32 entry; the bound counts 2-byte coefficients. K1's
+    entry also equals its original mapping on the widened coefficients,
+    bit for bit, and is timed beside it (``k1_entry``)."""
     from jutul.jl_tpu_torch import compile_model, from_numpy
     from jutul.jl_tpu_torch.models.setup import merge_state
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
@@ -1381,6 +1473,9 @@ def phase_kernels_bf16(case, records):
     same("K1 K=1", [y], [SK.stencil_matvec(c32, x, mv.L, 2, 1)])
     rec.compare(f32, "K1 bf16 mv_Ap C=2,K=1", y,
                 SK.stencil_matvec_plain(mv.coef, x, mv.L, 2, 1))
+    # no one call multiplies bfloat16 coefficients into float32 vectors
+    rec.extra["entries"] = {"bfloat16 mv_Ap C=2,K=1": k1_entry(
+        "bfloat16 mv_Ap C=2,K=1", mv, x, library=False)}
     rec.set_work([mv.coef, x, y], 2 * TERMS_K1 * 2 * A.n)
     timings(rec, lambda: mv(x),
             lambda: SK.stencil_matvec(c32, x, mv.L, 2, 1),
@@ -1496,8 +1591,9 @@ def phase_kernels_bf16(case, records):
 def phase_kernels_transpose(case, records):
     """K1 on the adjoint's transposed lattice operator (``stencil_transpose``
     of the well flagship's assembled matrix: every field a non-contiguous
-    view, which ``embed`` packs) against its plain version, in float32 and
-    float64, and the dot identity <x, A y> = <Aᵀx, y> through K1 (sums in
+    view, which ``embed`` packs) against its plain version and, bit for
+    bit, its original mapping, in float32 and float64, and the dot
+    identity <x, A y> = <Aᵀx, y> through K1 (sums in
     float64: 1e-5 relative at float32, 1e-12 at float64)."""
     from jutul.jl_tpu_torch import compile_model, from_numpy
     from jutul.jl_tpu_torch.models.setup import merge_state
@@ -1524,6 +1620,7 @@ def phase_kernels_transpose(case, records):
         aty = mv_t(x)
         rec.compare(dtype, "K1 transposed C=K=2", aty,
                     SK.stencil_matvec_plain(mv_t.coef, x, mv_t.L, 2, 2))
+        k1_entry(f"transposed C=K=2 [{dtype}]", mv_t, x, timed=False)
         lhs = float(torch.sum((x * mv(y)).double()))
         rhs = float(torch.sum((aty * y).double()))
         rel = abs(lhs - rhs) / abs(lhs)
@@ -1619,13 +1716,20 @@ def phase_warm_up():
         run = sim.simulate_jit if product else sim.simulate
         run([DT] * 2, forces=rate_schedule(forces, 2),
             **generic_config(product=product))
+    warm_up_multimodel()
+    log(f"# warm-up (every slice's path at 16x16x8): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def warm_up_multimodel():
+    """The MultiModel's path: one step at 8x8x6 on the card."""
+    from jutul.jl_tpu_torch import Simulator
+
     mm, state0, params, forces = build_well_multimodel(*WELL_SMALL_EW)
     Simulator(mm, state0, params).simulate_jit(
         [DT], forces=rate_schedule(forces, 2)[:1],
         **multimodel_config(product=True))
     torch.cuda.synchronize()
-    log(f"# warm-up (every slice's path at 16x16x8): "
-        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_slice(case, name, smoother, fused=False, product=False,
@@ -1638,7 +1742,11 @@ def phase_slice(case, name, smoother, fused=False, product=False,
     set-up), then ``post(*run(*args))`` — instead of the eager ``simulate``;
     ``phases``: Jacobi phases through K5 whatever ``fused`` says."""
     from jutul.jl_tpu_torch import Simulator, report_stats
-    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from jutul.jl_tpu_torch.ops.cuda import (
+        launch_counts,
+        reset_launch_counts,
+        stencil_matvec,
+    )
 
     model, state0, params, forces = case
     nc = model.number_of_cells()
@@ -1664,6 +1772,8 @@ def phase_slice(case, name, smoother, fused=False, product=False,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    k1_shapes = {f"{e} C={c} K={k}": v for (e, c, k), v in
+                 stencil_matvec.launches_by_shape.items()}
     stats = report_stats(res.reports)
     peak = torch.cuda.max_memory_allocated()
     if not all(r["success"] for r in res.reports) or \
@@ -1697,6 +1807,9 @@ def phase_slice(case, name, smoother, fused=False, product=False,
         "peak_mem_bytes": peak, "launches": launches,
         "launches_per_linear_iteration": {
             k: v / max(lin, 1) for k, v in launches.items()},
+        # K1's launches by entry and shape: the operator (C = K = 2) and
+        # CPR stage 2's pressure column (C = 2, K = 1) counted apart
+        "k1_launches_by_shape": k1_shapes,
         # (Newtons, linear iterations) of each ministep: a ministep held at
         # the Newton cap shows the f32 roundoff floor of its residual
         "per_ministep": [[m["iterations"], m["linear_iterations"]]
@@ -3252,8 +3365,6 @@ def phase_eager_options(case, n_step=3, device="cuda"):
     ``VariableChangeTimestepSelector`` beside the selectors, hooks
     counting iterations and ministeps, and ``extra_timing``: it must
     complete; its counts and phase timings are printed."""
-    import tempfile
-
     from jutul.jl_tpu_torch import (
         ConvergenceMonitorCuttingCriterion,
         Simulator,
@@ -4452,15 +4563,12 @@ def phase_meshes_cross_check(dims=LAYER_SMALL):
     return out
 
 
-def meshes_phases(n_step=2, keep_case=False):
+def meshes_phases(n_step=2):
     """The meshes slice's phases: extruded-layers, coarse-upscaled,
-    cut-fault and the cross-check. Returns their records by name (and
-    with ``keep_case``, extruded-layers' case under ``"case"``)."""
+    cut-fault and the cross-check. Returns their records by name."""
     out = {}
     case, out["extruded-layers"] = phase_extruded_layers(n_step)
     out["coarse-upscaled"] = phase_coarse_upscaled(case, n_step)
-    if keep_case:
-        out["case"] = case
     del case
     out["cut-fault"] = phase_cut_fault(n_step)
     out["meshes-cross-check"] = phase_meshes_cross_check()
@@ -5161,7 +5269,7 @@ def phase_dd_slab(ref, grid=GRID, n_shards=DD_SHARDS, device="cuda"):
 
 def phase_dd_general(n_step=2, n_shards=DD_SHARDS, device="cuda",
                      grid=LAYER_GRID, lam_rtol=DD_LAMBDA_RTOL,
-                     lam_its=DD_LAMBDA_ITS, case=None):
+                     lam_its=DD_LAMBDA_ITS):
     """BASELINE configuration 5's shape: extruded-layers' reservoir
     (``layered_reservoir``: 1,048,576 extruded cells + 5 trajectory wells
     as a well graph) through ``GeneralDistributedSimulator`` over
@@ -5178,19 +5286,14 @@ def phase_dd_general(n_step=2, n_shards=DD_SHARDS, device="cuda",
     (ILU(0)-BiCGStab, same tolerance and cap): every λ-solve of both must
     converge and the gradients agree within DD_LAMBDA_GRAD_BAR relative.
     Reported: the sweep's seconds over the forward's, λ iterations per
-    step, the gradients' largest relative difference. ``case``:
-    extruded-layers' case, when this call built it already (its host
-    set-up is then reported there)."""
+    step, the gradients' largest relative difference."""
     import jutul.jl_tpu_torch as tp
     from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from jutul.jl_tpu_torch.parallel.general_adjoint import (
         GeneralDistributedAdjoint,
     )
 
-    if case is None:
-        case, setup = _timed_case(layered_reservoir, *grid)
-    else:
-        setup = {"case": "extruded-layers' (built there)"}
+    case, setup = _timed_case(layered_reservoir, *grid)
     model, params, state0 = case["model"], case["params"], case["state0"]
     wmesh = model.domain.mesh
     nc = model.number_of_cells()
@@ -5630,12 +5733,11 @@ def multimodel_dd_phases(device="cuda", cross_check=True):
     return out
 
 
-def dd_phases(srcwells=None, extruded=None, layered=None, device="cuda"):
-    """The distributed phases: dd-cross-check, dd-slab and dd-general,
-    each beside its single-device counterpart of the same call when given
-    (``srcwells``: its record and ``slab_reference``; ``extruded``: its
-    record; ``layered``: extruded-layers' case). Without ``srcwells`` the
-    srcwells slice runs here first. Returns the records."""
+def dd_phases(srcwells=None, device="cuda"):
+    """The distributed phases: dd-cross-check, dd-slab and dd-general
+    (``srcwells``: srcwells' record, None beside ``main``, and its
+    ``slab_reference``; without it the srcwells slice runs here first).
+    Returns the records."""
     out = {}
     t0 = time.perf_counter()
     out["dd-cross-check"] = phase_dd_cross_check(device)
@@ -5650,18 +5752,116 @@ def dd_phases(srcwells=None, extruded=None, layered=None, device="cuda"):
     torch.cuda.empty_cache()
     log(f"# dd-slab: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    out["dd-general"] = phase_dd_general(n_step=1, device=device,
-                                         case=layered)
+    out["dd-general"] = phase_dd_general(n_step=1, device=device)
     torch.cuda.empty_cache()
     log(f"# dd-general: {time.perf_counter() - t0:.1f} s")
+    log_same_call(out, srcwells[0])
+    return out
+
+
+def log_same_call(dd, srcwells=None, extruded=None):
+    """dd-slab and dd-general beside the single-device records of the same
+    call (srcwells', extruded-layers'), where given."""
     keys = ("ministeps", "newtons", "linear_iterations", "s_per_newton",
             "cell_newton_its_per_s", "peak_mem_bytes")
-    for name, ref, ref_name in (("dd-slab", srcwells[0], "srcwells"),
+    for name, ref, ref_name in (("dd-slab", srcwells, "srcwells"),
                                 ("dd-general", extruded, "extruded-layers")):
-        log(f"# {name} vs {ref_name} (same call): " + json.dumps({
-            name: {k: out[name][k] for k in keys},
-            ref_name: ({k: ref[k] for k in keys} if ref else None)}))
+        if ref is not None:
+            log(f"# {name} vs {ref_name} (same call): " + json.dumps({
+                name: {k: dd[name][k] for k in keys},
+                ref_name: {k: ref[k] for k in keys}}))
+
+
+def side_phases(slab_ref):
+    """``python3 chip_smoke.py --side DIR``: the phases that ``main`` runs
+    in a second process on the same card, beside its own from the generic
+    phases on — the MultiModel phases (wells-multimodel, multimodel-fused,
+    its engine check, dd-multimodel, the card-vs-CPU cross-check) and the
+    distributed ones (dd-cross-check, dd-slab on srcwells' ``slab_ref``,
+    dd-general on its own extruded-layers case). Both halves are bound by
+    the host: the eight shard threads take turns in one interpreter, so
+    in one process they would run one after the other. Returns the
+    records ``main`` reports."""
+    t_start = time.perf_counter()
+    out = {"slices": {}}
+    slices = out["slices"]
+    warm_up_multimodel()
+    case_w = build_well_flagship(*GRID)
+    case_mm = build_well_multimodel(*GRID)
+    sim, res, last_forces, slices["wells-multimodel"] = phase_multimodel(
+        case_mm, n_step=2)
+    slices["wells-multimodel"]["f64_verify"] = phase_f64_verify(
+        sim, res, last_forces, "wells-multimodel")
+    slices["multimodel-fused"] = phase_multimodel_fused(sim, case_mm)
+    out["mm_engine"] = phase_multimodel_engine_check(case_mm, case_w, res,
+                                                     n_step=2)
+    mm_ref = slab_reference(res, case_mm[3], n_report=1, n_step=2)
+    t1 = time.perf_counter()
+    slices["dd-multimodel"] = phase_dd_multimodel(case_mm, mm_ref, case_w,
+                                                  ref_sim=sim)
+    log(f"# dd-multimodel: {time.perf_counter() - t1:.1f} s")
+    del sim, res, case_mm, case_w, mm_ref
+    torch.cuda.empty_cache()
+    out["mm_cross"] = phase_multimodel_cross_check()
+    log(f"# multimodel phases: {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    out["dd"] = dd_phases(srcwells=(None, slab_ref))
+    slices.update({k: out["dd"][k] for k in ("dd-slab", "dd-general")})
+    log(f"# distributed phases: {time.perf_counter() - t0:.1f} s")
+    log(f"# side total {time.perf_counter() - t_start:.1f} s")
     return out
+
+
+def start_side(slab_ref):
+    """``side_phases`` in a second process: ``slab_ref`` pickled into a
+    temporary directory, its output into side.log there. The process dies
+    with this one, and is stopped and the directory removed at exit.
+    Returns (process, directory)."""
+    import atexit
+    import ctypes
+    import pickle
+    import shutil
+    import signal
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    with open(os.path.join(workdir, "slab_ref.pkl"), "wb") as f:
+        pickle.dump(slab_ref, f)
+
+    def die_with_parent():  # prctl(PR_SET_PDEATHSIG, SIGKILL)
+        ctypes.CDLL(None, use_errno=True).prctl(1, int(signal.SIGKILL))
+
+    with open(os.path.join(workdir, "side.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side", workdir],
+            stdout=out, cwd=os.path.dirname(os.path.abspath(__file__)),
+            preexec_fn=die_with_parent)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, workdir
+
+
+def finish_side(proc, workdir, timeout):
+    """Waits for the second process, repeats its log and returns its
+    records (its output's last line); raises if it failed."""
+    try:
+        rc = proc.wait(timeout=max(timeout, 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    with open(os.path.join(workdir, "side.log")) as f:
+        lines = f.read().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if rc != 0 or not lines:
+        raise RuntimeError(f"the side process failed ({rc})")
+    return json.loads(lines[-1])
 
 
 def main():
@@ -5706,6 +5906,7 @@ def main():
             slices[name]["refine"] = phase_refine(sim, res, last_forces)
         del sim, res
         torch.cuda.empty_cache()
+    side, workdir = start_side(slab_ref)
     t0 = time.perf_counter()
     sim, res, last_forces, slices["generic"] = phase_generic(case, n_step=2)
     slices["generic"]["f64_verify"] = phase_f64_verify(sim, res, last_forces,
@@ -5736,24 +5937,7 @@ def main():
     adjoint["history_match"] = phase_history_match(case_ab,
                                                    max_iterations=2)
     log(f"# adjoint phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    case_mm = build_well_multimodel(*GRID)
-    sim, res, last_forces, slices["wells-multimodel"] = phase_multimodel(
-        case_mm, n_step=2)
-    slices["wells-multimodel"]["f64_verify"] = phase_f64_verify(
-        sim, res, last_forces, "wells-multimodel")
-    slices["multimodel-fused"] = phase_multimodel_fused(sim, case_mm)
-    mm_engine = phase_multimodel_engine_check(case_mm, case_w, res,
-                                              n_step=2)
-    mm_ref = slab_reference(res, case_mm[3], n_report=1, n_step=2)
-    t1 = time.perf_counter()
-    slices["dd-multimodel"] = phase_dd_multimodel(case_mm, mm_ref, case_w,
-                                                  ref_sim=sim)
-    log(f"# dd-multimodel: {time.perf_counter() - t1:.1f} s")
-    del sim, res, case_mm, case_w, mm_ref
-    torch.cuda.empty_cache()
-    mm_cross = phase_multimodel_cross_check()
-    log(f"# multimodel phases: {time.perf_counter() - t0:.1f} s")
+    del case_w
     t0 = time.perf_counter()
     tr = transport_phases(n_step=1)
     slices.update({k: tr[k] for k in ("weno-transport",
@@ -5761,15 +5945,10 @@ def main():
                                       "nfvm-pressure")})
     log(f"# transport phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    me = meshes_phases(n_step=1, keep_case=True)
+    me = meshes_phases(n_step=1)
     slices.update({k: me[k] for k in ("extruded-layers", "coarse-upscaled",
                                       "cut-fault")})
     log(f"# meshes phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dd = dd_phases(srcwells=(slices["srcwells"], slab_ref),
-                   extruded=me["extruded-layers"], layered=me.pop("case"))
-    slices.update({k: dd[k] for k in ("dd-slab", "dd-general")})
-    log(f"# distributed phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     case_dict = build_flagship(*DICT_GRID)
     dict_hm = phase_dict_history_match(case_dict, max_iterations=2)
@@ -5794,6 +5973,14 @@ def main():
     stencil_x = phase_adjoint_cross_check(WELL_SMALL_EW)
     phase_generic_adjoint_cross_check(WELL_SMALL_EW, stencil_x)
     phase_generic_cross_check()
+    t0 = time.perf_counter()
+    side_out = finish_side(side, workdir,
+                           SCRIPT_LIMIT_S - (t0 - t_start))
+    log(f"# waited {time.perf_counter() - t0:.1f} s for the side process")
+    slices.update(side_out["slices"])
+    mm_engine, mm_cross, dd = (side_out[k] for k in ("mm_engine", "mm_cross",
+                                                     "dd"))
+    log_same_call(dd, slices["srcwells"], me["extruded-layers"])
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         rec = records[name]
@@ -5951,6 +6138,15 @@ def profile(name):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--side":
+        # main's second process: --side DIR (DIR holds slab_ref.pkl); its
+        # records as the last line
+        import pickle
+
+        with open(os.path.join(sys.argv[2], "slab_ref.pkl"), "rb") as f:
+            side_out = side_phases(pickle.load(f))
+        print(json.dumps(side_out, default=lambda o: o.tolist()),
+              flush=True)
     elif len(sys.argv) >= 2 and sys.argv[1] == "--meshes":
         # the meshes slice's phases alone (a quick check; no result line):
         # --meshes [n_step]

@@ -78,6 +78,14 @@ from .adjoint.trust_region import box_trust_region
 from .config import JutulConfig
 from .core.case import JutulCase
 from .core.domains import DataDomain, DiscretizedDomain
+from .core.entities import (
+    BoundaryFaces,
+    Cells,
+    Faces,
+    HalfFaces,
+    NoEntity,
+    Nodes,
+)
 from .discretization.tpfa import (
     compute_boundary_trans,
     compute_face_gdz,
@@ -96,7 +104,7 @@ from .interpolation import (
 from .linsolve.amg import AMGPreconditioner, SmoothedAggregationAMG
 from .linsolve.cpr import CPRPreconditioner
 from .linsolve.direct import DirectSolver
-from .linsolve.krylov import GenericKrylov
+from .linsolve.krylov import GenericKrylov, bicgstab, gmres
 from .linsolve.precond import (
     BlockJacobiPreconditioner,
     GroupWisePreconditioner,
@@ -107,7 +115,7 @@ from .linsolve.precond import (
 )
 from .linsolve.schur import SchurComplementSolver
 from .linsolve.system import LinearizedSystem
-from .meshes.cartesian import CartesianMesh
+from .meshes.cartesian import CartesianMesh, JutulMesh, tpfv_geometry
 from .meshes.coarse import CoarseMesh, coarsen_data_domain
 from .meshes.cutcell import (
     PlaneCut,
@@ -151,14 +159,26 @@ from .models.darcy import (
     PressureBoundaryCondition,
     setup_darcy_model,
 )
-from .models.forces import setup_forces
+from .models.equations import (
+    AccumulationContribution,
+    CellTermContribution,
+    ConservationLaw,
+    FaceFluxContribution,
+    JutulEquation,
+)
+from .models.forces import JutulForce, SourceTerm, setup_forces
 from .models.helper import (
     HelperSimulator,
     model_accumulation,
     model_residual,
 )
-from .models.setup import from_numpy, setup_parameters, setup_state
-from .models.system import SimulationModel
+from .models.setup import (
+    from_numpy,
+    setup_parameters,
+    setup_state,
+    setup_state_and_parameters,
+)
+from .models.system import JutulSystem, SimulationModel
 from .models.transport import NFVMPressureSystem, TransportSystem
 from .models.test_systems import (
     PoissonSource,
@@ -171,7 +191,13 @@ from .models.test_systems import (
 )
 from .models.variables import (
     ConstantVariables,
+    FractionVariables,
     FunctionSecondaryVariable,
+    JutulParameter,
+    JutulVariable,
+    ScalarVariable,
+    SecondaryVariable,
+    VectorVariables,
     secondary_variable,
 )
 from .models.vectorization import (
@@ -242,51 +268,59 @@ from .simulator.timesteps import (
     TimestepSelector,
     VariableChangeTimestepSelector,
 )
-from .units import si_unit, si_units
+from .units import convert_from_si, convert_to_si, si_unit, si_units
 from .utils.gmsh import mesh_from_gmsh
 from .utils.mrst import mesh_from_mat, mesh_from_mrst_grid
 from .utils.plotting import triangulate_mesh
 
+# the JAX package's alias (its reference LUSolver: the dense direct solve)
+LUSolver = DirectSolver
+
 __all__ = [
-    "AMGPreconditioner", "AdditiveCrossTerm", "AdjointStorage",
-    "BilinearInterpolant", "BlockELL", "BlockJacobiPreconditioner",
-    "CPRPreconditioner", "CartesianMesh", "CoarseMesh", "CompiledModel",
-    "CompositeSystem", "ConstantVariables",
-    "ConvergenceMonitorCuttingCriterion", "ConvergenceMonitorRelaxation",
-    "CrossTerm", "DataDomain", "DictParameters", "DictParametersSampler",
-    "DirectSolver", "DiscretizedDomain", "DistributedSimulator",
-    "ELLStructure",
-    "EndTimeTerminationCriterion", "FunctionSecondaryVariable", "GMG",
+    "AMGPreconditioner", "AccumulationContribution", "AdditiveCrossTerm",
+    "AdjointStorage", "BilinearInterpolant", "BlockELL",
+    "BlockJacobiPreconditioner", "BoundaryFaces", "CPRPreconditioner",
+    "CartesianMesh", "CellTermContribution", "Cells", "CoarseMesh",
+    "CompiledModel", "CompositeSystem", "ConservationLaw",
+    "ConstantVariables", "ConvergenceMonitorCuttingCriterion",
+    "ConvergenceMonitorRelaxation", "CrossTerm", "DataDomain",
+    "DictParameters", "DictParametersSampler", "DirectSolver",
+    "DiscretizedDomain", "DistributedSimulator", "ELLStructure",
+    "EndTimeTerminationCriterion", "FaceFluxContribution", "Faces",
+    "FractionVariables", "FunctionSecondaryVariable", "GMG",
     "GeneralDistributedSimulator", "GenericKrylov", "GlobalObjective",
-    "GreedyGraphPartitioner",
-    "GroupWisePreconditioner", "HelperSimulator", "ILU0Preconditioner",
-    "ImmiscibleFluid", "IndexRenumerator", "IndirectionMap",
-    "IterationTimestepSelector", "JacobiPreconditioner", "JutulCase",
-    "JutulConfig", "LimitByFailedTimestepSelector", "LinearInterpolant",
-    "LinearPartitioner", "LinearizedSystem", "MeshEntityTags",
-    "MetisPartitioner", "MultiModel", "NFVMPressureSystem", "NoRelaxation",
-    "PhaseSourceTerm", "PlaneCut", "PoissonSource",
-    "PressureBoundaryCondition", "SPAI0Preconditioner", "ScalarTestCrossTerm",
-    "ScalarTestDomain", "ScalarTestForce", "ScalarTestSystem",
-    "SchurComplementSolver", "ShardGroup", "SimResult", "SimpleHeatSystem",
+    "GreedyGraphPartitioner", "GroupWisePreconditioner", "HalfFaces",
+    "HelperSimulator", "ILU0Preconditioner", "ImmiscibleFluid",
+    "IndexRenumerator", "IndirectionMap", "IterationTimestepSelector",
+    "JacobiPreconditioner", "JutulCase", "JutulConfig", "JutulEquation",
+    "JutulForce", "JutulMesh", "JutulParameter", "JutulSystem",
+    "JutulVariable", "LUSolver", "LimitByFailedTimestepSelector",
+    "LinearInterpolant", "LinearPartitioner", "LinearizedSystem",
+    "MeshEntityTags", "MetisPartitioner", "MultiModel", "NFVMPressureSystem",
+    "NoEntity", "NoRelaxation", "Nodes", "PhaseSourceTerm", "PlaneCut",
+    "PoissonSource", "PressureBoundaryCondition", "SPAI0Preconditioner",
+    "ScalarTestCrossTerm", "ScalarTestDomain", "ScalarTestForce",
+    "ScalarTestSystem", "ScalarVariable", "SchurComplementSolver",
+    "SecondaryVariable", "ShardGroup", "SimResult", "SimpleHeatSystem",
     "SimpleRelaxation", "SimulationModel", "Simulator",
-    "SmoothedAggregationAMG", "StencilCPR", "StencilCompiledModel",
-    "StencilKrylovSolver", "SumObjective", "SurfaceCut", "SurfaceMesh",
-    "TerminationCriterion", "TimestepSelector", "TransportSystem",
-    "TrivialPreconditioner", "UnaryTabulatedVariable", "UnstructuredMesh",
-    "VariableChangeTimestepSelector", "VariablePoissonSystem",
-    "WellGraphMesh", "WellSpec", "add_cross_term", "box_trust_region",
-    "check_and_fix_mesh", "check_mesh", "check_mesh_quality",
-    "coarsen_data_domain", "compile_model", "compute_boundary_trans",
-    "compute_distance", "compute_face_gdz", "compute_face_trans",
-    "compute_half_face_trans", "cut_mesh", "data_domain_parameter_gradient",
-    "devectorize_variables", "embed_mesh", "embed_surface", "expand_perm",
-    "expand_to_ministeps", "extrude_mesh", "face_planarity",
-    "find_enclosing_cells", "fracture_matrix_trans",
+    "SmoothedAggregationAMG", "SourceTerm", "StencilCPR",
+    "StencilCompiledModel", "StencilKrylovSolver", "SumObjective",
+    "SurfaceCut", "SurfaceMesh", "TerminationCriterion", "TimestepSelector",
+    "TransportSystem", "TrivialPreconditioner", "UnaryTabulatedVariable",
+    "UnstructuredMesh", "VariableChangeTimestepSelector",
+    "VariablePoissonSystem", "VectorVariables", "WellGraphMesh", "WellSpec",
+    "add_cross_term", "bicgstab", "box_trust_region", "check_and_fix_mesh",
+    "check_mesh", "check_mesh_quality", "coarsen_data_domain",
+    "compile_model", "compute_boundary_trans", "compute_distance",
+    "compute_face_gdz", "compute_face_trans", "compute_half_face_trans",
+    "convert_from_si", "convert_to_si", "cut_mesh",
+    "data_domain_parameter_gradient", "devectorize_variables", "embed_mesh",
+    "embed_surface", "expand_perm", "expand_to_ministeps", "extrude_mesh",
+    "face_planarity", "find_enclosing_cells", "fracture_matrix_trans",
     "free_optimization_parameter", "freeze_optimization_parameter",
     "from_numpy", "get_1d_interpolator", "get_2d_interpolator",
-    "get_mesh_entity_tag", "glue_mesh", "half_face_map", "merge_faces",
-    "mesh_from_gmsh", "mesh_from_mat", "mesh_from_mrst_grid",
+    "get_mesh_entity_tag", "glue_mesh", "gmres", "half_face_map",
+    "merge_faces", "mesh_from_gmsh", "mesh_from_mat", "mesh_from_mrst_grid",
     "model_accumulation", "model_residual", "nonconverged_equations",
     "optimization_config", "optimize", "parameters_from_data_domain",
     "parameters_gradient", "parameters_jacobian_wrt_data_domain",
@@ -294,15 +328,14 @@ __all__ = [
     "scaled_residual_norm", "secondary_variable", "set_mesh_entity_tag",
     "setup_adjoint_storage", "setup_darcy_model", "setup_forces",
     "setup_parameter_optimization", "setup_parameters", "setup_state",
-    "setup_well_graph_model", "si_unit", "si_units", "simulate",
-    "simulate_parray", "simulator_config", "solve_adjoint_forces",
-    "solve_adjoint_generic", "solve_adjoint_sensitivities",
-    "solve_adjoint_sensitivities_distributed",
-    "solve_adjoint_sensitivities_general",
-    "solve_adjoint_sensitivities_jit",
+    "setup_state_and_parameters", "setup_well_graph_model", "si_unit",
+    "si_units", "simulate", "simulate_parray", "simulator_config",
+    "solve_adjoint_forces", "solve_adjoint_generic",
+    "solve_adjoint_sensitivities", "solve_adjoint_sensitivities_distributed",
+    "solve_adjoint_sensitivities_general", "solve_adjoint_sensitivities_jit",
     "solve_numerical_sensitivities", "spiral_mesh", "state_gradient",
     "store_output", "subdomain", "subforces", "submodel", "substate",
-    "timing_breakdown", "trajectory_intersections",
+    "timing_breakdown", "tpfv_geometry", "trajectory_intersections",
     "triangulate_mesh", "unit_box_bfgs", "valid_restart_indices",
     "vectorize_variables",
 ]

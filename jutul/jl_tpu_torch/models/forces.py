@@ -26,6 +26,7 @@ import copy
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def as_value(v, like):
@@ -49,6 +50,27 @@ class JutulForce:
         """A copy with every ABSOLUTE pressure the force carries shifted by
         ``-p_ref``; forces holding no absolute pressure return self."""
         return self
+
+
+class SourceTerm(JutulForce):
+    """Constant-rate source q in cells: residual -= q on the first
+    ``values.shape[1]`` equations of each cell (one when ``values`` is
+    1-D), whatever the equation (reference: SourceTerm in test systems /
+    JutulDarcy conventions — positive value injects). Repeated cells add
+    up."""
+
+    value_fields = ("values",)
+
+    def __init__(self, cells, values):
+        self.cells = np.atleast_1d(np.asarray(cells, dtype=np.int64))
+        self.values = values  # (ns,) or (ns, neq)
+
+    def apply(self, model, eq, eq_name, r, state, dt):
+        v = as_value(self.values, r)
+        if v.ndim == 1:
+            v = v[:, None]
+        cells = torch.as_tensor(self.cells, device=r.device)
+        return r.index_add(0, cells, -F.pad(v, (0, r.shape[1] - v.shape[1])))
 
 
 def setup_forces(model, **forces) -> dict:

@@ -73,6 +73,19 @@ def setup_parameters(model, values: dict | None = None, **kwargs) -> dict:
     return params
 
 
+def setup_state_and_parameters(model, values: dict | None = None, **kwargs):
+    """Split mixed kwargs into (state, parameters)
+    (reference models.jl:370)."""
+    init = dict(values or {})
+    init.update(kwargs)
+    sv = {k: v for k, v in init.items() if k in model.primary_variables}
+    pv = {k: v for k, v in init.items() if k in model.parameters}
+    unknown = set(init) - set(sv) - set(pv)
+    if unknown:
+        raise ValueError(f"Unknown variables/parameters: {sorted(unknown)}")
+    return setup_state(model, sv), setup_parameters(model, pv)
+
+
 def from_numpy(state_or_params: dict, device=None, dtype=None) -> dict:
     """Tensors on ``device`` for a dict of arrays (numpy arrays, JAX
     arrays, tensors or other array-likes; non-tensors are copied), or for

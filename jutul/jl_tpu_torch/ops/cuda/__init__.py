@@ -42,6 +42,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in KERNELS_BF16C.values():
         fn.launches_bf16c = 0
+    stencil_matvec.launches_by_shape.clear()
 
 
 def launch_counts() -> dict:

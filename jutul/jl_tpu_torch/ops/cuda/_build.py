@@ -35,6 +35,7 @@ _D = ctypes.c_double
 # C entry points (csrc/*.cu): each returns cudaGetLastError() of its launch
 _SIGNATURES = {
     "jt_stencil_matvec": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "jt_stencil_matvec_ref": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "jt_scalar_jacobi": [_P, _P, _P, _P, _D, _I, _I, _I, _I, _P],
     "jt_scalar_chebyshev": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P],

@@ -11,7 +11,11 @@ the kernel or raises — there is no fallback.
   operator (C = K = ndof) and as CPR stage 2's pressure-column matvec
   (C = ndof, K = 1). Bound by HBM bytes: 7·C·K coefficient streams per
   cell against 2 flops each; the kernel reads each coefficient once and
-  leaves neighbour reuse of ``x`` to L1/L2.
+  leaves neighbour reuse of ``x`` to L1/L2. A thread computes every
+  component of a few consecutive cells of a row with compile-time (C, K)
+  and all its loads issued first; its sums are those of its original
+  mapping (one thread per output) bit for bit, which stays as
+  ``stencil_matvec_reference`` for the card tests.
 - K2 ``scalar_jacobi`` replaces ``_kernel_slab_sweeps`` (B2),
   ``_kernel_sweeps`` (B3) and ``_kernel_fused`` (B4): one fused residual or
   weighted-Jacobi pass on a scalar stencil. Bound by HBM bytes (7
@@ -189,10 +193,15 @@ def stencil_matvec_plain(coef, x, L, C: int, K: int):
 
 def stencil_matvec(coef, x, L, C: int, K: int):
     """K1 wrapper: y (n, C) = A x for x (n, K) with ``coef`` from
-    ``lattice_coefficients``."""
+    ``lattice_coefficients``. The kernel indexes cells in 32 bits: on the
+    card a lattice holds at most 2**31 - 1 cells (a ValueError beyond).
+    Each launch also counts in ``launches_by_shape[(entry, C, K)]``."""
     if _is_cpu(x):
         return stencil_matvec_plain(coef, x, L, C, K)
     nz, ny, nx = L
+    if nz * ny * nx > _MAX_CELLS:
+        raise ValueError(f"stencil_matvec: {nz * ny * nx} cells; the kernel "
+                         f"indexes at most {_MAX_CELLS}")
     x = x.contiguous()
     entry, narrow = _coef_entry(coef, x, "stencil_matvec coef")
     if x.shape != (nz * ny * nx, K) or coef.shape != (TERMS, C * K, x.shape[0]):
@@ -204,10 +213,37 @@ def stencil_matvec(coef, x, L, C: int, K: int):
         coef.data_ptr(), x.data_ptr(), y.data_ptr(), C, K, nz, ny, nx,
         stream_handle()), "stencil_matvec")
     _count(stencil_matvec, narrow)
+    shape = (entry, C, K)
+    stencil_matvec.launches_by_shape[shape] = \
+        stencil_matvec.launches_by_shape.get(shape, 0) + 1
     return y
 
 
 stencil_matvec.launches = stencil_matvec.launches_bf16c = 0
+stencil_matvec.launches_by_shape = {}
+_MAX_CELLS = 2 ** 31 - 1  # K1's 32-bit cell indices
+
+
+def stencil_matvec_reference(coef, x, L, C: int, K: int):
+    """K1's original mapping (one thread per cell and component) on CUDA
+    tensors, float32 or float64: the card tests and chip_smoke.py hold
+    ``stencil_matvec`` to it bit for bit. No simulate path calls it; it
+    counts no launch."""
+    nz, ny, nx = L
+    if _is_cpu(x):
+        raise RuntimeError("stencil_matvec_reference runs on the card only")
+    x = x.contiguous()
+    _require(coef, x, "stencil_matvec_reference coef")
+    if x.shape != (nz * ny * nx, K) or \
+            coef.shape != (TERMS, C * K, x.shape[0]):
+        raise ValueError(f"stencil_matvec_reference: bad shapes x "
+                         f"{tuple(x.shape)}, coef {tuple(coef.shape)} for "
+                         f"L={L}, C={C}, K={K}")
+    y = torch.empty((x.shape[0], C), dtype=x.dtype, device=x.device)
+    check(load_library().fn("jt_stencil_matvec_ref", dtype_suffix(x))(
+        coef.data_ptr(), x.data_ptr(), y.data_ptr(), C, K, nz, ny, nx,
+        stream_handle()), "stencil_matvec_reference")
+    return y
 
 
 def embed(A, coef_dtype=None):

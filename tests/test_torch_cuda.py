@@ -507,6 +507,86 @@ def test_k1_on_the_transposed_operator(dev, dtype):
                               torch.float64: 1e-12}[dtype] * abs(lhs)
 
 
+# ---------------------------------------------------------------------------
+# K1 against its original mapping (``stencil_matvec_reference``), bit for
+# bit: the redesigned kernel keeps each output's fused multiply-add chain,
+# so it equals the old one exactly at every (C, K), dtype and lattice — V
+# cells per thread (nx = 64; nx = 130 at f64's V = 2), one (nx = 37, 3,
+# 129, and 130 at f32's V = 4), the run-time body (C, K) = (3, 2), and an x
+# that starts one element into its storage (unaligned: V = 1 or the
+# run-time body)
+# ---------------------------------------------------------------------------
+K1_LATTICES = RAGGED + [(7, 3, 130), (3, 5, 129)]
+
+
+def _block_matrix(L_, C, K, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    nz, ny, nx = L_
+    n = nz * ny * nx
+    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
+    rnd = lambda *s: torch.randn(  # noqa: E731
+        *s, generator=g, dtype=dtype).to(dev)
+    return StencilMatrix(L_, rnd(C, K, n),
+                         {a: rnd(C, K, *s) for a, s in shapes.items()},
+                         {a: rnd(C, K, *s) for a, s in shapes.items()})
+
+
+def _unaligned(x):
+    """``x``'s values in a tensor that starts one element into its
+    storage."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,K", [(2, 1), (2, 2), (1, 1), (3, 2)])
+@pytest.mark.parametrize("L_", K1_LATTICES)
+def test_k1_equals_original_mapping_bitwise(dev, dtype, L_, C, K):
+    mv = SK.StencilMatvec(_block_matrix(L_, C, K, dtype, dev, seed=21))
+    x = torch.randn(mv.coef.shape[-1], K, dtype=dtype, device=dev)
+    before = SK.stencil_matvec.launches
+    y = mv(x)
+    ref = SK.stencil_matvec_reference(mv.coef, x, L_, C, K)
+    # the reference entry counts no launch
+    assert SK.stencil_matvec.launches == before + 1
+    assert torch.equal(y, ref)
+    assert torch.equal(mv(_unaligned(x)), ref)
+    assert _rel(y, SK.stencil_matvec_plain(mv.coef, x, L_, C, K)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L_", K1_LATTICES)
+def test_k1_transposed_equals_original_mapping_bitwise(dev, dtype, L_):
+    from jutul.jl_tpu_torch.ops.stencil import stencil_transpose
+
+    mv_t = SK.StencilMatvec(stencil_transpose(
+        _block_matrix(L_, 2, 2, dtype, dev, seed=22)))
+    x = torch.randn(mv_t.coef.shape[-1], 2, dtype=dtype, device=dev)
+    assert torch.equal(mv_t(x), SK.stencil_matvec_reference(
+        mv_t.coef, x, L_, 2, 2))
+
+
+def test_k1_counts_launches_by_shape_and_refuses_2_31_cells(dev):
+    """Each launch also counts under its (entry, C, K); a lattice beyond
+    the kernel's 32-bit cell indices raises before anything launches."""
+    from jutul.jl_tpu_torch.ops.cuda import reset_launch_counts
+
+    L_ = (3, 4, 8)
+    mv = SK.StencilMatvec(_block_matrix(L_, 2, 1, torch.float32, dev,
+                                        seed=23))
+    x = torch.randn(mv.coef.shape[-1], 1, device=dev)
+    reset_launch_counts()
+    mv(x)
+    mv(x)
+    assert SK.stencil_matvec.launches_by_shape == {("f32", 2, 1): 2}
+    with pytest.raises(ValueError, match="indexes at most"):
+        SK.stencil_matvec(mv.coef, x, (2 ** 11, 2 ** 10, 2 ** 10), 2, 1)
+    assert SK.stencil_matvec.launches == 2
+
+
 def test_adjoint_on_the_card_matches_the_cpu(dev):
     """The stencil adjoint (``solve_adjoint_sensitivities_jit``) of the well
     flagship at 8x8x6 in float64 on the same numpy states: on the card (K1,
