@@ -20,8 +20,13 @@ failure (nothing is caught, so any failure exits non-zero):
    every GMG level of the well-model flagship's pressure hierarchy; K5
    whole Jacobi phases on every level of its Jacobi hierarchy, which must
    equal the K2 chain bit for bit and is timed per level and hook beside
-   it; K6/K7 fused BiCGStab body at the Schur system's 2,097,152
-   values, also against a second call, bitwise; K1 on the adjoint's
+   it; K8/K9 whole-level Jacobi/Chebyshev phases (one launch each) on the
+   levels they hold — the mid level in the grid form, the coarse one in
+   the cluster form — every hook at 2 and 12 sweeps equal to the K2/K4
+   chain bit for bit (float32, float64, bfloat16 coefficients) and timed
+   per level and hook beside the chain and K5; K6/K7 fused BiCGStab body
+   at the Schur system's 2,097,152 values, also against a second call,
+   bitwise; K1 on the adjoint's
    transposed operator with the dot identity); beside each, its bound
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s, the larger) and, for
    K1, one cuSPARSE SpMV (torch.sparse.mm) of the same matrix in CSR;
@@ -31,15 +36,18 @@ failure (nothing is caught, so any failure exits non-zero):
    source-term slice: the bench flagship with source-term wells at
    256x64x64 = 1,048,576 cells in float32 through
    ``Simulator(use_stencil=True, device="cuda").simulate`` with the bench's
-   solver settings (Jacobi GMG), 3 report steps of 6 h; K1, K2 and the
-   lattice K3 must launch in this run and the final state be finite;
+   solver settings (Jacobi GMG), 3 report steps of 6 h; K1, K2, the
+   lattice K3 and K8 (the coarse solve) must launch in this run and the
+   final state be finite; on every stencil slice the GMG level kernels'
+   launches must be those the routing gives (two V-cycles per linear
+   iteration);
 5. its f64 verify: the final accepted ministep's residual re-assembled in
    float64 on the card; CNV and MB within 10x their tolerances;
 6. wells slice: the bench flagship with its 5 well models (1,048,576
    lattice + 5 wellbore cells, bordered stencil + Schur-eliminated wells)
    with the Chebyshev GMG smoother, otherwise as phase 4; K1, K2 (the
    residual after a Chebyshev presmooth), K3 (lattice and, for the
-   perforations, per axis) and K4 must launch;
+   perforations, per axis), K4 and K9 (the coarse solve) must launch;
 7. its f64 verify over all lattice and wellbore rows, as phase 5;
 8. wells-jacobi-fused slice: the same well flagship with the bench's
    default Jacobi smoother and both opt-ins of bench.py's BENCH_FUSED_BODY=1
@@ -225,11 +233,12 @@ failure (nothing is caught, so any failure exits non-zero):
    adjoint of the well-graph form of the same states (gradients within
    1e-3, every λ-solve converged).
 
-Phases 1-8 run alone. Then a second process on the same card
-(``side_phases``) runs phases 15-18 and 29-32 while this one runs the
-rest; both are bound by the host, and the eight shard threads of 29-32
-take turns in one interpreter. The second process's log follows this
-one's; its failure fails the script.
+Phases 1-8 run alone. Then three processes on the same card
+(``side_phases``) run phases 15-18 and 32 (``mm``), 29-31 (``dd``) and
+19-28 (``tm``) while this one runs the rest; all are bound by the host,
+and the eight shard threads of 29-32 take turns in one interpreter. The
+side processes' logs follow this one's; a failure of any fails the
+script.
 
 Launch counts are set to 0 just before each slice and read just after it.
 Output: progress lines, then one JSON line with every kernel's errors,
@@ -278,7 +287,9 @@ KERNEL_INFO = {
     "stencil_matvec": ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
                        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:83"),
     "scalar_jacobi": ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
-                      "jutul/jl_tpu/ops/pallas/stencil_kernels.py:555"),
+                      "jutul/jl_tpu/ops/pallas/stencil_kernels.py:555 (B2 "
+                      "_slab_jacobi_compute, as a chain) and :252 (B4 "
+                      "_kernel_fused)"),
     "darcy_flux_jacobian": ("jutul/jl_tpu_torch/csrc/assembly_kernels.cu",
                             "jutul/jl_tpu/ops/pallas/assembly_kernels.py:57"),
     "darcy_flux_jacobian_lattice": (
@@ -288,8 +299,8 @@ KERNEL_INFO = {
         "launch"),
     "scalar_chebyshev": (
         "jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
-        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:431 (B6 "
-        "_kernel_sweeps_cheby) and :716 (B7 _kernel_slab_sweeps_cheby)"),
+        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:716 (B7 "
+        "_kernel_slab_sweeps_cheby)"),
     "scalar_jacobi_phase": (
         "jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
         "jutul/jl_tpu/ops/pallas/stencil_kernels.py:602 (B8 "
@@ -300,39 +311,54 @@ KERNEL_INFO = {
     "fused_omega_update": ("jutul/jl_tpu_torch/csrc/krylov_kernels.cu",
                            "jutul/jl_tpu/ops/pallas/krylov_kernels.py:130 "
                            "(B11 _kernel_omega_update)"),
+    "scalar_sweeps_resident": (
+        "jutul/jl_tpu_torch/csrc/level_kernels.cu",
+        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:389 (B3 _kernel_sweeps, "
+        "called by _scalar_sweeps_call :412)"),
+    "scalar_chebyshev_resident": (
+        "jutul/jl_tpu_torch/csrc/level_kernels.cu",
+        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:431 (B6 "
+        "_kernel_sweeps_cheby, called by _scalar_sweeps_cheby_call :468)"),
 }
 _B9 = ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
        "B9 (coef_dtype=bfloat16, jutul/jl_tpu/ops/pallas/stencil_kernels.py"
        ":177-231) via ")
+_LEVEL_CU = "jutul/jl_tpu_torch/csrc/level_kernels.cu"
 KERNEL_INFO.update({
     "stencil_matvec_bf16c": (_B9[0], _B9[1] + "B1 :83 _kernel"),
-    "scalar_jacobi_bf16c": (_B9[0], _B9[1] + "B2 :555, B3 :389, B4 :252"),
-    "scalar_chebyshev_bf16c": (_B9[0], _B9[1] + "B6 :431, B7 :716"),
+    "scalar_jacobi_bf16c": (_B9[0], _B9[1] + "B2 :555, B4 :252"),
+    "scalar_chebyshev_bf16c": (_B9[0], _B9[1] + "B7 :716"),
     "scalar_jacobi_phase_bf16c": (_B9[0], _B9[1] + "B8 :602"),
+    "scalar_sweeps_resident_bf16c": (_LEVEL_CU, _B9[1] + "B3 :389"),
+    "scalar_chebyshev_resident_bf16c": (_LEVEL_CU, _B9[1] + "B6 :431"),
 })
+K8, K9 = "scalar_sweeps_resident", "scalar_chebyshev_resident"
 SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
-    # the well perforations; the lattice's three axes go through one launch)
+    # the well perforations; the lattice's three axes go through one launch;
+    # K8/K9: the mid and coarse GMG levels)
     "srcwells": ("stencil_matvec", "scalar_jacobi",
-                 "darcy_flux_jacobian_lattice"),
+                 "darcy_flux_jacobian_lattice", K8),
     "wells": ("stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian",
-              "darcy_flux_jacobian_lattice", "scalar_chebyshev"),
+              "darcy_flux_jacobian_lattice", "scalar_chebyshev", K9),
     "wells-jacobi-fused": ("stencil_matvec", "darcy_flux_jacobian",
                            "darcy_flux_jacobian_lattice",
                            "scalar_jacobi_phase", "fused_alpha_s",
-                           "fused_omega_update"),
+                           "fused_omega_update", K8),
     "wells-jacobi-eager": ("stencil_matvec", "scalar_jacobi",
                            "darcy_flux_jacobian",
-                           "darcy_flux_jacobian_lattice"),
+                           "darcy_flux_jacobian_lattice", K8),
     "wells-product": ("stencil_matvec", "scalar_jacobi",
-                      "darcy_flux_jacobian", "darcy_flux_jacobian_lattice"),
+                      "darcy_flux_jacobian", "darcy_flux_jacobian_lattice",
+                      K8),
     "wells-product-bf16": ("stencil_matvec", "stencil_matvec_bf16c",
                            "scalar_jacobi_bf16c", "darcy_flux_jacobian",
-                           "darcy_flux_jacobian_lattice"),
+                           "darcy_flux_jacobian_lattice", K8 + "_bf16c"),
     "wells-product-bf16-cheby": ("stencil_matvec_bf16c",
                                  "scalar_jacobi_bf16c",
-                                 "scalar_chebyshev_bf16c"),
+                                 "scalar_chebyshev_bf16c", K9 + "_bf16c"),
     "wells-product-bf16-phases": ("stencil_matvec_bf16c",
-                                  "scalar_jacobi_phase_bf16c"),
+                                  "scalar_jacobi_phase_bf16c",
+                                  K8 + "_bf16c"),
 }
 SLICE_KERNELS["generic"] = ()  # the generic path has no kernel of its own
 SLICE_KERNELS["eager-options"] = SLICE_KERNELS["wells-jacobi-eager"]
@@ -344,8 +370,9 @@ SLICE_KERNELS["multimodel-fused"] = SLICE_KERNELS["generic-fused"]
 SLICE_KERNELS["weno-transport"] = ()
 SLICE_KERNELS["nfvm-pressure"] = ()
 SLICE_KERNELS["weno-transport-fused"] = SLICE_KERNELS["generic-fused"]
-_F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", "scalar_jacobi_phase")
-# K1-K5 and every bf16 entry: the stencil engine's kernels
+_F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", "scalar_jacobi_phase",
+              K8, K9)
+# K1-K5, K8, K9 and every bf16 entry: the stencil engine's kernels
 _STENCIL_KERNELS = tuple(k for k in KERNEL_INFO
                          if k not in ("fused_alpha_s", "fused_omega_update"))
 SLICE_FORBIDDEN = {  # kernels a slice must never launch
@@ -356,7 +383,7 @@ SLICE_FORBIDDEN = {  # kernels a slice must never launch
     "weno-transport": tuple(KERNEL_INFO),
     "nfvm-pressure": tuple(KERNEL_INFO),
     "weno-transport-fused": _STENCIL_KERNELS,
-    "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev"),
+    "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev", K9),
     "wells-product": tuple(k for k in KERNEL_INFO if k.endswith("_bf16c")),
     "wells-product-bf16": _F32_LEVEL,
     "wells-product-bf16-cheby": _F32_LEVEL,
@@ -371,10 +398,13 @@ MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
               "scalar_jacobi_phase": "wells-jacobi-fused",
               "fused_alpha_s": "wells-jacobi-fused",
               "fused_omega_update": "wells-jacobi-fused",
+              K8: "srcwells", K9: "wells",
               "stencil_matvec_bf16c": "wells-product-bf16",
               "scalar_jacobi_bf16c": "wells-product-bf16",
               "scalar_chebyshev_bf16c": "wells-product-bf16-cheby",
-              "scalar_jacobi_phase_bf16c": "wells-product-bf16-phases"}
+              "scalar_jacobi_phase_bf16c": "wells-product-bf16-phases",
+              K8 + "_bf16c": "wells-product-bf16",
+              K9 + "_bf16c": "wells-product-bf16-cheby"}
 AB_GRID = (64, 32, 32)  # the A/B's 65,536 cells
 
 
@@ -1163,7 +1193,8 @@ def phase_kernels(case, records):
                                  min_cells=16384))
         pst = cpr.update(A)
         om = cpr.gmg.omega
-        for lv in pst.mvs:
+        for op in pst.ops:  # every level through the K2 chain
+            lv = SK.ScalarLevel(op, resident=False)
             n = int(np.prod(lv.L))
             b = torch.randn(n, generator=gen, device="cuda", dtype=dtype)
             u = torch.randn(n, generator=gen, device="cuda", dtype=dtype)
@@ -1193,7 +1224,7 @@ def phase_kernels(case, records):
                 rec.compare(dtype, f"K2 {lv.L} sweep_n x{n_sweep}",
                             lv.sweep_n(b, om, n_sweep),
                             plain(b, None, n_sweep, True, False)[0])
-            if dtype == torch.float32 and lv is pst.mvs[0]:
+            if dtype == torch.float32 and op is pst.ops[0]:
                 rec.set_work([lv.coef, b, u, b], 18 * n)
                 rec.ms = cuda_ms(lambda: lv.smooth(u, b, om))
                 rec.graph_ms = graph_ms(lambda: lv.smooth(u, b, om))
@@ -1225,7 +1256,8 @@ def phase_kernels_cheby(case, records):
                                  min_cells=16384,
                                  smoother="chebyshev")).update(B.A)
         log(f"# K4 vs plain, {dtype}, levels {[lv.L for lv in pst.mvs]}")
-        for lv, steps in zip(pst.mvs, pst.cheb):
+        for op, steps in zip(pst.ops, pst.cheb):  # the K4 chain
+            lv = SK.ScalarLevel(op, resident=False)
             n = int(np.prod(lv.L))
             b, u, d = (torch.randn(n, generator=gen, device="cuda",
                                    dtype=dtype) for _ in range(3))
@@ -1261,7 +1293,7 @@ def phase_kernels_cheby(case, records):
                 rec.compare(dtype, f"K4 {lv.L} sweep_n x{n_sweep}",
                             lv.sweep_n_cheby(b, steps, n_sweep),
                             plain(None, n_sweep))
-            if dtype == torch.float32 and lv is pst.mvs[0]:
+            if dtype == torch.float32 and op is pst.ops[0]:
                 # coef, b, u, d, the step table in; u', d' out
                 rec.set_work([lv.coef, b, u, d, steps[1], u, d], 21 * n)
                 rec.ms = cuda_ms(lambda: step(SK.scalar_chebyshev, u, d, 1,
@@ -1289,12 +1321,14 @@ def _phase_level_rows(pst, om, gen, coef_dtype=None):
     rows = []
     csize = 2 if coef_dtype == torch.bfloat16 else 4
     counter = "launches_bf16c" if csize == 2 else "launches"
-    for op, lv in zip(pst.ops, pst.mvs):
-        k2 = SK.ScalarLevel(op, coef_dtype=coef_dtype)
+    for op in pst.ops:  # K5 and the K2 chain on every level
+        lv = SK.ScalarLevel(op, phase_kernel=True, coef_dtype=coef_dtype,
+                            resident=False)
+        k2 = SK.ScalarLevel(op, coef_dtype=coef_dtype, resident=False)
         n = int(np.prod(lv.L))
         b, u = (torch.randn(n, generator=gen, device="cuda",
                             dtype=torch.float32) for _ in range(2))
-        if lv is pst.mvs[-1]:
+        if op is pst.ops[-1]:
             hooks = [("sweep_n x12", lambda l_: l_.sweep_n(b, om, 12), 9,
                       [(5, True, False), (4, False, False),
                        (3, False, False)])]
@@ -1352,8 +1386,9 @@ def phase_kernels_phase(case, records):
         om = gmg.omega
         log(f"# K5 vs plain and vs K2, {dtype}, levels "
             f"{[lv.L for lv in pst.mvs]}")
-        for op, lv in zip(pst.ops, pst.mvs):
-            k2 = SK.ScalarLevel(op)  # the same level through the K2 chain
+        for op in pst.ops:  # every level through K5, and the K2 chain
+            lv = SK.ScalarLevel(op, phase_kernel=True, resident=False)
+            k2 = SK.ScalarLevel(op, resident=False)
             n = int(np.prod(lv.L))
             b, u = (torch.randn(n, generator=gen, device="cuda", dtype=dtype)
                     for _ in range(2))
@@ -1378,7 +1413,7 @@ def phase_kernels_phase(case, records):
                         raise RuntimeError(
                             f"K5 {lv.L} {what} x{n_sweep} [{dtype}]: differs "
                             "from the K2 chain")
-            if dtype == torch.float32 and lv is pst.mvs[0]:
+            if dtype == torch.float32 and op is pst.ops[0]:
                 uo = torch.empty_like(b)
                 rec.set_work([lv.coef, b, uo, uo], (2 + 2 * 16) * n)
                 rec.ms = cuda_ms(lambda: lv.presmooth_residual(b, om, 2))
@@ -1443,7 +1478,8 @@ def phase_kernels_bf16(case, records):
     def wide(lv, op):
         """``lv``'s level through the float32 entries on its coefficients
         widened."""
-        lv32 = SK.ScalarLevel(op, phase_kernel=lv.phase_kernel)
+        lv32 = SK.ScalarLevel(op, phase_kernel=lv.phase_kernel,
+                              resident=lv.resident)
         lv32.coef = lv.coef.to(f32)
         return lv32
 
@@ -1489,6 +1525,7 @@ def phase_kernels_bf16(case, records):
     for op, lv in zip(pst.ops, pst.mvs):
         if lv.coef.dtype != bf16:
             raise RuntimeError("GMG(coef_dtype='bf16'): level not bfloat16")
+        lv = SK.ScalarLevel(op, coef_dtype=bf16, resident=False)  # K2
         n = int(np.prod(lv.L))
         b, u = rnd(n), rnd(n)
         lv32 = wide(lv, op)
@@ -1499,7 +1536,8 @@ def phase_kernels_bf16(case, records):
             rec2.compare(f32, f"K2 bf16 {lv.L} mode {mode}", got,
                          SK.scalar_jacobi_plain(lv.coef, b, u, om, mode,
                                                 lv.L))
-        k5 = SK.ScalarLevel(op, phase_kernel=True, coef_dtype=bf16)
+        k5 = SK.ScalarLevel(op, phase_kernel=True, coef_dtype=bf16,
+                            resident=False)
         k5_32 = wide(k5, op)
         for n_sweep in (2, 12):
             hooks = (("presmooth+residual",
@@ -1522,7 +1560,7 @@ def phase_kernels_bf16(case, records):
                                torch.stack([g for g in ref if g is not None]))
                 same(f"K5 = K2 chain {lv.L} {what} x{n_sweep}", hook(k5),
                      hook(lv))
-        if lv is pst.mvs[0]:
+        if op is pst.ops[0]:
             rec2.set_work([lv.coef, b, u, b], 18 * n)
             timings(rec2, lambda: lv.smooth(u, b, om),
                     lambda: lv32.smooth(u, b, om),
@@ -1547,7 +1585,8 @@ def phase_kernels_bf16(case, records):
     pst = StencilCPR(gmg=GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
                              smoother="chebyshev",
                              coef_dtype="bf16")).update(A)
-    for op, lv, steps in zip(pst.ops, pst.mvs, pst.cheb):
+    for op, steps in zip(pst.ops, pst.cheb):  # the K4 chain
+        lv = SK.ScalarLevel(op, coef_dtype=bf16, resident=False)
         n = int(np.prod(lv.L))
         b, u, d = rnd(n), rnd(n), rnd(n)
         lv32 = wide(lv, op)
@@ -1572,7 +1611,7 @@ def phase_kernels_bf16(case, records):
                     ("sweep_n", lambda l_:
                      (l_.sweep_n_cheby(b, steps, n_sweep),))):
                 same(f"K4 {lv.L} {what} x{n_sweep}", hook(lv), hook(lv32))
-        if lv is pst.mvs[0]:
+        if op is pst.ops[0]:
             rec4.set_work([lv.coef, b, u, d, steps[1], u, d], 21 * n)
             timings(rec4,
                     lambda: step(SK.scalar_chebyshev, lv.coef, 1,
@@ -1586,6 +1625,172 @@ def phase_kernels_bf16(case, records):
     torch.cuda.empty_cache()
     log("  bf16 entries = f32 entries on rounded coefficients, bitwise, on "
         "every level, mode and hook")
+
+
+def _resident_hooks(SK, lv, form, cheby, b, u, om, steps, n_sweep):
+    """The three phase hooks of a level at ``n_sweep`` sweeps: (name,
+    K8/K9 in ``form`` -> (u, r or None), the hook of a level ``l_`` ->
+    (u, r or None), from u, residual). K8/K9 is called through its wrapper,
+    so that every hook runs on it whatever ``RESIDENT_HOOKS`` routes."""
+    def k(u0, res):
+        if cheby:
+            return lambda: SK.scalar_chebyshev_resident(
+                lv.coef, b, u0, steps, n_sweep, res, lv.L, form)
+        return lambda: SK.scalar_sweeps_resident(lv.coef, b, u0, om, n_sweep,
+                                                 res, lv.L, form)
+    if cheby:
+        return (("presmooth_residual_cheby", k(None, True),
+                 lambda l_: l_.presmooth_residual_cheby(b, steps, n_sweep),
+                 False, True),
+                ("postsmooth_cheby", k(u, False), lambda l_: (
+                    l_.postsmooth_cheby(u, b, steps, n_sweep), None), True,
+                 False),
+                ("sweep_n_cheby", k(None, False), lambda l_: (
+                    l_.sweep_n_cheby(b, steps, n_sweep), None), False, False))
+    return (("presmooth_residual", k(None, True),
+             lambda l_: l_.presmooth_residual(b, om, n_sweep), False, True),
+            ("postsmooth", k(u, False), lambda l_: (
+                l_.postsmooth(u, b, om, n_sweep), None), True, False),
+            ("sweep_n", k(None, False), lambda l_: (
+                l_.sweep_n(b, om, n_sweep), None), False, False))
+
+
+def phase_kernels_resident(case, records):
+    """K8 (Jacobi) and K9 (Chebyshev) on every level of the well flagship's
+    GMG hierarchies that they hold (the mid level in the grid form, the
+    coarse one in the cluster form), float32 and float64 vectors and
+    bfloat16 coefficients: every phase hook at 2 and 12 sweeps, called
+    through the wrapper in the level's form, is one launch, equal bit for
+    bit to the chain it replaces (K2's, K4's and K2's residual:
+    ``ScalarLevel(resident=False)``) and within REL_TOL of the plain
+    version; and the V-cycle's level hooks route as ``RESIDENT_HOOKS``
+    says. Then the V-cycle's hooks (mid: presmooth+residual and postsmooth
+    at 2 sweeps; coarse: the 12-sweep solve) timed in turns with the chain
+    (K8/K9, chain, chain, K8/K9) as CUDA-graph replays, beside K5 (Jacobi),
+    eager ms of each, the plain version and the hook's bound (7 coefficient
+    streams, b and u in where given, u and r out where made, once, over
+    3.35 TB/s); ``routed`` says which ones the V-cycle takes."""
+    from jutul.jl_tpu_torch import compile_model, from_numpy
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+    from jutul.jl_tpu_torch.ops.stencil import GMG, StencilCPR
+    from jutul.jl_tpu_torch.ops.stencil_wells import BorderedStencilModel
+
+    model, state0, params, forces = case
+    eng = BorderedStencilModel(compile_model(model), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for dtype in (torch.float32, torch.float64):
+        full = merge_state(from_numpy(state0, "cuda", dtype),
+                           from_numpy(params, "cuda", dtype))
+        _, B, _ = eng.assemble(full, full, DT, forces)
+        for cd, smoother in ((None, "jacobi"), (None, "chebyshev"),
+                             ("bf16", "jacobi"), ("bf16", "chebyshev")):
+            if cd and dtype == torch.float64:
+                continue  # bfloat16 coefficients: float32 vectors only
+            cheby = smoother == "chebyshev"
+            gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+                      smoother=smoother, coef_dtype=cd)
+            pst = StencilCPR(gmg=gmg).update(B.A)
+            wrapper = SK.scalar_chebyshev_resident if cheby else \
+                SK.scalar_sweeps_resident
+            name = (K9 if cheby else K8) + ("_bf16c" if cd else "")
+            counter = "launches_bf16c" if cd else "launches"
+            rec = records[name]
+            rec.extra.setdefault("levels", [])
+            om = gmg.omega
+            tables = pst.cheb or [None] * len(pst.ops)
+            for op, lv, steps in zip(pst.ops, pst.mvs, tables):
+                n = op.n
+                b, u = (torch.randn(n, generator=gen, device="cuda",
+                                    dtype=dtype) for _ in range(2))
+                plan = lv.plan(b)
+                if plan is None:
+                    continue
+                chain = SK.ScalarLevel(op, coef_dtype=gmg.coef_torch_dtype(),
+                                       resident=False)
+
+                def plain(u0, n_sweep, res):
+                    if cheby:
+                        return SK.scalar_chebyshev_resident_plain(
+                            lv.coef, b, u0, steps, n_sweep, res, lv.L)
+                    return SK.scalar_sweeps_resident_plain(
+                        lv.coef, b, u0, om, n_sweep, res, lv.L)
+
+                for n_sweep in (2, 12):
+                    for what, k_call, hook, from_u, res in _resident_hooks(
+                            SK, lv, plan[0], cheby, b, u, om, steps,
+                            n_sweep):
+                        tag = f"{name} {lv.L} {plan[0]} {what} x{n_sweep}"
+                        before = getattr(wrapper, counter)
+                        got = k_call()
+                        if getattr(wrapper, counter) != before + 1:
+                            raise RuntimeError(f"{tag}: not one launch")
+                        want = hook(chain)
+                        routed = SK.RESIDENT_HOOKS[plan[0]][what]
+                        before = getattr(wrapper, counter)
+                        via = hook(lv)
+                        if getattr(wrapper, counter) != before + routed:
+                            raise RuntimeError(f"{tag}: the level hook "
+                                               "does not route as "
+                                               "RESIDENT_HOOKS says")
+                        for g_, w_, v_ in zip(got, want, via):
+                            if (g_ is None) != (w_ is None) or (
+                                    g_ is not None and not (torch.equal(
+                                        g_, w_) and torch.equal(v_, w_))):
+                                raise RuntimeError(
+                                    f"{tag} [{dtype}]: differs from the "
+                                    "chain it replaces")
+                        ref = plain(u if from_u else None, n_sweep, res)
+                        rec.compare(dtype, tag, torch.stack(
+                            [g_ for g_ in got if g_ is not None]),
+                            torch.stack([r_ for r_ in ref
+                                         if r_ is not None]))
+                if dtype != torch.float32:
+                    continue
+                last = op is pst.ops[-1]
+                csize = 2 if cd else 4
+                k5 = SK.ScalarLevel(op, phase_kernel=True,
+                                    coef_dtype=gmg.coef_torch_dtype(),
+                                    resident=False)
+                for what, k_call, hook, from_u, res in _resident_hooks(
+                        SK, lv, plan[0], cheby, b, u, om, steps,
+                        12 if last else 2):
+                    if last != what.startswith("sweep_n"):
+                        continue  # the hooks the V-cycle calls here
+                    k_ms, c_ms, turns = _in_turns(k_call,
+                                                  lambda: hook(chain))
+                    nbytes = (7 * csize + 4 * (2 + from_u + res)) * n
+                    row = {"L": list(lv.L), "plan": list(plan),
+                           "coef": cd or "f32", "hook": what,
+                           "n_sweep": 12 if last else 2,
+                           "routed": SK.RESIDENT_HOOKS[plan[0]][what],
+                           "graph_ms": k_ms, "chain_graph_ms": c_ms,
+                           "graph_ms_turns_k_chain_chain_k": turns,
+                           "eager_ms": cuda_ms(k_call),
+                           "chain_eager_ms": cuda_ms(lambda: hook(chain)),
+                           "plain_ms": cuda_ms(lambda: plain(
+                               u if from_u else None, 12 if last else 2,
+                               res), reps=5),
+                           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                           "bound_bytes": nbytes}
+                    if not cheby:
+                        row["k5_graph_ms"] = graph_ms(lambda: hook(k5))
+                    row["share_of_bound"] = row["bound_ms"] / k_ms
+                    log(f"  {name} {lv.L} {what}: " + json.dumps(row))
+                    rec.extra["levels"].append(row)
+                    if last:  # the record's timed call: the coarse solve
+                        rec.ms, rec.graph_ms = row["eager_ms"], k_ms
+                        rec.plain_ms = row["plain_ms"]
+                        rec.extra["chain_graph_ms"] = c_ms
+                        rec.extra["timed"] = f"{what} x12, level {lv.L}"
+                        # coefficients and b in, u out; ~17 flops a cell
+                        # and sweep
+                        rec.bytes, rec.ops = nbytes, 17 * 12 * n
+            del pst
+        del B
+        torch.cuda.empty_cache()
+    log("  K8/K9 = the K2/K4 chains on the card, bitwise, on every level "
+        "and hook they hold")
 
 
 def phase_kernels_transpose(case, records):
@@ -1732,6 +1937,74 @@ def warm_up_multimodel():
     torch.cuda.synchronize()
 
 
+GMG_LEVEL_KERNELS = ("scalar_jacobi", "scalar_chebyshev",
+                     "scalar_jacobi_phase", K8, K9)
+
+
+def level_launches_per_vcycle(L, smoother, phases, coef_dtype=None,
+                              n_smooth=2, n_coarse=12, min_cells=16384):
+    """The GMG level kernels' launches in one V-cycle of the flagship's
+    pressure hierarchy on ``L`` (nz, ny, nx), as ``ScalarLevel`` routes it
+    on this card: each level that ``resident_plan`` holds runs each hook
+    that ``RESIDENT_HOOKS`` marks as one K8/K9 launch; the others keep the
+    chains (K2 one pass per sweep and residual, K5 whole phases under
+    ``phases``, K4 one step per launch and K2's residual after a Chebyshev
+    presmooth). Keys as ``launch_counts``."""
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+
+    cd = torch.bfloat16 if coef_dtype == "bf16" else None
+    sfx = "_bf16c" if cd is not None else ""
+    props = SK.device_props(torch.device("cuda", 0), torch.float32, cd)
+    shapes = [tuple(L)]
+    while int(np.prod(shapes[-1])) > min_cells:
+        shapes.append(tuple(v if v == 1 else -(-v // 2) for v in shapes[-1]))
+    out = dict.fromkeys((k + sfx for k in GMG_LEVEL_KERNELS), 0)
+    cheby = smoother == "chebyshev"
+    for i, shape in enumerate(shapes):
+        plan = SK.resident_plan(shape, torch.float32, cd, props)
+        hooks = SK.RESIDENT_HOOKS[plan[0]] if plan else {}
+        last = i == len(shapes) - 1
+        names = (["sweep_n"] if last else ["presmooth_residual",
+                                           "postsmooth"])
+        for h in names:
+            n_sweep = n_coarse if last else n_smooth
+            if hooks.get(h + "_cheby" if cheby else h):
+                out[(K9 if cheby else K8) + sfx] += 1
+            elif cheby:
+                out["scalar_chebyshev" + sfx] += n_sweep
+                out["scalar_jacobi" + sfx] += h == "presmooth_residual"
+            elif phases:  # ScalarLevel._phase's chunks
+                u, k_left, res = None, n_sweep, h == "presmooth_residual"
+                while k_left:
+                    k = min(k_left, SK.PHASE_MAX_DEPTH + int(u is None))
+                    k_left -= k
+                    out["scalar_jacobi_phase" + sfx] += 1
+                    if res and not k_left and SK._phase_depth(
+                            u, k, True) > SK.PHASE_MAX_DEPTH:
+                        out["scalar_jacobi_phase" + sfx] += 1
+                    u = "u"
+            else:
+                out["scalar_jacobi" + sfx] += n_sweep + (
+                    h == "presmooth_residual")
+    return out
+
+
+def check_level_launches(name, launches, lin, smoother, phases, coef_dtype):
+    """The level kernels' launches of a slice at GRID: two V-cycles per
+    linear iteration (BiCGStab applies CPR twice), each as
+    ``level_launches_per_vcycle`` routes it; raises on any other count.
+    Returns the expected launches per linear iteration."""
+    per = level_launches_per_vcycle((GRID[2], GRID[1], GRID[0]), smoother,
+                                    phases, coef_dtype)
+    got = {k: launches[k] for k in per}
+    want = {k: 2 * v * lin for k, v in per.items()}
+    if got != want:
+        raise RuntimeError(f"{name} slice: GMG level launches {got}, "
+                           f"routing expects {want} ({lin} linear "
+                           "iterations)")
+    return {k: 2 * v for k, v in per.items()}
+
+
 def phase_slice(case, name, smoother, fused=False, product=False,
                 coef_dtype=None, phases=None, n_step=3):
     """One slice at full size in float32, ``n_step`` report steps; the
@@ -1788,6 +2061,9 @@ def phase_slice(case, name, smoother, fused=False, product=False,
                       == launches["fused_omega_update"]):
         raise RuntimeError(f"{name} slice: K6/K7 launches {launches} differ "
                            f"from the {lin} linear iterations")
+    level_per_lin = check_level_launches(
+        name, launches, lin, smoother,
+        fused if phases is None else phases, coef_dtype)
     if coef_dtype == "bf16" and launches["stencil_matvec_bf16c"] != 2 * lin:
         # CPR's stage 2 runs once per preconditioner application, two per
         # linear iteration, and nothing else takes bfloat16 K1 coefficients
@@ -1807,6 +2083,9 @@ def phase_slice(case, name, smoother, fused=False, product=False,
         "peak_mem_bytes": peak, "launches": launches,
         "launches_per_linear_iteration": {
             k: v / max(lin, 1) for k, v in launches.items()},
+        # the GMG level kernels' launches per linear iteration as routed
+        # (checked equal to the counts)
+        "level_launches_per_linear_iteration": level_per_lin,
         # K1's launches by entry and shape: the operator (C = K = 2) and
         # CPR stage 2's pressure column (C = 2, K = 1) counted apart
         "k1_launches_by_shape": k1_shapes,
@@ -2674,7 +2953,7 @@ def phase_multimodel_cross_check(dims=WELL_SMALL_EW):
 ADJ_DT = 1.5 * 3600.0  # bench.py run_adjoint's report step (BENCH_ADJ_DT)
 # kernels the adjoint's sweep must never launch: the opt-in smoothers and
 # Krylov bodies, and every bfloat16 entry
-ADJOINT_FORBIDDEN = ("scalar_chebyshev", "scalar_jacobi_phase",
+ADJOINT_FORBIDDEN = ("scalar_chebyshev", "scalar_jacobi_phase", K9,
                      "fused_alpha_s", "fused_omega_update") + tuple(
     k for k in KERNEL_INFO if k.endswith("_bf16c"))
 
@@ -2732,10 +3011,10 @@ def _record_solves(storage):
 
 
 def check_adjoint_launches(launches, per_solve, n_step):
-    """K1 and K2 in every λ-solve and nowhere else; the three-axis and the
-    per-axis K3 once per step (that step's Jacobian: the differentiable
+    """K1, K2 and K8 in every λ-solve and nowhere else; the three-axis and
+    the per-axis K3 once per step (that step's Jacobian: the differentiable
     residual launches nothing); no opt-in kernel, no bfloat16 entry."""
-    for k in ("stencil_matvec", "scalar_jacobi"):
+    for k in ("stencil_matvec", "scalar_jacobi", K8):
         if any(s[k] <= 0 for s in per_solve):
             raise RuntimeError(f"wells-adjoint: {k} missing from a λ-solve: "
                                f"{per_solve}")
@@ -2839,7 +3118,7 @@ def phase_adjoint(case, n_step=2, device="cuda"):
         "forward_launches": fwd_launches,
         "launches_per_lambda_iteration": {
             k: launches[k] / max(sum(its), 1) for k in (
-                "stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian",
+                "stencil_matvec", "scalar_jacobi", K8, "darcy_flux_jacobian",
                 "darcy_flux_jacobian_lattice")},
         "launches_per_lambda_solve": per_solve,
     }
@@ -4622,9 +4901,10 @@ DD_LAMBDA_RTOL, DD_LAMBDA_ITS, DD_LAMBDA_GRAD_BAR = 1e-6, 4000, 1e-3
 # MULTICHIP_r05.json's measurement of those bars (JAX package, 8 fake
 # devices): max|dP|/|P| and max rel |dGrad| of the dryrun case
 MULTICHIP_R05 = {"states": 4.19e-16, "gradients": 5.68e-11}
-SLICE_KERNELS["dd-slab"] = ("scalar_jacobi",)  # the global GMG V-cycle
+# the global GMG V-cycle: K2 on the fine level, K8 on the mid and coarse
+SLICE_KERNELS["dd-slab"] = ("scalar_jacobi", K8)
 SLICE_FORBIDDEN["dd-slab"] = tuple(k for k in KERNEL_INFO
-                                   if k != "scalar_jacobi")
+                                   if k not in ("scalar_jacobi", K8))
 # the general engine assembles and solves in face-block form: no kernel
 SLICE_KERNELS["dd-general"] = ()
 SLICE_FORBIDDEN["dd-general"] = tuple(KERNEL_INFO)
@@ -5241,6 +5521,8 @@ def phase_dd_slab(ref, grid=GRID, n_shards=DD_SHARDS, device="cuda"):
                      setup, nc, len(ref["dts"]))
     out["k2_launches_per_linear_iteration"] = \
         out["launches_per_linear_iteration"].get("scalar_jacobi", 0)
+    out["k8_launches_per_linear_iteration"] = \
+        out["launches_per_linear_iteration"].get(K8, 0)
     # a ministep at the Newton cap is accepted by the final-iteration
     # factor (10x the tolerances), as srcwells' own capped ministeps
     out["srcwells_report_steps"] = ref["report_steps"]
@@ -5772,51 +6054,66 @@ def log_same_call(dd, srcwells=None, extruded=None):
                 ref_name: {k: ref[k] for k in keys}}))
 
 
-def side_phases(slab_ref):
-    """``python3 chip_smoke.py --side DIR``: the phases that ``main`` runs
-    in a second process on the same card, beside its own from the generic
-    phases on — the MultiModel phases (wells-multimodel, multimodel-fused,
-    its engine check, dd-multimodel, the card-vs-CPU cross-check) and the
-    distributed ones (dd-cross-check, dd-slab on srcwells' ``slab_ref``,
-    dd-general on its own extruded-layers case). Both halves are bound by
-    the host: the eight shard threads take turns in one interpreter, so
-    in one process they would run one after the other. Returns the
-    records ``main`` reports."""
+SIDE_GROUPS = ("mm", "dd", "tm")  # the processes beside main's own
+
+
+def side_phases(group, slab_ref):
+    """``python3 chip_smoke.py --side DIR GROUP``: a group of phases that
+    ``main`` runs in a process of its own on the same card, beside its own
+    from the generic phases on. ``mm``: the MultiModel phases
+    (wells-multimodel, multimodel-fused, its engine check, dd-multimodel,
+    the card-vs-CPU cross-check); ``dd``: the distributed ones
+    (dd-cross-check, dd-slab on srcwells' ``slab_ref``, dd-general on its
+    own extruded-layers case); ``tm``: the transport and meshes phases.
+    Each is bound by the host (the eight shard threads take turns in one
+    interpreter), so in one process they would run one after the other.
+    Returns the records ``main`` reports."""
     t_start = time.perf_counter()
     out = {"slices": {}}
     slices = out["slices"]
-    warm_up_multimodel()
-    case_w = build_well_flagship(*GRID)
-    case_mm = build_well_multimodel(*GRID)
-    sim, res, last_forces, slices["wells-multimodel"] = phase_multimodel(
-        case_mm, n_step=2)
-    slices["wells-multimodel"]["f64_verify"] = phase_f64_verify(
-        sim, res, last_forces, "wells-multimodel")
-    slices["multimodel-fused"] = phase_multimodel_fused(sim, case_mm)
-    out["mm_engine"] = phase_multimodel_engine_check(case_mm, case_w, res,
-                                                     n_step=2)
-    mm_ref = slab_reference(res, case_mm[3], n_report=1, n_step=2)
-    t1 = time.perf_counter()
-    slices["dd-multimodel"] = phase_dd_multimodel(case_mm, mm_ref, case_w,
-                                                  ref_sim=sim)
-    log(f"# dd-multimodel: {time.perf_counter() - t1:.1f} s")
-    del sim, res, case_mm, case_w, mm_ref
-    torch.cuda.empty_cache()
-    out["mm_cross"] = phase_multimodel_cross_check()
-    log(f"# multimodel phases: {time.perf_counter() - t_start:.1f} s")
-    t0 = time.perf_counter()
-    out["dd"] = dd_phases(srcwells=(None, slab_ref))
-    slices.update({k: out["dd"][k] for k in ("dd-slab", "dd-general")})
-    log(f"# distributed phases: {time.perf_counter() - t0:.1f} s")
-    log(f"# side total {time.perf_counter() - t_start:.1f} s")
+    if group == "mm":
+        warm_up_multimodel()
+        case_w = build_well_flagship(*GRID)
+        case_mm = build_well_multimodel(*GRID)
+        sim, res, last_forces, slices["wells-multimodel"] = \
+            phase_multimodel(case_mm, n_step=2)
+        slices["wells-multimodel"]["f64_verify"] = phase_f64_verify(
+            sim, res, last_forces, "wells-multimodel")
+        slices["multimodel-fused"] = phase_multimodel_fused(sim, case_mm)
+        out["mm_engine"] = phase_multimodel_engine_check(
+            case_mm, case_w, res, n_step=2)
+        mm_ref = slab_reference(res, case_mm[3], n_report=1, n_step=2)
+        t1 = time.perf_counter()
+        slices["dd-multimodel"] = phase_dd_multimodel(case_mm, mm_ref,
+                                                      case_w, ref_sim=sim)
+        log(f"# dd-multimodel: {time.perf_counter() - t1:.1f} s")
+        del sim, res, case_mm, case_w, mm_ref
+        torch.cuda.empty_cache()
+        out["mm_cross"] = phase_multimodel_cross_check()
+        log(f"# multimodel phases: {time.perf_counter() - t_start:.1f} s")
+    elif group == "dd":
+        out["dd"] = dd_phases(srcwells=(None, slab_ref))
+        slices.update({k: out["dd"][k] for k in ("dd-slab", "dd-general")})
+        log(f"# distributed phases: {time.perf_counter() - t_start:.1f} s")
+    else:
+        out["tr"] = transport_phases(n_step=1)
+        slices.update({k: out["tr"][k] for k in (
+            "weno-transport", "weno-transport-fused", "nfvm-pressure")})
+        log(f"# transport phases: {time.perf_counter() - t_start:.1f} s")
+        t0 = time.perf_counter()
+        out["me"] = meshes_phases(n_step=1)
+        slices.update({k: out["me"][k] for k in (
+            "extruded-layers", "coarse-upscaled", "cut-fault")})
+        log(f"# meshes phases: {time.perf_counter() - t0:.1f} s")
+    log(f"# side {group} total {time.perf_counter() - t_start:.1f} s")
     return out
 
 
-def start_side(slab_ref):
-    """``side_phases`` in a second process: ``slab_ref`` pickled into a
-    temporary directory, its output into side.log there. The process dies
-    with this one, and is stopped and the directory removed at exit.
-    Returns (process, directory)."""
+def start_side(group, slab_ref):
+    """``side_phases(group, ...)`` in a process of its own: ``slab_ref``
+    pickled into a temporary directory, its output into side.log there.
+    The process dies with this one, and is stopped and the directory
+    removed at exit. Returns (process, directory)."""
     import atexit
     import ctypes
     import pickle
@@ -5832,7 +6129,8 @@ def start_side(slab_ref):
 
     with open(os.path.join(workdir, "side.log"), "w") as out:
         proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--side", workdir],
+            [sys.executable, os.path.abspath(__file__), "--side", workdir,
+             group],
             stdout=out, cwd=os.path.dirname(os.path.abspath(__file__)),
             preexec_fn=die_with_parent)
 
@@ -5847,8 +6145,8 @@ def start_side(slab_ref):
 
 
 def finish_side(proc, workdir, timeout):
-    """Waits for the second process, repeats its log and returns its
-    records (its output's last line); raises if it failed."""
+    """Waits for a side process, repeats its log and returns its records
+    (its output's last line); raises if it failed."""
     try:
         rc = proc.wait(timeout=max(timeout, 1.0))
     except subprocess.TimeoutExpired:
@@ -5860,7 +6158,7 @@ def finish_side(proc, workdir, timeout):
     for line in lines[:-1]:
         log(line)
     if rc != 0 or not lines:
-        raise RuntimeError(f"the side process failed ({rc})")
+        raise RuntimeError(f"the side process {proc.args[-1]} failed ({rc})")
     return json.loads(lines[-1])
 
 
@@ -5880,6 +6178,7 @@ def main():
     phase_kernels_phase(case_w, records)
     phase_kernels_krylov(records)
     phase_kernels_bf16(case_w, records)
+    phase_kernels_resident(case_w, records)
     phase_kernels_transpose(case_w, records)
     log(f"# kernel phases: {time.perf_counter() - t0:.1f} s")
     phase_warm_up()
@@ -5906,7 +6205,7 @@ def main():
             slices[name]["refine"] = phase_refine(sim, res, last_forces)
         del sim, res
         torch.cuda.empty_cache()
-    side, workdir = start_side(slab_ref)
+    sides = {g: start_side(g, slab_ref) for g in SIDE_GROUPS}
     t0 = time.perf_counter()
     sim, res, last_forces, slices["generic"] = phase_generic(case, n_step=2)
     slices["generic"]["f64_verify"] = phase_f64_verify(sim, res, last_forces,
@@ -5939,17 +6238,6 @@ def main():
     log(f"# adjoint phases: {time.perf_counter() - t0:.1f} s")
     del case_w
     t0 = time.perf_counter()
-    tr = transport_phases(n_step=1)
-    slices.update({k: tr[k] for k in ("weno-transport",
-                                      "weno-transport-fused",
-                                      "nfvm-pressure")})
-    log(f"# transport phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    me = meshes_phases(n_step=1)
-    slices.update({k: me[k] for k in ("extruded-layers", "coarse-upscaled",
-                                      "cut-fault")})
-    log(f"# meshes phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     case_dict = build_flagship(*DICT_GRID)
     dict_hm = phase_dict_history_match(case_dict, max_iterations=2)
     gen_setup = phase_generic_setup(case_dict)
@@ -5974,12 +6262,15 @@ def main():
     phase_generic_adjoint_cross_check(WELL_SMALL_EW, stencil_x)
     phase_generic_cross_check()
     t0 = time.perf_counter()
-    side_out = finish_side(side, workdir,
-                           SCRIPT_LIMIT_S - (t0 - t_start))
-    log(f"# waited {time.perf_counter() - t0:.1f} s for the side process")
-    slices.update(side_out["slices"])
-    mm_engine, mm_cross, dd = (side_out[k] for k in ("mm_engine", "mm_cross",
-                                                     "dd"))
+    side_out = {}
+    for proc, workdir in sides.values():
+        out = finish_side(proc, workdir,
+                          SCRIPT_LIMIT_S - (time.perf_counter() - t_start))
+        slices.update(out.pop("slices"))
+        side_out.update(out)
+    log(f"# waited {time.perf_counter() - t0:.1f} s for the side processes")
+    mm_engine, mm_cross, dd, tr, me = (side_out[k] for k in (
+        "mm_engine", "mm_cross", "dd", "tr", "me"))
     log_same_call(dd, slices["srcwells"], me["extruded-layers"])
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
@@ -6058,8 +6349,9 @@ def main():
         "s_per_newton", "cell_newton_its_per_s", "peak_mem_bytes",
         "host_setup_s", "f64_verify")} for k in ("dd-slab", "dd-general",
                                                  "dd-multimodel")})
-        + " k2_per_linear_iteration " + json.dumps(
-            dd["dd-slab"]["k2_launches_per_linear_iteration"])
+        + " k2_k8_per_linear_iteration " + json.dumps(
+            [dd["dd-slab"][f"k{i}_launches_per_linear_iteration"]
+             for i in (2, 8)])
         + " adjoint " + json.dumps(dd["dd-general"]["adjoint"])
         + " dd-multimodel adjoint " + json.dumps(
             slices["dd-multimodel"].get("adjoint"))
@@ -6138,13 +6430,13 @@ def profile(name):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile(sys.argv[2])
-    elif len(sys.argv) == 3 and sys.argv[1] == "--side":
-        # main's second process: --side DIR (DIR holds slab_ref.pkl); its
-        # records as the last line
+    elif len(sys.argv) == 4 and sys.argv[1] == "--side":
+        # one of main's side processes: --side DIR GROUP (DIR holds
+        # slab_ref.pkl); its records as the last line
         import pickle
 
         with open(os.path.join(sys.argv[2], "slab_ref.pkl"), "rb") as f:
-            side_out = side_phases(pickle.load(f))
+            side_out = side_phases(sys.argv[3], pickle.load(f))
         print(json.dumps(side_out, default=lambda o: o.tolist()),
               flush=True)
     elif len(sys.argv) >= 2 and sys.argv[1] == "--meshes":

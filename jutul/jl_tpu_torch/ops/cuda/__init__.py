@@ -13,8 +13,10 @@ from .stencil_kernels import (  # noqa: F401
     ScalarLevel,
     StencilMatvec,
     scalar_chebyshev,
+    scalar_chebyshev_resident,
     scalar_jacobi,
     scalar_jacobi_phase,
+    scalar_sweeps_resident,
     stencil_matvec,
 )
 
@@ -27,13 +29,17 @@ KERNELS = {
     "scalar_jacobi_phase": scalar_jacobi_phase,
     "fused_alpha_s": fused_alpha_s,
     "fused_omega_update": fused_omega_update,
+    "scalar_sweeps_resident": scalar_sweeps_resident,
+    "scalar_chebyshev_resident": scalar_chebyshev_resident,
 }
-# the bfloat16-coefficient entries of K1, K2, K4 and K5 count apart
+# the bfloat16-coefficient entries of K1, K2, K4, K5, K8 and K9 count apart
 KERNELS_BF16C = {
     "stencil_matvec_bf16c": stencil_matvec,
     "scalar_jacobi_bf16c": scalar_jacobi,
     "scalar_chebyshev_bf16c": scalar_chebyshev,
     "scalar_jacobi_phase_bf16c": scalar_jacobi_phase,
+    "scalar_sweeps_resident_bf16c": scalar_sweeps_resident,
+    "scalar_chebyshev_resident_bf16c": scalar_chebyshev_resident,
 }
 
 

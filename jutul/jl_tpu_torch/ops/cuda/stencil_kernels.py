@@ -1,10 +1,12 @@
 """Stencil kernels K1 (block-stencil SpMV), K2 (scalar Jacobi pass), K4
-(scalar Chebyshev step) and K5 (a whole scalar Jacobi smoothing phase).
+(scalar Chebyshev step), K5 (a whole scalar Jacobi smoothing phase) and
+K8/K9 (a whole GMG level's Jacobi / Chebyshev phase held on chip).
 
-Wrappers around ``csrc/stencil_kernels.cu``, with the plain PyTorch version
-of each kernel beside it and a launch counter on each wrapper. A wrapper
-given CPU tensors runs the plain version; given CUDA tensors it launches
-the kernel or raises — there is no fallback.
+Wrappers around ``csrc/stencil_kernels.cu`` and ``csrc/level_kernels.cu``,
+with the plain PyTorch version of each kernel beside it and a launch
+counter on each wrapper. A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches the kernel or raises — there is no
+fallback.
 
 - K1 ``stencil_matvec`` replaces jutul/jl_tpu/ops/pallas/stencil_kernels.py
   ``_kernel`` (B1): the 7-point C×K block-stencil SpMV, used as the Krylov
@@ -16,19 +18,16 @@ the kernel or raises — there is no fallback.
   and all its loads issued first; its sums are those of its original
   mapping (one thread per output) bit for bit, which stays as
   ``stencil_matvec_reference`` for the card tests.
-- K2 ``scalar_jacobi`` replaces ``_kernel_slab_sweeps`` (B2),
-  ``_kernel_sweeps`` (B3) and ``_kernel_fused`` (B4): one fused residual or
-  weighted-Jacobi pass on a scalar stencil. Bound by HBM bytes (7
-  coefficient streams + 2–3 vectors per pass). The TPU kernels read the
-  coefficients once per smoothing PHASE (deep-halo slabs or VMEM-resident
-  levels); here a phase is a loop of single-pass launches, so the
-  coefficients stream once per sweep. Temporal blocking that restores
-  once-per-phase reads is later work.
-- K4 ``scalar_chebyshev`` replaces ``_kernel_sweeps_cheby`` (B6) and
-  ``_kernel_slab_sweeps_cheby`` (B7): one step of the Chebyshev
-  recurrence on a scalar stencil, per-step scalars read from a small
-  device table. Bound by HBM bytes as K2 (plus the direction vector d in
-  and out); one launch per step, so the coefficients stream once per step.
+- K2 ``scalar_jacobi`` replaces ``_kernel_fused`` (B4) and, as a chain of
+  single-pass launches, ``_kernel_slab_sweeps`` (B2) on the levels K8 does
+  not hold: one fused residual or weighted-Jacobi pass on a scalar
+  stencil. Bound by HBM bytes (7 coefficient streams + 2–3 vectors per
+  pass); a phase is a loop of launches, so the coefficients stream once
+  per sweep.
+- K4 ``scalar_chebyshev`` replaces ``_kernel_slab_sweeps_cheby`` (B7): one
+  step of the Chebyshev recurrence on a scalar stencil, per-step scalars
+  read from a small device table. Bound by HBM bytes as K2 (plus the
+  direction vector d in and out); one launch per step.
 - K5 ``scalar_jacobi_phase`` replaces ``_kernel_slab_sweeps_db`` (B8, the
   double-buffered deep-halo slab kernel): a whole weighted-Jacobi phase
   (up to ``PHASE_MAX_DEPTH`` stencil applications: the sweeps from zero
@@ -39,7 +38,19 @@ the kernel or raises — there is no fallback.
   the z-chunk depth is chosen per level (``phase_plan``) for the least
   work on the busiest SM. Its plain version is K2's plain loop; it keeps K2's per-cell
   arithmetic. ``ScalarLevel(phase_kernel=True)`` runs its Jacobi hooks on
-  it (``GMG.slab_double_buffer``).
+  it (``GMG.slab_double_buffer``) on the levels K8 does not hold.
+- K8 ``scalar_sweeps_resident`` replaces ``_kernel_sweeps`` (B3) and K9
+  ``scalar_chebyshev_resident`` replaces ``_kernel_sweeps_cheby`` (B6): a
+  whole level's Jacobi (K2's arithmetic) or Chebyshev (K4's) phase, with
+  the optional residual, in ONE launch that keeps the level in registers
+  and shared memory — as a thread-block cluster whose CTAs exchange their
+  boundary planes through distributed shared memory, or as a cooperative
+  grid that exchanges them through L2 (``resident_plan``). Bound by the
+  launch and the sweeps' serial dependence, not bytes. Each equals the
+  chain it replaces (K2's, K4's) bit for bit; their plain versions are
+  those chains' plain loops. ``ScalarLevel`` routes every level that fits
+  either form to them, as the JAX package routes every level whose
+  streams fit VMEM to B3/B6 (``scalar_level_ops``).
 
 Coefficient dtype (replaces the ``coef_dtype=bfloat16`` form of B1-B4 and
 B6-B8, jutul/jl_tpu/ops/pallas/stencil_kernels.py:177-231, :323, :819,
@@ -505,31 +516,295 @@ def scalar_chebyshev(coef, b, u, d, steps, step: int, mode: int, L):
 scalar_chebyshev.launches = scalar_chebyshev.launches_bf16c = 0
 
 
+# ---------------------------------------------------------------------------
+# K8 / K9: a whole level's smoothing phase held on chip, one launch
+# ---------------------------------------------------------------------------
+RESIDENT_CELLS = 2  # cells per thread (csrc/level_kernels.cu kCells)
+RESIDENT_THREADS = 512  # threads per CTA at most (kThreads)
+RESIDENT_MAX_CLUSTER = 16  # CTAs of the cluster form (non-portable size)
+RESIDENT_MAX_SMEM = 200 * 1024  # bytes of shared memory a CTA (kMaxSmem)
+_FORM_CODE = {"cluster": 1, "grid": 2}
+# The card's properties the plan reads (``device_props``): multiprocessors,
+# the largest cluster the cluster form launches, and CTAs of the grid form
+# co-resident on one SM. CPU tensors route as on an H100 SXM, so that a CPU
+# run takes the same hooks as the card.
+H100_PROPS = {"sms": 132, "max_cluster": 16, "grid_ctas_per_sm": 1}
+# The hooks K8/K9 serve, by form: each True entry measured faster than its
+# chain, and each False one slower or no faster, in one call on the card
+# (graph ms, PERF.md §6 and scripts/level_resident_probe.py; NVIDIA H100
+# 80GB HBM3). A one-launch phase pays ~3 us of launch and load and, per
+# sweep after the first, one exchange (~1 us in a cluster, ~3 us through
+# L2 in the grid form), so it wins where it replaces many launches — the
+# coarse solve's 12 sweeps — and not at the V-cycle's 2 sweeps, whose
+# chains of 2-3 launches are as fast or faster. A hook set False keeps its
+# chain (K2, K5 or K4).
+RESIDENT_HOOKS = {
+    "cluster": {"sweep_n": True, "presmooth_residual": False,
+                "postsmooth": False, "sweep_n_cheby": True,
+                "presmooth_residual_cheby": False, "postsmooth_cheby": False},
+    "grid": {"sweep_n": False, "presmooth_residual": False,
+             "postsmooth": False, "sweep_n_cheby": False,
+             "presmooth_residual_cheby": False, "postsmooth_cheby": False},
+}
+
+
+def resident_plan(L, dtype, coef_dtype, props, form=None):
+    """The launch K8/K9 takes for a level: ``(form, ctas, threads, cells
+    per CTA)``, or None where no form holds the level. A pure function of
+    the lattice ``L`` (nz, ny, nx), the vector and coefficient dtypes and
+    the card's ``props`` (``H100_PROPS``' keys); ``form`` ("cluster" or
+    "grid") asks for that form alone.
+
+    A thread holds ``RESIDENT_CELLS`` cells, so a CTA at most
+    ``RESIDENT_CELLS * RESIDENT_THREADS``. The cluster form (taken
+    first) gives each of at most ``props["max_cluster"]`` CTAs whole
+    z-planes; the grid form cuts the lattice into at most ``props["sms"]``
+    contiguous chunks (one CTA on each SM, all co-resident). bfloat16
+    coefficients have CUDA entries with float32 vectors only."""
+    if form not in (None, "cluster", "grid"):
+        raise ValueError(f"unknown form {form!r}")
+    if dtype not in (torch.float32, torch.float64) or (
+            coef_dtype not in (None, dtype) and not (
+                coef_dtype == torch.bfloat16 and dtype == torch.float32)):
+        return None
+    nz, ny, nx = (int(v) for v in L)
+    plane = ny * nx
+    n = nz * plane
+    if n <= 0:
+        return None
+    cap = RESIDENT_CELLS * RESIDENT_THREADS
+    per_warp = 32 * RESIDENT_CELLS
+    size = torch.empty(0, dtype=dtype).element_size()
+
+    def threads(cpc):  # whole warps of RESIDENT_CELLS cells a thread
+        return 32 * -(-cpc // per_warp)
+
+    def fits(cpc, planes):
+        # u twice, ``planes`` planes outside the chunk (csrc resident_smem)
+        return cpc <= cap and \
+            16 + (2 * cpc + planes * plane) * size <= RESIDENT_MAX_SMEM
+
+    if form in (None, "cluster"):
+        ctas = min(nz, int(props["max_cluster"]))
+        ppc = -(-nz // ctas)
+        ctas = -(-nz // ppc)
+        cpc = ppc * plane
+        if fits(cpc, 4):
+            return "cluster", ctas, threads(cpc), cpc
+    if form in (None, "grid") and props["grid_ctas_per_sm"] >= 1:
+        cpc = per_warp * -(-n // (per_warp * int(props["sms"])))
+        if fits(cpc, 2):
+            return "grid", -(-n // cpc), threads(cpc), cpc
+    return None
+
+
+_PROPS = {}
+_GRID_EXCHANGE = {}
+
+
+def _grid_exchange(device, words: int):
+    """The grid form's buffers on ``device``: its launch tag and finished-CTA
+    count (two zeroed words), and at least ``words`` exchange words (tagged
+    values, csrc ``Exchange``) set to the tag 0xffffffff that no launch
+    uses. Allocated once, outside any graph capture, and grown when a
+    launch needs more; every launch leaves them valid for the next.
+    Launches on one device share them, so they must not overlap: the port
+    issues them on one stream."""
+    have = _GRID_EXCHANGE.get(device.index)
+    if have is None or have[1].numel() < words:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the grid form's exchange buffers are "
+                               "allocated outside a CUDA graph capture: "
+                               "run the launch once before capturing it")
+        tag = have[0] if have else torch.zeros(2, dtype=torch.int32,
+                                               device=device)
+        have = (tag, torch.full((max(words, 1),), -1, dtype=torch.int64,
+                                device=device))
+        _GRID_EXCHANGE[device.index] = have
+    return have
+
+
+def device_props(device, dtype=torch.float32, coef_dtype=None) -> dict:
+    """``resident_plan``'s card properties for the CUDA entry of (vector,
+    coefficient) dtype on ``device``, queried once; ``H100_PROPS`` for the
+    CPU."""
+    if device.type == "cpu":
+        return H100_PROPS
+    like = torch.empty(0, dtype=dtype)
+    suffix = "bf16c_f32" if coef_dtype == torch.bfloat16 else \
+        dtype_suffix(like)
+    key = (device.index, suffix)
+    if key not in _PROPS:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            check(load_library().fn("jt_level_resident_props", suffix)(
+                ctypes.cast(out, ctypes.c_void_p)), "device_props")
+        _PROPS[key] = {"sms": out[0], "max_cluster": out[1],
+                       "grid_ctas_per_sm": out[2]}
+    return _PROPS[key]
+
+
+# Plain version of K8: K2's plain loop, ``n_sweep`` weighted-Jacobi sweeps
+# from ``u`` (None: from zero) and the residual if asked -> (u, r or None)
+scalar_sweeps_resident_plain = scalar_jacobi_phase_plain
+
+
+def scalar_chebyshev_resident_plain(coef, b, u, steps, n_sweep: int,
+                                    emit_residual: bool, L):
+    """Plain version of K9: K4's plain loop — step 0 from zero (mode 0) or
+    from ``u`` (mode 1), then steps 1..n_sweep-1 (mode 2) with the scalars
+    of ``steps`` — and K2's plain residual if asked. Returns
+    (u, r or None)."""
+    mode = CHEB_ZERO if u is None else CHEB_FIRST
+    u, d = scalar_chebyshev_plain(coef, b, u, None, steps, 0, mode, L)
+    for k in range(1, n_sweep):
+        u, d = scalar_chebyshev_plain(coef, b, u, d, steps, k, CHEB_STEP, L)
+    r = scalar_jacobi_plain(coef, b, u, 0.0, MODE_RESIDUAL, L) \
+        if emit_residual else None
+    return u, r
+
+
+def scalar_sweeps_resident(coef, b, u, omega: float, n_sweep: int,
+                           emit_residual: bool, L, form=None):
+    """K8 wrapper: a whole weighted-Jacobi phase of a level (see
+    ``scalar_sweeps_resident_plain``) in one launch, in ``form`` ("cluster"
+    or "grid"; None: ``resident_plan``'s choice). A lattice the form cannot
+    hold raises. Returns (u, r or None)."""
+    if _is_cpu(b):
+        return scalar_sweeps_resident_plain(coef, b, u, omega, n_sweep,
+                                            emit_residual, L)
+    return _launch_resident(scalar_sweeps_resident, coef, b, u, None,
+                            omega, n_sweep, emit_residual, L, form)
+
+
+def scalar_chebyshev_resident(coef, b, u, steps, n_sweep: int,
+                              emit_residual: bool, L, form=None):
+    """K9 wrapper: ``n_sweep`` Chebyshev steps of a level (see
+    ``scalar_chebyshev_resident_plain``; ``steps`` holds at least
+    ``n_sweep`` rows) and the residual if asked, in one launch, in
+    ``form`` as K8. Returns (u, r or None)."""
+    if _is_cpu(b):
+        return scalar_chebyshev_resident_plain(coef, b, u, steps, n_sweep,
+                                               emit_residual, L)
+    return _launch_resident(scalar_chebyshev_resident, coef, b, u, steps,
+                            0.0, n_sweep, emit_residual, L, form)
+
+
+def _launch_resident(wrapper, coef, b, u, steps, omega, n_sweep,
+                     emit_residual, L, form):
+    """K8's (``steps`` None) or K9's launch on CUDA tensors."""
+    name = wrapper.__name__
+    nz, ny, nx = L
+    n = nz * ny * nx
+    if n_sweep < 1:
+        raise ValueError(f"{name}: n_sweep={n_sweep}; one launch runs 1 or "
+                         "more sweeps")
+    b = b.contiguous()
+    entry, narrow = _coef_entry(coef, b, f"{name} coef")
+    if b.shape != (n,) or coef.shape != (TERMS, 1, n):
+        raise ValueError(f"{name}: bad shapes b {tuple(b.shape)}, coef "
+                         f"{tuple(coef.shape)} for L={L}")
+    plan = resident_plan(L, b.dtype, coef.dtype,
+                         device_props(b.device, b.dtype, coef.dtype), form)
+    if plan is None:
+        raise ValueError(f"{name}: L={L} ({b.dtype}) exceeds the "
+                         f"{form or 'cluster and grid'} form's capacity")
+    kind, ctas, threads, cpc = plan
+    u_ptr = None
+    if u is not None:
+        u = u.contiguous()
+        _require(u, b, f"{name} u")
+        if u.shape != (n,):
+            raise ValueError(f"{name}: bad shape u {tuple(u.shape)}")
+        u_ptr = u.data_ptr()
+    if steps is not None:
+        _require(steps, b, f"{name} steps")
+        if steps.ndim != 2 or steps.shape[1] != 2 or \
+                steps.shape[0] < n_sweep:
+            raise ValueError(f"{name}: steps {tuple(steps.shape)} for "
+                             f"{n_sweep} steps")
+    u_out = torch.empty_like(b)
+    r_out = torch.empty_like(b) if emit_residual else None
+    # the grid form's exchange: a slot of n tagged values (64-bit words, a
+    # float64 value in two) for each sweep after the first application
+    xs = gsync = None
+    napp = _phase_depth(u, n_sweep, emit_residual)
+    if kind == "grid" and napp > 1:
+        gsync, xs = _grid_exchange(
+            b.device, (napp - 1) * n * (b.element_size() // 4))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    head = [coef.data_ptr(), b.data_ptr(), u_ptr]
+    if steps is None:
+        args = head + [u_out.data_ptr(), ptr(r_out), ptr(xs), ptr(gsync),
+                       float(omega)]
+    else:
+        args = head + [steps.data_ptr(), u_out.data_ptr(), ptr(r_out),
+                       ptr(xs), ptr(gsync)]
+    check(load_library().fn(f"jt_{name}", entry)(
+        *args, int(n_sweep), int(u is None), _FORM_CODE[kind], ctas,
+        threads, cpc, nz, ny, nx, stream_handle()), name)
+    _count(wrapper, narrow)
+    return u_out, r_out
+
+
+scalar_sweeps_resident.launches = scalar_sweeps_resident.launches_bf16c = 0
+scalar_chebyshev_resident.launches = \
+    scalar_chebyshev_resident.launches_bf16c = 0
+
+
 class ScalarLevel:
-    """GMG level ops for a ScalarStencil through K2, K4 and K5 — the JAX
-    package's level interface (``smooth0``/``smooth``/``residual``, the
+    """GMG level ops for a ScalarStencil through K8/K9, K2, K4 and K5 — the
+    JAX package's level interface (``smooth0``/``smooth``/``residual``, the
     fused Jacobi phase hooks ``presmooth_residual``/``postsmooth``/
     ``sweep_n`` and their Chebyshev variants ``*_cheby``).
 
-    The Jacobi phase hooks are a loop of single-pass K2 launches, or with
-    ``phase_kernel`` (``GMG.slab_double_buffer``) K5 launches of whole
-    phases, chunked to ``PHASE_MAX_DEPTH`` stencil applications as the JAX
-    slab level chunks ``sweep_n`` to its halo depth. Both give the same
-    values: K5 keeps K2's arithmetic.
+    A level that K8/K9 can hold (``resident_plan`` on the vectors' device
+    and dtype, with ``resident``) runs each hook that ``RESIDENT_HOOKS``
+    marks as one K8 (Jacobi) or K9 (Chebyshev) launch, whatever
+    ``phase_kernel`` says — the JAX package sends every level whose streams
+    fit VMEM to B3/B6 before it looks at its slab options. Other levels
+    (and ``resident=False``) keep the chains: the Jacobi hooks as a loop of
+    single-pass K2 launches, or with ``phase_kernel``
+    (``GMG.slab_double_buffer``) K5 launches of whole phases, chunked to
+    ``PHASE_MAX_DEPTH`` stencil applications as the JAX slab level chunks
+    ``sweep_n`` to its halo depth; the Chebyshev hooks as one K4 launch per
+    step, the residual after a Chebyshev presmooth as K2's residual pass.
+    Every route gives the same values: K5 and K8 keep K2's arithmetic, K9
+    K4's.
 
     The Chebyshev hooks take the level's per-step scalar table
     (``linsolve.cheby.chebyshev_steps``, built once per CPR update) where
-    the JAX hooks take ``lmax`` and ``lower``; the residual after a
-    Chebyshev presmooth is K2's residual pass.
+    the JAX hooks take ``lmax`` and ``lower``.
 
     ``coef_dtype=torch.bfloat16`` stores the level's coefficients in
     bfloat16 (``GMG(coef_dtype="bf16")``): every hook then reads half the
     coefficient bytes and computes in the vectors' dtype."""
 
-    def __init__(self, A, phase_kernel: bool = False, coef_dtype=None):
+    def __init__(self, A, phase_kernel: bool = False, coef_dtype=None,
+                 resident: bool = True):
         self.L = tuple(A.L)
         _, _, self.coef = embed(A, coef_dtype)  # (7, 1, n)
         self.phase_kernel = bool(phase_kernel)
+        self.resident = bool(resident)
+        self._plans = {}
+
+    def plan(self, like):
+        """K8/K9's plan (``resident_plan``) for this level with vectors like
+        ``like``, or None: the level keeps the chains."""
+        key = (like.device, like.dtype)
+        if key not in self._plans:
+            self._plans[key] = resident_plan(
+                self.L, like.dtype, self.coef.dtype,
+                device_props(like.device, like.dtype, self.coef.dtype)) \
+                if self.resident else None
+        return self._plans[key]
+
+    def _form(self, b, hook, n_sweep):
+        """The form K8/K9 runs ``hook`` in on this level, or None."""
+        plan = self.plan(b)
+        if plan is None or n_sweep < 1 or not RESIDENT_HOOKS[plan[0]][hook]:
+            return None
+        return plan[0]
 
     def _pass(self, b, u, omega, mode):
         return scalar_jacobi(self.coef, b, u, omega, mode, self.L)
@@ -562,21 +837,38 @@ class ScalarLevel:
                                        self.L)
         return u, r
 
-    def sweep_n(self, b, omega, n_sweep):
-        if self.phase_kernel:
-            return self._phase(b, None, omega, n_sweep, False)[0]
+    def _sweeps(self, b, u, omega, n_sweep, emit_residual, form):
+        return scalar_sweeps_resident(self.coef, b, u, omega, n_sweep,
+                                      emit_residual, self.L, form)
+
+    def _sweep_chain(self, b, omega, n_sweep):
+        """``n_sweep`` sweeps from zero as single K2 passes."""
         u = self.smooth0(b, omega)
         for _ in range(n_sweep - 1):
             u = self.smooth(u, b, omega)
         return u
 
+    def sweep_n(self, b, omega, n_sweep):
+        form = self._form(b, "sweep_n", n_sweep)
+        if form:
+            return self._sweeps(b, None, omega, n_sweep, False, form)[0]
+        if self.phase_kernel:
+            return self._phase(b, None, omega, n_sweep, False)[0]
+        return self._sweep_chain(b, omega, n_sweep)
+
     def presmooth_residual(self, b, omega, n_sweep):
+        form = self._form(b, "presmooth_residual", n_sweep)
+        if form:
+            return self._sweeps(b, None, omega, n_sweep, True, form)
         if self.phase_kernel:
             return self._phase(b, None, omega, n_sweep, True)
-        u = self.sweep_n(b, omega, n_sweep)
+        u = self._sweep_chain(b, omega, n_sweep)
         return u, self.residual(u, b)
 
     def postsmooth(self, u, b, omega, n_sweep):
+        form = self._form(b, "postsmooth", n_sweep)
+        if form:
+            return self._sweeps(b, u, omega, n_sweep, False, form)[0]
         if self.phase_kernel:
             return self._phase(b, u, omega, n_sweep, False)[0]
         for _ in range(n_sweep):
@@ -593,12 +885,26 @@ class ScalarLevel:
                                     self.L)
         return u
 
+    def _cheby_resident(self, b, u, steps, n_sweep, emit_residual, form):
+        return scalar_chebyshev_resident(self.coef, b, u, steps, n_sweep,
+                                         emit_residual, self.L, form)
+
     def sweep_n_cheby(self, b, steps, n_sweep):
+        form = self._form(b, "sweep_n_cheby", n_sweep)
+        if form:
+            return self._cheby_resident(b, None, steps, n_sweep, False,
+                                        form)[0]
         return self._cheby(b, None, steps, n_sweep)
 
     def presmooth_residual_cheby(self, b, steps, n_sweep):
+        form = self._form(b, "presmooth_residual_cheby", n_sweep)
+        if form:
+            return self._cheby_resident(b, None, steps, n_sweep, True, form)
         u = self._cheby(b, None, steps, n_sweep)
         return u, self.residual(u, b)
 
     def postsmooth_cheby(self, u, b, steps, n_sweep):
+        form = self._form(b, "postsmooth_cheby", n_sweep)
+        if form:
+            return self._cheby_resident(b, u, steps, n_sweep, False, form)[0]
         return self._cheby(b, u, steps, n_sweep)

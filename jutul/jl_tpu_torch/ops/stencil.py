@@ -535,16 +535,18 @@ class GMG:
     factor 2 only).
 
     ``coef_dtype``: None/"f32" keep the level coefficients as assembled;
-    "bf16" stores what the level kernels (K2, K4, K5) and CPR's stage-2
-    matvec (K1, K=1) read in bfloat16, at half the bytes, widened on load
-    with the arithmetic in the vectors' dtype. The hierarchy's Galerkin
+    "bf16" stores what the level kernels (K2, K4, K5, K8, K9) and CPR's
+    stage-2 matvec (K1, K=1) read in bfloat16, at half the bytes, widened
+    on load with the arithmetic in the vectors' dtype. The hierarchy's Galerkin
     coarsening and the Chebyshev bound stay in full precision. GMG is a
     preconditioner, so this moves iteration counts a little and the
     converged answer not at all.
 
     ``smoother``: "jacobi" (weighted Jacobi through the K2 level kernel)
     or "chebyshev" (polynomial smoothing on [cheby_lower*lmax, lmax]
-    through K4; no dot products).
+    through K4; no dot products). On the levels K8/K9 hold
+    (``ScalarLevel``), the hooks ``RESIDENT_HOOKS`` marks — the coarse
+    solve — run as one launch of K8 (Jacobi) or K9 (Chebyshev).
 
     ``slab_double_buffer`` (an attribute, default False, set after
     construction as in the JAX package, where it selects the pipelined
@@ -659,7 +661,7 @@ class StencilCPRState:
     w: torch.Tensor  # (neq, n) quasi-IMPES row weights
     dinv: torch.Tensor  # (n, ndof, neq) inverse diagonal blocks
     ops: list  # GMG hierarchy of the pressure stencil
-    mvs: list  # per-level K2 level ops
+    mvs: list  # per-level ScalarLevel ops (K2/K4/K5/K8/K9)
     mv_A: StencilMatvec  # K1 matvec of the full block matrix
     mv_Ap: StencilMatvec  # K1 pressure-COLUMN matvec (K=1): stage 2
     # applies A to a vector that is nonzero only in the pressure dof, so

@@ -73,7 +73,7 @@ def test_k2_matches_plain(dev, dtype):
     A = ScalarStencil(L, diag.reshape(-1).abs() + 6.0,
                       {a: v[0, 0] for a, v in plus.items()},
                       {a: v[0, 0] for a, v in minus.items()})
-    lv = SK.ScalarLevel(A)
+    lv = SK.ScalarLevel(A, resident=False)  # the K2 chain on every hook
     n = A.n
     b = torch.randn(n, dtype=dtype, device=dev)
     u = torch.randn(n, dtype=dtype, device=dev)
@@ -107,7 +107,7 @@ def test_k4_matches_plain(dev, dtype):
     A = ScalarStencil(L, diag.reshape(-1).abs() + 4.0,
                       {a: -v[0, 0].abs() for a, v in plus.items()},
                       {a: -v[0, 0].abs() for a, v in minus.items()})
-    lv = SK.ScalarLevel(A)
+    lv = SK.ScalarLevel(A, resident=False)  # the K4 chain on every hook
     steps = chebyshev_steps(_cheby_setup(A)[1], 0.25, 12)
     n = A.n
     b = torch.randn(n, dtype=dtype, device=dev)
@@ -168,8 +168,8 @@ def test_k5_matches_plain_and_k2_chain(dev, dtype):
     A = ScalarStencil(L, diag.reshape(-1).abs() + 6.0,
                       {a: -v[0, 0].abs() for a, v in plus.items()},
                       {a: -v[0, 0].abs() for a, v in minus.items()})
-    k2 = SK.ScalarLevel(A)
-    k5 = SK.ScalarLevel(A, phase_kernel=True)
+    k2 = SK.ScalarLevel(A, resident=False)
+    k5 = SK.ScalarLevel(A, phase_kernel=True, resident=False)
     n = A.n
     b = torch.randn(n, dtype=dtype, device=dev)
     u = torch.randn(n, dtype=dtype, device=dev)
@@ -319,8 +319,11 @@ def test_launch_counters_reset(dev):
         "stencil_matvec": 1, "scalar_jacobi": 0, "darcy_flux_jacobian": 0,
         "darcy_flux_jacobian_lattice": 0, "scalar_chebyshev": 0,
         "scalar_jacobi_phase": 0, "fused_alpha_s": 0, "fused_omega_update": 0,
+        "scalar_sweeps_resident": 0, "scalar_chebyshev_resident": 0,
         "stencil_matvec_bf16c": 0, "scalar_jacobi_bf16c": 0,
-        "scalar_chebyshev_bf16c": 0, "scalar_jacobi_phase_bf16c": 0}
+        "scalar_chebyshev_bf16c": 0, "scalar_jacobi_phase_bf16c": 0,
+        "scalar_sweeps_resident_bf16c": 0,
+        "scalar_chebyshev_resident_bf16c": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -590,7 +593,7 @@ def test_k1_counts_launches_by_shape_and_refuses_2_31_cells(dev):
 def test_adjoint_on_the_card_matches_the_cpu(dev):
     """The stencil adjoint (``solve_adjoint_sensitivities_jit``) of the well
     flagship at 8x8x6 in float64 on the same numpy states: on the card (K1,
-    K2 λ-solves, K3 Jacobians) against the CPU (plain versions), within
+    K8 λ-solves, K3 Jacobians) against the CPU (plain versions), within
     1e-9; K3 launches once per step on each entry."""
     import chip_smoke
     from jutul.jl_tpu_torch import solve_adjoint_sensitivities_jit
@@ -614,7 +617,10 @@ def test_adjoint_on_the_card_matches_the_cpu(dev):
         if device == dev:
             assert counts["darcy_flux_jacobian_lattice"] == 2
             assert counts["darcy_flux_jacobian"] == 2
-            assert counts["stencil_matvec"] and counts["scalar_jacobi"]
+            # the λ-solves' GMG at 8x8x6 is one level: its coarse solve
+            # is one K8 launch
+            assert counts["stencil_matvec"] and \
+                counts["scalar_sweeps_resident"]
         else:
             assert not any(counts.values())
     for k in ("Transmissibilities", "FluidVolume", "state0"):
@@ -1010,3 +1016,139 @@ def test_distributed_multimodel_on_the_card_matches_the_cpu(dev):
     assert all(abs(a - b) <= 2 * n for (n, a), (_n, b) in zip(cg, cc))
     for a, cpu in zip(sg, sc):
         assert chip_smoke._mm_rel(a, cpu) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# K8 / K9: a whole level's Jacobi / Chebyshev phase in one launch, in both
+# forms, equal to the K2 / K4 chains bit for bit
+# ---------------------------------------------------------------------------
+def _k2_chain_level(coef, b, u, n_sweep, residual, L_):
+    return _k2_chain(coef, b, u, 0.8, n_sweep, residual, L_)
+
+
+def _k4_chain(coef, b, u, steps, n_sweep, residual, L_):
+    mode = SK.CHEB_ZERO if u is None else SK.CHEB_FIRST
+    u, d = SK.scalar_chebyshev(coef, b, u, None, steps, 0, mode, L_)
+    for k in range(1, n_sweep):
+        u, d = SK.scalar_chebyshev(coef, b, u, d, steps, k, SK.CHEB_STEP, L_)
+    r = SK.scalar_jacobi(coef, b, u, 0.0, SK.MODE_RESIDUAL, L_) \
+        if residual else None
+    return u, r
+
+
+RESIDENT_L = [(16, 16, 64), (9, 13, 37), (5, 7, 3), (17, 3, 4)]
+
+
+@pytest.mark.parametrize("coef_dtype", [torch.float32, torch.float64,
+                                        torch.bfloat16])
+@pytest.mark.parametrize("L_", RESIDENT_L)
+def test_k8_k9_equal_the_chains_bitwise_in_both_forms(dev, L_, coef_dtype):
+    """1 to 12 sweeps (odd counts too), from zero and from u, with and
+    without the residual, in the cluster and the grid form (forced through
+    the wrapper), at ragged extents: K8 equal to the K2 chain and K9 to the
+    K4 chain (and K2's residual) bit for bit, one launch each, and within
+    TOL of the plain versions."""
+    from jutul.jl_tpu_torch.linsolve.cheby import chebyshev_steps
+
+    c16, c32, b, u, _ = _scalar_coef(L_, dev, seed=sum(L_))
+    vec = torch.float64 if coef_dtype == torch.float64 else torch.float32
+    coef = {torch.bfloat16: c16, torch.float32: c32,
+            torch.float64: c32.double()}[coef_dtype]
+    b, u = b.to(vec), u.to(vec)
+    steps = chebyshev_steps(torch.tensor(2.5, dtype=vec, device=dev), 0.25,
+                            12)
+    counter = "launches_bf16c" if coef_dtype == torch.bfloat16 \
+        else "launches"
+    for form in ("cluster", "grid"):
+        for u0 in (None, u):
+            for n_sweep in (1, 2, 3, 5, 12):
+                for res in (False, True):
+                    case = (form, u0 is None, n_sweep, res)
+                    for wrapper, call, chain, plain in (
+                            (SK.scalar_sweeps_resident,
+                             lambda: SK.scalar_sweeps_resident(
+                                 coef, b, u0, 0.8, n_sweep, res, L_, form),
+                             lambda: _k2_chain_level(coef, b, u0, n_sweep,
+                                                     res, L_),
+                             lambda: SK.scalar_sweeps_resident_plain(
+                                 coef, b, u0, 0.8, n_sweep, res, L_)),
+                            (SK.scalar_chebyshev_resident,
+                             lambda: SK.scalar_chebyshev_resident(
+                                 coef, b, u0, steps, n_sweep, res, L_, form),
+                             lambda: _k4_chain(coef, b, u0, steps, n_sweep,
+                                               res, L_),
+                             lambda: SK.scalar_chebyshev_resident_plain(
+                                 coef, b, u0, steps, n_sweep, res, L_))):
+                        before = getattr(wrapper, counter)
+                        got = call()
+                        assert getattr(wrapper, counter) == before + 1
+                        for g, w, p in zip(got, chain(), plain()):
+                            assert (g is None) == (w is None), case
+                            if w is not None:
+                                assert torch.equal(g, w), case
+                                assert _rel(g, p) <= TOL[vec], case
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k8_k9_refuse_a_lattice_over_each_forms_capacity(dev, dtype):
+    """One plane over the cluster form's 16 CTAs of whole planes, and over
+    the grid form's one chunk of 2 x threads cells on each SM: the wrapper
+    raises and launches nothing."""
+    props = SK.device_props(torch.device(dev), dtype)
+    cap = SK.RESIDENT_CELLS * SK.RESIDENT_THREADS
+    plane = 1024
+    too_big = {"cluster": props["max_cluster"] * (cap // plane) + 1,
+               "grid": props["sms"] * cap // plane + 1}
+    for form, nz in too_big.items():
+        L_ = (nz, 16, 64)
+        assert SK.resident_plan(L_, dtype, None, props, form) is None
+        assert SK.resident_plan((nz - 1, 16, 64), dtype, None, props,
+                                form) is not None
+        n = nz * plane
+        coef = torch.zeros(7, 1, n, dtype=dtype, device=dev)
+        b = torch.zeros(n, dtype=dtype, device=dev)
+        steps = torch.ones(12, 2, dtype=dtype, device=dev)
+        before = (SK.scalar_sweeps_resident.launches,
+                  SK.scalar_chebyshev_resident.launches)
+        with pytest.raises(ValueError, match="capacity"):
+            SK.scalar_sweeps_resident(coef, b, None, 0.8, 2, True, L_, form)
+        with pytest.raises(ValueError, match="capacity"):
+            SK.scalar_chebyshev_resident(coef, b, None, steps, 2, True, L_,
+                                         form)
+        assert (SK.scalar_sweeps_resident.launches,
+                SK.scalar_chebyshev_resident.launches) == before
+
+
+def test_gmg_routes_the_coarse_solve_to_k8_k9(dev):
+    """The flagship's pressure hierarchy shape, cut to its two lower levels
+    (the mid level in the grid form, the coarse one in the cluster form):
+    a V-cycle launches K8 (Jacobi) or K9 (Chebyshev) once, for the coarse
+    solve, and its values equal those of the chains bit for bit."""
+    from jutul.jl_tpu_torch.ops.stencil import GMG
+
+    g = torch.Generator().manual_seed(4)
+    L_ = (32, 32, 128)
+    nz, ny, nx = L_
+    n = nz * ny * nx
+    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    A = ScalarStencil(L_, (rnd(n).abs() + 6.0).to(dev),
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()},
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()})
+    b = rnd(n).to(dev)
+    for smoother in ("jacobi", "chebyshev"):
+        gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+                  smoother=smoother)
+        ops = gmg.hierarchy(A)
+        assert [o.L for o in ops] == [(32, 32, 128), (16, 16, 64)]
+        mvs, cheb = gmg.matvecs(ops), gmg.cheby_data(ops)
+        assert [lv.plan(b)[0] for lv in mvs] == ["grid", "cluster"]
+        chains = [SK.ScalarLevel(o, resident=False) for o in ops]
+        kernels.reset_launch_counts()
+        got = gmg.vcycle(ops, b, mvs=mvs, cheb=cheb)
+        counts = kernels.launch_counts()
+        want = gmg.vcycle(ops, b, mvs=chains, cheb=cheb)
+        assert torch.equal(got, want)
+        k = "scalar_chebyshev_resident" if smoother == "chebyshev" \
+            else "scalar_sweeps_resident"
+        assert counts[k] == 1, counts
