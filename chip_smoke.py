@@ -24,7 +24,11 @@ failure (nothing is caught, so any failure exits non-zero):
    levels they hold — the mid level in the grid form, the coarse one in
    the cluster form — every hook at 2 and 12 sweeps equal to the K2/K4
    chain bit for bit (float32, float64, bfloat16 coefficients) and timed
-   per level and hook beside the chain and K5; K6/K7 fused BiCGStab body
+   per level and hook beside the chain and K5; K10 whole Jacobi phases on
+   the fine and mid levels (the launches of ``phase_chunks``, every hook at
+   1-3 sweeps and sweep_n at 2 and 12) equal to the K2 chain bit for bit
+   (float32, float64, bfloat16 coefficients) and timed per level and hook
+   beside the chain, K5 and K8's grid form; K6/K7 fused BiCGStab body
    at the Schur system's 2,097,152 values, also against a second call,
    bitwise; K1 on the adjoint's
    transposed operator with the dot identity); beside each, its bound
@@ -36,8 +40,9 @@ failure (nothing is caught, so any failure exits non-zero):
    source-term slice: the bench flagship with source-term wells at
    256x64x64 = 1,048,576 cells in float32 through
    ``Simulator(use_stencil=True, device="cuda").simulate`` with the bench's
-   solver settings (Jacobi GMG), 3 report steps of 6 h; K1, K2, the
-   lattice K3 and K8 (the coarse solve) must launch in this run and the
+   solver settings (Jacobi GMG), 3 report steps of 6 h; K1, K10 (the fine
+   and mid levels' Jacobi phases), the lattice K3 and K8 (the coarse
+   solve) must launch in this run and the
    final state be finite; on every stencil slice the GMG level kernels'
    launches must be those the routing gives (two V-cycles per linear
    iteration);
@@ -58,10 +63,11 @@ failure (nothing is caught, so any failure exits non-zero):
    (``sim.lower_schedule(...)`` then ``post(*run(*args))``:
    check-before-solve Newton, Eisenstat-Walker forcing, ``pick_next`` dt
    selection), on the well flagship at full width, 3 report steps:
-   ``wells-product`` (Jacobi GMG on the K2 chain, plain BiCGStab chain —
-   the bench's defaults) and ``wells-product-bf16`` (the same with
-   ``GMG(coef_dtype="bf16")``: the bfloat16 entries of K2 and of K1's
-   stage-2 matvec must launch, K2's float32 entry never), each with its f64
+   ``wells-product`` (Jacobi GMG: K10 phases on the fine and mid levels,
+   K8 the coarse solve; plain BiCGStab chain — the bench's defaults) and
+   ``wells-product-bf16`` (the same with ``GMG(coef_dtype="bf16")``: the
+   bfloat16 entries of K10, K8 and K1's stage-2 matvec must launch, no
+   float32 level kernel), each with its f64
    verify; ``wells-jacobi-eager`` (the eager loop at a fixed Krylov rtol on
    the same kernels) beside them; two 2-step runs of the schedule path that
    put the bfloat16 entries of K4 (Chebyshev smoother) and K5 (Jacobi
@@ -72,10 +78,10 @@ failure (nothing is caught, so any failure exits non-zero):
 8c. the adjoint, as bench.py's run_adjoint runs it: ``wells-adjoint`` (the
    well flagship at full width, 2 report steps of 1.5 h through the
    schedule path, then ``solve_adjoint_sensitivities_jit`` of
-   G = dt sum(S_w^2) / nc, cold and warm: the λ-solves run K1 and K2 on the
-   transposed bordered matrix, each step's Jacobian one three-axis and one
-   per-axis K3 launch, the differentiable residual none); ``adjoint-dot``
-   (bench.py's dot test in float64 at 64x32x32: <g, δ> within 1e-3 of the
+   G = dt sum(S_w^2) / nc, cold and warm: the λ-solves run K1, K10 and K8
+   on the transposed bordered matrix, each step's Jacobian one three-axis
+   and one per-axis K3 launch, the differentiable residual none);
+   ``adjoint-dot`` (bench.py's dot test in float64 at 64x32x32: <g, δ> within 1e-3 of the
    central difference); ``history-match`` (2 unit-box L-BFGS iterations of
    ``setup_parameter_optimization`` at 64x32x32 must lower the misfit);
 8d. the generic engine's adjoint: ``generic-adjoint`` (bench.py run_adjoint
@@ -208,7 +214,8 @@ failure (nothing is caught, so any failure exits non-zero):
 30. dd-slab: srcwells' case (1,048,576 cells, float32) through the slab
    engine over ``ShardGroup.threads(8)`` (eight z-slabs of 8 planes),
    distributed CPR (the global pressure stencil all-gathered and V-cycled
-   by GMG on every shard: K2 must launch), the eager loop with dt cuts
+   by GMG on every shard: K10 and K8 must launch), the eager loop with dt
+   cuts
    on srcwells' accepted ministep dts and forces of its first report
    step; its f64 verify on the gathered state, and its final state
    against srcwells' at the same time;
@@ -287,8 +294,7 @@ KERNEL_INFO = {
     "stencil_matvec": ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
                        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:83"),
     "scalar_jacobi": ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
-                      "jutul/jl_tpu/ops/pallas/stencil_kernels.py:555 (B2 "
-                      "_slab_jacobi_compute, as a chain) and :252 (B4 "
+                      "jutul/jl_tpu/ops/pallas/stencil_kernels.py:252 (B4 "
                       "_kernel_fused)"),
     "darcy_flux_jacobian": ("jutul/jl_tpu_torch/csrc/assembly_kernels.cu",
                             "jutul/jl_tpu/ops/pallas/assembly_kernels.py:57"),
@@ -319,6 +325,10 @@ KERNEL_INFO = {
         "jutul/jl_tpu_torch/csrc/level_kernels.cu",
         "jutul/jl_tpu/ops/pallas/stencil_kernels.py:431 (B6 "
         "_kernel_sweeps_cheby, called by _scalar_sweeps_cheby_call :468)"),
+    "scalar_jacobi_slab": (
+        "jutul/jl_tpu_torch/csrc/slab_kernels.cu",
+        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:555 (B2 "
+        "_kernel_slab_sweeps, called by _scalar_slab_sweeps_call :683)"),
 }
 _B9 = ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
        "B9 (coef_dtype=bfloat16, jutul/jl_tpu/ops/pallas/stencil_kernels.py"
@@ -326,32 +336,33 @@ _B9 = ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
 _LEVEL_CU = "jutul/jl_tpu_torch/csrc/level_kernels.cu"
 KERNEL_INFO.update({
     "stencil_matvec_bf16c": (_B9[0], _B9[1] + "B1 :83 _kernel"),
-    "scalar_jacobi_bf16c": (_B9[0], _B9[1] + "B2 :555, B4 :252"),
+    "scalar_jacobi_bf16c": (_B9[0], _B9[1] + "B4 :252"),
     "scalar_chebyshev_bf16c": (_B9[0], _B9[1] + "B7 :716"),
     "scalar_jacobi_phase_bf16c": (_B9[0], _B9[1] + "B8 :602"),
     "scalar_sweeps_resident_bf16c": (_LEVEL_CU, _B9[1] + "B3 :389"),
     "scalar_chebyshev_resident_bf16c": (_LEVEL_CU, _B9[1] + "B6 :431"),
+    "scalar_jacobi_slab_bf16c": ("jutul/jl_tpu_torch/csrc/slab_kernels.cu",
+                                 _B9[1] + "B2 :555"),
 })
 K8, K9 = "scalar_sweeps_resident", "scalar_chebyshev_resident"
+K10 = "scalar_jacobi_slab"
 SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
     # the well perforations; the lattice's three axes go through one launch;
-    # K8/K9: the mid and coarse GMG levels)
-    "srcwells": ("stencil_matvec", "scalar_jacobi",
-                 "darcy_flux_jacobian_lattice", K8),
+    # K8/K9: the coarse GMG level's solve; K10: the fine and mid levels'
+    # Jacobi phases; K2: the residual after a Chebyshev presmooth)
+    "srcwells": ("stencil_matvec", K10, "darcy_flux_jacobian_lattice", K8),
     "wells": ("stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian",
               "darcy_flux_jacobian_lattice", "scalar_chebyshev", K9),
     "wells-jacobi-fused": ("stencil_matvec", "darcy_flux_jacobian",
                            "darcy_flux_jacobian_lattice",
                            "scalar_jacobi_phase", "fused_alpha_s",
                            "fused_omega_update", K8),
-    "wells-jacobi-eager": ("stencil_matvec", "scalar_jacobi",
-                           "darcy_flux_jacobian",
+    "wells-jacobi-eager": ("stencil_matvec", K10, "darcy_flux_jacobian",
                            "darcy_flux_jacobian_lattice", K8),
-    "wells-product": ("stencil_matvec", "scalar_jacobi",
-                      "darcy_flux_jacobian", "darcy_flux_jacobian_lattice",
-                      K8),
+    "wells-product": ("stencil_matvec", K10, "darcy_flux_jacobian",
+                      "darcy_flux_jacobian_lattice", K8),
     "wells-product-bf16": ("stencil_matvec", "stencil_matvec_bf16c",
-                           "scalar_jacobi_bf16c", "darcy_flux_jacobian",
+                           K10 + "_bf16c", "darcy_flux_jacobian",
                            "darcy_flux_jacobian_lattice", K8 + "_bf16c"),
     "wells-product-bf16-cheby": ("stencil_matvec_bf16c",
                                  "scalar_jacobi_bf16c",
@@ -371,8 +382,8 @@ SLICE_KERNELS["weno-transport"] = ()
 SLICE_KERNELS["nfvm-pressure"] = ()
 SLICE_KERNELS["weno-transport-fused"] = SLICE_KERNELS["generic-fused"]
 _F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", "scalar_jacobi_phase",
-              K8, K9)
-# K1-K5, K8, K9 and every bf16 entry: the stencil engine's kernels
+              K8, K9, K10)
+# K1-K5, K8-K10 and every bf16 entry: the stencil engine's kernels
 _STENCIL_KERNELS = tuple(k for k in KERNEL_INFO
                          if k not in ("fused_alpha_s", "fused_omega_update"))
 SLICE_FORBIDDEN = {  # kernels a slice must never launch
@@ -383,15 +394,16 @@ SLICE_FORBIDDEN = {  # kernels a slice must never launch
     "weno-transport": tuple(KERNEL_INFO),
     "nfvm-pressure": tuple(KERNEL_INFO),
     "weno-transport-fused": _STENCIL_KERNELS,
-    "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev", K9),
+    "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev", K9, K10),
     "wells-product": tuple(k for k in KERNEL_INFO if k.endswith("_bf16c")),
     "wells-product-bf16": _F32_LEVEL,
     "wells-product-bf16-cheby": _F32_LEVEL,
-    "wells-product-bf16-phases": _F32_LEVEL + ("scalar_jacobi_bf16c",),
+    "wells-product-bf16-phases": _F32_LEVEL + ("scalar_jacobi_bf16c",
+                                               K10 + "_bf16c"),
 }
 # the slice whose launches a kernel's JSON entry reports as ``launches``
 MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
-              "scalar_jacobi": "srcwells",
+              "scalar_jacobi": "wells",
               "darcy_flux_jacobian": "wells-jacobi-fused",
               "darcy_flux_jacobian_lattice": "wells-jacobi-fused",
               "scalar_chebyshev": "wells",
@@ -400,11 +412,12 @@ MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
               "fused_omega_update": "wells-jacobi-fused",
               K8: "srcwells", K9: "wells",
               "stencil_matvec_bf16c": "wells-product-bf16",
-              "scalar_jacobi_bf16c": "wells-product-bf16",
+              "scalar_jacobi_bf16c": "wells-product-bf16-cheby",
               "scalar_chebyshev_bf16c": "wells-product-bf16-cheby",
               "scalar_jacobi_phase_bf16c": "wells-product-bf16-phases",
               K8 + "_bf16c": "wells-product-bf16",
-              K9 + "_bf16c": "wells-product-bf16-cheby"}
+              K9 + "_bf16c": "wells-product-bf16-cheby",
+              K10: "srcwells", K10 + "_bf16c": "wells-product-bf16"}
 AB_GRID = (64, 32, 32)  # the A/B's 65,536 cells
 
 
@@ -1194,7 +1207,7 @@ def phase_kernels(case, records):
         pst = cpr.update(A)
         om = cpr.gmg.omega
         for op in pst.ops:  # every level through the K2 chain
-            lv = SK.ScalarLevel(op, resident=False)
+            lv = SK.ScalarLevel(op, resident=False, slab=False)
             n = int(np.prod(lv.L))
             b = torch.randn(n, generator=gen, device="cuda", dtype=dtype)
             u = torch.randn(n, generator=gen, device="cuda", dtype=dtype)
@@ -1257,7 +1270,7 @@ def phase_kernels_cheby(case, records):
                                  smoother="chebyshev")).update(B.A)
         log(f"# K4 vs plain, {dtype}, levels {[lv.L for lv in pst.mvs]}")
         for op, steps in zip(pst.ops, pst.cheb):  # the K4 chain
-            lv = SK.ScalarLevel(op, resident=False)
+            lv = SK.ScalarLevel(op, resident=False, slab=False)
             n = int(np.prod(lv.L))
             b, u, d = (torch.randn(n, generator=gen, device="cuda",
                                    dtype=dtype) for _ in range(3))
@@ -1324,7 +1337,8 @@ def _phase_level_rows(pst, om, gen, coef_dtype=None):
     for op in pst.ops:  # K5 and the K2 chain on every level
         lv = SK.ScalarLevel(op, phase_kernel=True, coef_dtype=coef_dtype,
                             resident=False)
-        k2 = SK.ScalarLevel(op, coef_dtype=coef_dtype, resident=False)
+        k2 = SK.ScalarLevel(op, coef_dtype=coef_dtype, resident=False,
+                            slab=False)
         n = int(np.prod(lv.L))
         b, u = (torch.randn(n, generator=gen, device="cuda",
                             dtype=torch.float32) for _ in range(2))
@@ -1388,7 +1402,7 @@ def phase_kernels_phase(case, records):
             f"{[lv.L for lv in pst.mvs]}")
         for op in pst.ops:  # every level through K5, and the K2 chain
             lv = SK.ScalarLevel(op, phase_kernel=True, resident=False)
-            k2 = SK.ScalarLevel(op, resident=False)
+            k2 = SK.ScalarLevel(op, resident=False, slab=False)
             n = int(np.prod(lv.L))
             b, u = (torch.randn(n, generator=gen, device="cuda", dtype=dtype)
                     for _ in range(2))
@@ -1525,7 +1539,8 @@ def phase_kernels_bf16(case, records):
     for op, lv in zip(pst.ops, pst.mvs):
         if lv.coef.dtype != bf16:
             raise RuntimeError("GMG(coef_dtype='bf16'): level not bfloat16")
-        lv = SK.ScalarLevel(op, coef_dtype=bf16, resident=False)  # K2
+        lv = SK.ScalarLevel(op, coef_dtype=bf16, resident=False,
+                            slab=False)  # K2
         n = int(np.prod(lv.L))
         b, u = rnd(n), rnd(n)
         lv32 = wide(lv, op)
@@ -1586,7 +1601,8 @@ def phase_kernels_bf16(case, records):
                              smoother="chebyshev",
                              coef_dtype="bf16")).update(A)
     for op, steps in zip(pst.ops, pst.cheb):  # the K4 chain
-        lv = SK.ScalarLevel(op, coef_dtype=bf16, resident=False)
+        lv = SK.ScalarLevel(op, coef_dtype=bf16, resident=False,
+                            slab=False)
         n = int(np.prod(lv.L))
         b, u, d = rnd(n), rnd(n), rnd(n)
         lv32 = wide(lv, op)
@@ -1707,7 +1723,7 @@ def phase_kernels_resident(case, records):
                 if plan is None:
                     continue
                 chain = SK.ScalarLevel(op, coef_dtype=gmg.coef_torch_dtype(),
-                                       resident=False)
+                                       resident=False, slab=False)
 
                 def plain(u0, n_sweep, res):
                     if cheby:
@@ -1791,6 +1807,142 @@ def phase_kernels_resident(case, records):
         torch.cuda.empty_cache()
     log("  K8/K9 = the K2/K4 chains on the card, bitwise, on every level "
         "and hook they hold")
+
+
+def phase_kernels_slab(case, records):
+    """K10 on every level of the well flagship's Jacobi GMG hierarchy that
+    ``ScalarLevel`` routes to it (the fine (64, 64, 256) and mid
+    (32, 32, 128) levels: at least ``SLAB_MIN_CELLS`` cells), float32 and
+    float64 vectors and bfloat16 coefficients: every phase hook
+    (presmooth+residual and postsmooth at 1-3 sweeps, sweep_n at 2 and 12:
+    the latter in ``phase_chunks``' launches) through the routed level, the
+    launches ``phase_chunks`` gives, equal bit for bit to the K2 chain it
+    replaces (``ScalarLevel(resident=False, slab=False)``) and within
+    REL_TOL of the plain version. Then the V-cycle's two hooks at 2 sweeps
+    on each level timed in turns with the chain (K10, chain, chain, K10) as
+    CUDA-graph replays, beside K5, K8's grid form where the level fits it,
+    eager ms (20 calls back to back) of K10 and the chain, the plain
+    version and the hook's bound (7 coefficient streams, b and u in where
+    given, u and r out where made, once, over 3.35 TB/s)."""
+    from jutul.jl_tpu_torch import compile_model, from_numpy
+    from jutul.jl_tpu_torch.models.setup import merge_state
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+    from jutul.jl_tpu_torch.ops.stencil import GMG, StencilCPR
+    from jutul.jl_tpu_torch.ops.stencil_wells import BorderedStencilModel
+
+    model, state0, params, forces = case
+    eng = BorderedStencilModel(compile_model(model), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    wrapper = SK.scalar_jacobi_slab
+    for dtype in (torch.float32, torch.float64):
+        full = merge_state(from_numpy(state0, "cuda", dtype),
+                           from_numpy(params, "cuda", dtype))
+        _, B, _ = eng.assemble(full, full, DT, forces)
+        for cd in (None, "bf16"):
+            if cd and dtype == torch.float64:
+                continue  # bfloat16 coefficients: float32 vectors only
+            gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+                      coef_dtype=cd)
+            pst = StencilCPR(gmg=gmg).update(B.A)
+            name = K10 + ("_bf16c" if cd else "")
+            counter = "launches_bf16c" if cd else "launches"
+            rec = records[name]
+            rec.extra.setdefault("levels", [])
+            om = gmg.omega
+            routed = 0
+            for op, lv in zip(pst.ops, pst.mvs):
+                n = op.n
+                b, u = (torch.randn(n, generator=gen, device="cuda",
+                                    dtype=dtype) for _ in range(2))
+                if lv.route("presmooth_residual", b) != "slab":
+                    continue
+                routed += 1
+                chain = SK.ScalarLevel(op, coef_dtype=gmg.coef_torch_dtype(),
+                                       resident=False, slab=False)
+                hooks = [(f"presmooth_residual x{k}", None, k, True,
+                          lambda l_, k=k: l_.presmooth_residual(b, om, k))
+                         for k in (1, 2, 3)]
+                hooks += [(f"postsmooth x{k}", u, k, False,
+                           lambda l_, k=k: (l_.postsmooth(u, b, om, k), None))
+                          for k in (1, 2, 3)]
+                hooks += [(f"sweep_n x{k}", None, k, False,
+                           lambda l_, k=k: (l_.sweep_n(b, om, k), None))
+                          for k in (2, 12)]
+                for what, u0, k, res, hook in hooks:
+                    tag = f"{name} {lv.L} {what}"
+                    want = len(SK.phase_chunks(k, u0 is None, res, lv.depth))
+                    before = getattr(wrapper, counter)
+                    got = hook(lv)
+                    if getattr(wrapper, counter) != before + want:
+                        raise RuntimeError(f"{tag}: not {want} launches")
+                    for g_, w_ in zip(got, hook(chain)):
+                        if (g_ is None) != (w_ is None) or (
+                                g_ is not None and not torch.equal(g_, w_)):
+                            raise RuntimeError(f"{tag} [{dtype}]: differs "
+                                               "from the K2 chain")
+                    ref = SK.scalar_jacobi_slab_plain(lv.coef, b, u0, om, k,
+                                                      res, lv.L)
+                    rec.compare(dtype, tag, torch.stack(
+                        [g_ for g_ in got if g_ is not None]),
+                        torch.stack([r_ for r_ in ref if r_ is not None]))
+                if dtype != torch.float32:
+                    continue
+                csize = 2 if cd else 4
+                k5 = SK.ScalarLevel(op, phase_kernel=True,
+                                    coef_dtype=gmg.coef_torch_dtype(),
+                                    resident=False)
+                grid = SK.resident_plan(lv.L, dtype, lv.coef.dtype,
+                                        SK.device_props(b.device, dtype,
+                                                        lv.coef.dtype),
+                                        "grid")
+                for what, u0, k, res, hook in hooks:
+                    if what not in ("presmooth_residual x2",
+                                    "postsmooth x2"):
+                        continue  # the hooks the V-cycle calls here
+                    k_ms, c_ms, turns = _in_turns(lambda: hook(lv),
+                                                  lambda: hook(chain))
+                    from_u = u0 is not None
+                    nbytes = (7 * csize + 4 * (2 + from_u + res)) * n
+                    row = {"L": list(lv.L), "coef": cd or "f32",
+                           "hook": what,
+                           "plan": list(SK.slab_plan(
+                               lv.L, dtype, lv.coef.dtype,
+                               SK._phase_depth(u0, k, res), from_u)),
+                           "graph_ms": k_ms, "chain_graph_ms": c_ms,
+                           "graph_ms_turns_k_chain_chain_k": turns,
+                           "eager_ms": cuda_ms(lambda: hook(lv)),
+                           "chain_eager_ms": cuda_ms(lambda: hook(chain)),
+                           "k5_graph_ms": graph_ms(lambda: hook(k5)),
+                           "plain_ms": cuda_ms(
+                               lambda: SK.scalar_jacobi_slab_plain(
+                                   lv.coef, b, u0, om, k, res, lv.L),
+                               reps=5),
+                           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                           "bound_bytes": nbytes}
+                    if grid is not None:
+                        row["k8_grid_graph_ms"] = graph_ms(
+                            lambda: SK.scalar_sweeps_resident(
+                                lv.coef, b, u0, om, k, res, lv.L, "grid"))
+                    row["share_of_bound"] = row["bound_ms"] / k_ms
+                    log(f"  {name} {lv.L} {what}: " + json.dumps(row))
+                    rec.extra["levels"].append(row)
+                    if op is pst.ops[0] and res:
+                        # the record's timed call: the fine level's
+                        # presmooth+residual; ~17 flops a cell and
+                        # application
+                        rec.ms, rec.graph_ms = row["eager_ms"], k_ms
+                        rec.plain_ms = row["plain_ms"]
+                        rec.extra["chain_graph_ms"] = c_ms
+                        rec.extra["timed"] = f"{what}, level {lv.L}"
+                        rec.bytes, rec.ops = nbytes, 17 * 2 * n
+            if routed != 2:
+                raise RuntimeError(f"{name}: {routed} levels route to K10, "
+                                   "the flagship's fine and mid expected")
+            del pst
+        del B
+        torch.cuda.empty_cache()
+    log("  K10 = the K2 chain on the card, bitwise, on the fine and mid "
+        "levels, every hook")
 
 
 def phase_kernels_transpose(case, records):
@@ -1938,54 +2090,53 @@ def warm_up_multimodel():
 
 
 GMG_LEVEL_KERNELS = ("scalar_jacobi", "scalar_chebyshev",
-                     "scalar_jacobi_phase", K8, K9)
+                     "scalar_jacobi_phase", K8, K9, K10)
 
 
 def level_launches_per_vcycle(L, smoother, phases, coef_dtype=None,
-                              n_smooth=2, n_coarse=12, min_cells=16384):
+                              n_smooth=2, n_coarse=12, min_cells=16384,
+                              props=None):
     """The GMG level kernels' launches in one V-cycle of the flagship's
     pressure hierarchy on ``L`` (nz, ny, nx), as ``ScalarLevel`` routes it
-    on this card: each level that ``resident_plan`` holds runs each hook
-    that ``RESIDENT_HOOKS`` marks as one K8/K9 launch; the others keep the
-    chains (K2 one pass per sweep and residual, K5 whole phases under
-    ``phases``, K4 one step per launch and K2's residual after a Chebyshev
-    presmooth). Keys as ``launch_counts``."""
+    (``level_route``) on a card with ``props`` (None: this card's): a
+    "resident" hook is one K8/K9 launch, a "slab" or "phase" hook the K10
+    or K5 launches of ``phase_chunks``, a "chain" K2 one pass per sweep and
+    residual, or K4 one step per launch and K2's residual after a
+    Chebyshev presmooth. Keys as ``launch_counts``."""
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
 
     cd = torch.bfloat16 if coef_dtype == "bf16" else None
     sfx = "_bf16c" if cd is not None else ""
-    props = SK.device_props(torch.device("cuda", 0), torch.float32, cd)
+    if props is None:
+        props = SK.device_props(torch.device("cuda", 0), torch.float32, cd)
+    depth = min(max(n_smooth, 2), SK.SLAB_MAX_DEPTH)
     shapes = [tuple(L)]
     while int(np.prod(shapes[-1])) > min_cells:
         shapes.append(tuple(v if v == 1 else -(-v // 2) for v in shapes[-1]))
     out = dict.fromkeys((k + sfx for k in GMG_LEVEL_KERNELS), 0)
     cheby = smoother == "chebyshev"
     for i, shape in enumerate(shapes):
-        plan = SK.resident_plan(shape, torch.float32, cd, props)
-        hooks = SK.RESIDENT_HOOKS[plan[0]] if plan else {}
         last = i == len(shapes) - 1
         names = (["sweep_n"] if last else ["presmooth_residual",
                                            "postsmooth"])
         for h in names:
             n_sweep = n_coarse if last else n_smooth
-            if hooks.get(h + "_cheby" if cheby else h):
+            res = h == "presmooth_residual"
+            hook = h + "_cheby" if cheby else h
+            route = SK.level_route(shape, hook, torch.float32, cd, props,
+                                   bool(phases), depth=depth)
+            if route == "resident":
                 out[(K9 if cheby else K8) + sfx] += 1
             elif cheby:
                 out["scalar_chebyshev" + sfx] += n_sweep
-                out["scalar_jacobi" + sfx] += h == "presmooth_residual"
-            elif phases:  # ScalarLevel._phase's chunks
-                u, k_left, res = None, n_sweep, h == "presmooth_residual"
-                while k_left:
-                    k = min(k_left, SK.PHASE_MAX_DEPTH + int(u is None))
-                    k_left -= k
-                    out["scalar_jacobi_phase" + sfx] += 1
-                    if res and not k_left and SK._phase_depth(
-                            u, k, True) > SK.PHASE_MAX_DEPTH:
-                        out["scalar_jacobi_phase" + sfx] += 1
-                    u = "u"
+                out["scalar_jacobi" + sfx] += res
+            elif route in ("slab", "phase"):
+                kernel = K10 if route == "slab" else "scalar_jacobi_phase"
+                out[kernel + sfx] += len(SK.phase_chunks(
+                    n_sweep, h != "postsmooth", res,
+                    depth if route == "slab" else SK.PHASE_MAX_DEPTH))
             else:
-                out["scalar_jacobi" + sfx] += n_sweep + (
-                    h == "presmooth_residual")
+                out["scalar_jacobi" + sfx] += n_sweep + res
     return out
 
 
@@ -2216,13 +2367,14 @@ def phase_f64_verify(sim, res, forces, name):
 def phase_ab(case_small, n_step=3):
     """The well flagship at AB_GRID with Jacobi GMG on the card, float32,
     ``n_step`` report steps, in four runs: both opt-ins ("fused": K5 phases and the
-    K6/K7 body), the K5 phases alone ("phases"), neither (K2 chains, the
-    plain BiCGStab chain), and neither again from an initial pressure
-    scaled by 1 + 2^-22 (two float32 ulps: "neither_perturbed").
+    K6/K7 body), the K5 phases alone ("phases"), neither (K10 phases on
+    the 65,536-cell fine level, the plain BiCGStab chain), and neither
+    again from an initial pressure scaled by 1 + 2^-22 (two float32 ulps:
+    "neither_perturbed").
 
     - "phases" against "neither" must match exactly — the same counts in
-      every ministep, bitwise-equal states — because K5 computes the K2
-      chain's values bit for bit;
+      every ministep, bitwise-equal states — because K5 and K10 both
+      compute the K2 chain's values bit for bit;
     - "fused" sums its dot products in another order than the plain chain,
       and on this float32 Schur system Krylov and Newton counts move with
       any roundoff: the "neither_perturbed" run shows how far. So "fused"
@@ -2953,8 +3105,9 @@ def phase_multimodel_cross_check(dims=WELL_SMALL_EW):
 ADJ_DT = 1.5 * 3600.0  # bench.py run_adjoint's report step (BENCH_ADJ_DT)
 # kernels the adjoint's sweep must never launch: the opt-in smoothers and
 # Krylov bodies, and every bfloat16 entry
-ADJOINT_FORBIDDEN = ("scalar_chebyshev", "scalar_jacobi_phase", K9,
-                     "fused_alpha_s", "fused_omega_update") + tuple(
+ADJOINT_FORBIDDEN = ("scalar_jacobi", "scalar_chebyshev",
+                     "scalar_jacobi_phase", K9, "fused_alpha_s",
+                     "fused_omega_update") + tuple(
     k for k in KERNEL_INFO if k.endswith("_bf16c"))
 
 
@@ -3011,10 +3164,11 @@ def _record_solves(storage):
 
 
 def check_adjoint_launches(launches, per_solve, n_step):
-    """K1, K2 and K8 in every λ-solve and nowhere else; the three-axis and
-    the per-axis K3 once per step (that step's Jacobian: the differentiable
-    residual launches nothing); no opt-in kernel, no bfloat16 entry."""
-    for k in ("stencil_matvec", "scalar_jacobi", K8):
+    """K1, K10 (the fine and mid GMG levels) and K8 (the coarse solve) in
+    every λ-solve and nowhere else; the three-axis and the per-axis K3 once
+    per step (that step's Jacobian: the differentiable residual launches
+    nothing); no K2 pass, no opt-in kernel, no bfloat16 entry."""
+    for k in ("stencil_matvec", K10, K8):
         if any(s[k] <= 0 for s in per_solve):
             raise RuntimeError(f"wells-adjoint: {k} missing from a λ-solve: "
                                f"{per_solve}")
@@ -3118,7 +3272,7 @@ def phase_adjoint(case, n_step=2, device="cuda"):
         "forward_launches": fwd_launches,
         "launches_per_lambda_iteration": {
             k: launches[k] / max(sum(its), 1) for k in (
-                "stencil_matvec", "scalar_jacobi", K8, "darcy_flux_jacobian",
+                "stencil_matvec", K10, K8, "darcy_flux_jacobian",
                 "darcy_flux_jacobian_lattice")},
         "launches_per_lambda_solve": per_solve,
     }
@@ -4901,10 +5055,11 @@ DD_LAMBDA_RTOL, DD_LAMBDA_ITS, DD_LAMBDA_GRAD_BAR = 1e-6, 4000, 1e-3
 # MULTICHIP_r05.json's measurement of those bars (JAX package, 8 fake
 # devices): max|dP|/|P| and max rel |dGrad| of the dryrun case
 MULTICHIP_R05 = {"states": 4.19e-16, "gradients": 5.68e-11}
-# the global GMG V-cycle: K2 on the fine level, K8 on the mid and coarse
-SLICE_KERNELS["dd-slab"] = ("scalar_jacobi", K8)
+# the global GMG V-cycle: K10 on the fine and mid levels, K8 the coarse
+# solve
+SLICE_KERNELS["dd-slab"] = (K10, K8)
 SLICE_FORBIDDEN["dd-slab"] = tuple(k for k in KERNEL_INFO
-                                   if k not in ("scalar_jacobi", K8))
+                                   if k not in (K10, K8))
 # the general engine assembles and solves in face-block form: no kernel
 SLICE_KERNELS["dd-general"] = ()
 SLICE_FORBIDDEN["dd-general"] = tuple(KERNEL_INFO)
@@ -5488,11 +5643,11 @@ def phase_dd_slab(ref, grid=GRID, n_shards=DD_SHARDS, device="cuda"):
     every shard (srcwells' GMG settings), stage 2 block-ILU(0) — in float32,
     the eager loop with dt cuts, on srcwells' accepted ministep dts and
     forces (``ref``: ``slab_reference`` of srcwells' run on ``grid``; the
-    slab engine has no timestep selector). K2 must launch (all shards count
-    into the process-wide counters); the final accepted ministep passes
-    the f64 verify, and the final state is held against srcwells' at the
-    same time: pressure within DD_SLAB_P_BAR relative, saturations within
-    DD_SLAB_S_BAR."""
+    slab engine has no timestep selector). K10 and K8 must launch (all
+    shards count into the process-wide counters); the final accepted
+    ministep passes the f64 verify, and the final state is held against
+    srcwells' at the same time: pressure within DD_SLAB_P_BAR relative,
+    saturations within DD_SLAB_S_BAR."""
     from jutul.jl_tpu_torch import GMG, DistributedSimulator, ShardGroup
     from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
@@ -5523,6 +5678,8 @@ def phase_dd_slab(ref, grid=GRID, n_shards=DD_SHARDS, device="cuda"):
         out["launches_per_linear_iteration"].get("scalar_jacobi", 0)
     out["k8_launches_per_linear_iteration"] = \
         out["launches_per_linear_iteration"].get(K8, 0)
+    out["k10_launches_per_linear_iteration"] = \
+        out["launches_per_linear_iteration"].get(K10, 0)
     # a ministep at the Newton cap is accepted by the final-iteration
     # factor (10x the tolerances), as srcwells' own capped ministeps
     out["srcwells_report_steps"] = ref["report_steps"]
@@ -6179,6 +6336,7 @@ def main():
     phase_kernels_krylov(records)
     phase_kernels_bf16(case_w, records)
     phase_kernels_resident(case_w, records)
+    phase_kernels_slab(case_w, records)
     phase_kernels_transpose(case_w, records)
     log(f"# kernel phases: {time.perf_counter() - t0:.1f} s")
     phase_warm_up()
@@ -6349,9 +6507,9 @@ def main():
         "s_per_newton", "cell_newton_its_per_s", "peak_mem_bytes",
         "host_setup_s", "f64_verify")} for k in ("dd-slab", "dd-general",
                                                  "dd-multimodel")})
-        + " k2_k8_per_linear_iteration " + json.dumps(
+        + " k2_k8_k10_per_linear_iteration " + json.dumps(
             [dd["dd-slab"][f"k{i}_launches_per_linear_iteration"]
-             for i in (2, 8)])
+             for i in (2, 8, 10)])
         + " adjoint " + json.dumps(dd["dd-general"]["adjoint"])
         + " dd-multimodel adjoint " + json.dumps(
             slices["dd-multimodel"].get("adjoint"))

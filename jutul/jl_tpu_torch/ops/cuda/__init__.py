@@ -16,6 +16,7 @@ from .stencil_kernels import (  # noqa: F401
     scalar_chebyshev_resident,
     scalar_jacobi,
     scalar_jacobi_phase,
+    scalar_jacobi_slab,
     scalar_sweeps_resident,
     stencil_matvec,
 )
@@ -31,8 +32,10 @@ KERNELS = {
     "fused_omega_update": fused_omega_update,
     "scalar_sweeps_resident": scalar_sweeps_resident,
     "scalar_chebyshev_resident": scalar_chebyshev_resident,
+    "scalar_jacobi_slab": scalar_jacobi_slab,
 }
-# the bfloat16-coefficient entries of K1, K2, K4, K5, K8 and K9 count apart
+# the bfloat16-coefficient entries of K1, K2, K4, K5, K8, K9 and K10 count
+# apart
 KERNELS_BF16C = {
     "stencil_matvec_bf16c": stencil_matvec,
     "scalar_jacobi_bf16c": scalar_jacobi,
@@ -40,6 +43,7 @@ KERNELS_BF16C = {
     "scalar_jacobi_phase_bf16c": scalar_jacobi_phase,
     "scalar_sweeps_resident_bf16c": scalar_sweeps_resident,
     "scalar_chebyshev_resident_bf16c": scalar_chebyshev_resident,
+    "scalar_jacobi_slab_bf16c": scalar_jacobi_slab,
 }
 
 

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "jt_scalar_sweeps_resident": [_P] * 7 + [_D] + [_I] * 9 + [_P],
     "jt_scalar_chebyshev_resident": [_P] * 8 + [_I] * 9 + [_P],
     "jt_level_resident_props": [_P],
+    "jt_scalar_jacobi_slab": [_P] * 5 + [_D] + [_I] * 9 + [_P],
 }
 
 
@@ -56,7 +57,7 @@ _SIGNATURES = {
 _BF16C = ("jt_stencil_matvec", "jt_scalar_jacobi", "jt_scalar_chebyshev",
           "jt_scalar_jacobi_phase", "jt_scalar_jacobi_phase_plan",
           "jt_scalar_sweeps_resident", "jt_scalar_chebyshev_resident",
-          "jt_level_resident_props")
+          "jt_level_resident_props", "jt_scalar_jacobi_slab")
 
 
 @dataclass

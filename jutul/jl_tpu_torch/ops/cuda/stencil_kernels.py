@@ -1,8 +1,10 @@
 """Stencil kernels K1 (block-stencil SpMV), K2 (scalar Jacobi pass), K4
-(scalar Chebyshev step), K5 (a whole scalar Jacobi smoothing phase) and
-K8/K9 (a whole GMG level's Jacobi / Chebyshev phase held on chip).
+(scalar Chebyshev step), K5 (a whole scalar Jacobi smoothing phase), K8/K9
+(a whole GMG level's Jacobi / Chebyshev phase held on chip) and K10 (a
+whole Jacobi phase of a large level, tiled and marched in z).
 
-Wrappers around ``csrc/stencil_kernels.cu`` and ``csrc/level_kernels.cu``,
+Wrappers around ``csrc/stencil_kernels.cu``, ``csrc/level_kernels.cu`` and
+``csrc/slab_kernels.cu``,
 with the plain PyTorch version of each kernel beside it and a launch
 counter on each wrapper. A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises — there is no
@@ -18,12 +20,12 @@ fallback.
   and all its loads issued first; its sums are those of its original
   mapping (one thread per output) bit for bit, which stays as
   ``stencil_matvec_reference`` for the card tests.
-- K2 ``scalar_jacobi`` replaces ``_kernel_fused`` (B4) and, as a chain of
-  single-pass launches, ``_kernel_slab_sweeps`` (B2) on the levels K8 does
-  not hold: one fused residual or weighted-Jacobi pass on a scalar
-  stencil. Bound by HBM bytes (7 coefficient streams + 2–3 vectors per
-  pass); a phase is a loop of launches, so the coefficients stream once
-  per sweep.
+- K2 ``scalar_jacobi`` replaces ``_kernel_fused`` (B4): one fused
+  residual or weighted-Jacobi pass on a scalar stencil; chains of it run
+  the phases no other kernel takes (levels under ``SLAB_MIN_CELLS``,
+  ``ScalarLevel(resident=False, slab=False)``). Bound by HBM bytes (7
+  coefficient streams + 2–3 vectors per pass); a phase is a loop of
+  launches, so the coefficients stream once per sweep.
 - K4 ``scalar_chebyshev`` replaces ``_kernel_slab_sweeps_cheby`` (B7): one
   step of the Chebyshev recurrence on a scalar stencil, per-step scalars
   read from a small device table. Bound by HBM bytes as K2 (plus the
@@ -48,9 +50,20 @@ fallback.
   grid that exchanges them through L2 (``resident_plan``). Bound by the
   launch and the sweeps' serial dependence, not bytes. Each equals the
   chain it replaces (K2's, K4's) bit for bit; their plain versions are
-  those chains' plain loops. ``ScalarLevel`` routes every level that fits
-  either form to them, as the JAX package routes every level whose
-  streams fit VMEM to B3/B6 (``scalar_level_ops``).
+  those chains' plain loops. ``ScalarLevel`` routes the coarse solve to
+  the cluster form (``RESIDENT_HOOKS``), as the JAX package routes every
+  level whose streams fit VMEM to B3/B6 (``scalar_level_ops``).
+- K10 ``scalar_jacobi_slab`` replaces ``_kernel_slab_sweeps`` (B2): a
+  whole weighted-Jacobi phase (up to ``SLAB_MAX_DEPTH`` applications) in
+  one launch on a level of at least ``SLAB_MIN_CELLS`` cells, the JAX
+  package's slab level. Bound by the bytes its CTAs load (halos
+  included) and its z-steps: a thread owns V cells of a lattice row, a
+  CTA an xy tile and a z-chunk, marched as a wavefront with each plane's
+  streams copied into shared rings ahead of the sweeps; the outer halo
+  loads only its first sweep's inputs (``slab_plan`` picks the tile per
+  level). Its
+  plain version is K5's (K2's plain loop); it keeps K2's per-cell
+  arithmetic, so it equals the K2 chain bit for bit.
 
 Coefficient dtype (replaces the ``coef_dtype=bfloat16`` form of B1-B4 and
 B6-B8, jutul/jl_tpu/ops/pallas/stencil_kernels.py:177-231, :323, :819,
@@ -74,6 +87,7 @@ by bounds checks — no lane padding, no wrapped reads.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -536,8 +550,9 @@ H100_PROPS = {"sms": 132, "max_cluster": 16, "grid_ctas_per_sm": 1}
 # sweep after the first, one exchange (~1 us in a cluster, ~3 us through
 # L2 in the grid form), so it wins where it replaces many launches — the
 # coarse solve's 12 sweeps — and not at the V-cycle's 2 sweeps, whose
-# chains of 2-3 launches are as fast or faster. A hook set False keeps its
-# chain (K2, K5 or K4).
+# chains of 2-3 launches were as fast or faster. A hook set False takes the
+# level's next route (``level_route``: K10 on the mid level, K5, or the
+# chain). The mid level is the JAX package's slab level (B2), not B3's.
 RESIDENT_HOOKS = {
     "cluster": {"sweep_n": True, "presmooth_residual": False,
                 "postsmooth": False, "sweep_n_cheby": True,
@@ -752,25 +767,319 @@ scalar_chebyshev_resident.launches = \
     scalar_chebyshev_resident.launches_bf16c = 0
 
 
+# ---------------------------------------------------------------------------
+# K10: a whole weighted-Jacobi phase of a large level, tiles marched in z
+# ---------------------------------------------------------------------------
+SLAB_MAX_DEPTH = 4  # stencil applications per launch (csrc kSlabMaxDepth)
+SLAB_THREADS = 512  # threads per CTA at most (kSlabThreads)
+SLAB_MAX_SMEM = 227 * 1024  # dynamic shared memory per CTA (kSlabMaxSmem)
+SLAB_SM_SMEM = 228 * 1024  # shared memory of one SM
+SLAB_PREFETCH = 1  # planes copied ahead (csrc kSlabPrefetch)
+# The JAX package's slab threshold (``scalar_level_ops``' ``min_cells``):
+# ScalarLevel routes a level of at least this many cells to K10.
+SLAB_MIN_CELLS = 65536
+# The planner's cost model (``slab_plan``), fitted to K10's times over a
+# grid of tiles on both flagship levels (scripts/slab_sweeps_probe.py,
+# NVIDIA H100 80GB HBM3, 700 W): ns per z-step of a CTA (its barrier, the
+# wait for its plane and the sweeps), and the rates at which the card
+# delivers the bytes every CTA loads (its halo included) in all and into
+# one SM.
+SLAB_STEP_NS = 800.0
+SLAB_LOAD_BYTES_PER_NS = 3500.0
+SLAB_SM_BYTES_PER_NS = 30.0
+
+
+def _a16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def slab_smem(cells: int, napp: int, csize: int, tsize: int,
+              from_u: bool) -> int:
+    """Dynamic shared memory of a K10 CTA whose tile holds ``cells`` cells of
+    a plane (csrc ``slab_smem_bytes``): the published sweeps, a ring of
+    ``napp + SLAB_PREFETCH + 1`` stages of the 7 coefficient streams and one
+    of ``SLAB_PREFETCH + 1`` stages of b (and u0)."""
+    return _a16(2 * max(napp, 1) * cells * tsize) + \
+        (napp + SLAB_PREFETCH + 1) * _a16(7 * cells * csize) + \
+        (SLAB_PREFETCH + 1) * (2 if from_u else 1) * _a16(cells * tsize)
+
+
+def slab_tile(L, napp: int, vec: int, ox: int, oy: int):
+    """K10's tile for own columns ``ox`` and rows ``oy`` (csrc
+    ``launch_slab``): ``(tiles along x, along y, tile columns, tile rows)``.
+    A tile that does not cover its axis carries a halo on each side:
+    ``napp`` rows, and ``napp`` columns rounded up to ``vec``."""
+    _, ny, nx = L
+    tiles_x, tiles_y = -(-nx // ox), -(-ny // oy)
+    hx = -(-napp // vec) * vec if tiles_x > 1 else 0
+    hy = napp if tiles_y > 1 else 0
+    return (tiles_x, tiles_y, (ox if tiles_x > 1 else nx) + 2 * hx,
+            (oy if tiles_y > 1 else ny) + 2 * hy)
+
+
+@functools.cache
+def _halo_cells(length: int, own: int, halo: int, unit: int):
+    """Cells loaded along an axis of ``length`` by chunks of ``own`` with
+    ``halo`` more on each side (clipped to the axis), counted by their
+    distance from the chunk's own cells in runs of ``unit`` (a run's
+    distance is its nearest cell's): (distance -> cells summed over the
+    chunks, the same for the chunk that loads the most)."""
+    total, worst = {}, {}
+    for t0 in range(0, length, own):
+        hi = min(length, t0 + own)
+        h = {}
+        for c in range(max(0, t0 - halo), min(length, hi + halo), unit):
+            d = t0 - (c + unit - 1) if c + unit <= t0 else \
+                c - hi + 1 if c >= hi else 0
+            h[d] = h.get(d, 0) + unit
+        for d, k in h.items():
+            total[d] = total.get(d, 0) + k
+        if sum(h.values()) > sum(worst.values()):
+            worst = h
+    return total, worst
+
+
+def _slab_bytes(hx, hy, hz, napp, full, thin):
+    """Bytes of the loaded cells with distance histograms ``hx``, ``hy``,
+    ``hz``: a cell at distance (x + y + z) ``napp`` or more loads only the
+    first sweep's inputs (``thin``), the others every stream (``full``)."""
+    out = 0
+    for a, ka in hx.items():
+        for b, kb in hy.items():
+            for c, kc in hz.items():
+                out += ka * kb * kc * (full if a + b + c < napp else thin)
+    return out
+
+
+def slab_vec(nx: int, dtype) -> int:
+    """K10's cells per thread: one 16-byte copy of a float32 or float64
+    stream (4 or 2 cells) where ``nx`` is a multiple of it, else 1."""
+    v = 2 if dtype == torch.float64 else 4
+    return v if nx % v == 0 else 1
+
+
+_SLAB_PLANS = {}
+
+
+def slab_plan(L, dtype, coef_dtype, napp: int, from_u: bool,
+              props=None, vec=None):
+    """K10's launch for a phase of ``napp`` stencil applications on ``L``
+    (nz, ny, nx): ``(vec, ox, oy, tz)`` — cells a thread, a tile's own
+    columns and rows, a chunk's own planes — or None
+    where no tile fits (threads or shared memory, ``slab_tile``) or for
+    more than ``SLAB_MAX_DEPTH`` applications. A pure function of its
+    arguments (``props``: ``H100_PROPS``' keys, None for them). ``vec``
+    pins the cells a thread (1 for misaligned streams).
+
+    Among the tiles that fit, the least of the cost model's largest term:
+    the busiest SM's z-steps (waves x the longest chunk's loaded planes
+    plus ``napp``) at ``SLAB_STEP_NS``, its loaded bytes at
+    ``SLAB_SM_BYTES_PER_NS``, and every CTA's loaded bytes at
+    ``SLAB_LOAD_BYTES_PER_NS`` (the thin halo's bytes counted as such)."""
+    if dtype not in (torch.float32, torch.float64) or (
+            coef_dtype not in (None, dtype) and not (
+                coef_dtype == torch.bfloat16 and dtype == torch.float32)):
+        return None
+    if not 0 <= napp <= SLAB_MAX_DEPTH:
+        return None
+    nz, ny, nx = (int(v) for v in L)
+    sms = int((props or H100_PROPS)["sms"])
+    key = (nz, ny, nx, dtype, coef_dtype, napp, bool(from_u), sms, vec)
+    if key in _SLAB_PLANS:
+        return _SLAB_PLANS[key]
+    tsize = torch.empty(0, dtype=dtype).element_size()
+    csize = 2 if coef_dtype == torch.bfloat16 else tsize
+    vec = slab_vec(nx, dtype) if vec is None else int(vec)
+    full = 7 * csize + (2 if from_u else 1) * tsize
+    # a halo cell at distance napp or more loads only its first sweep's
+    # inputs: u0, or b and the diagonal
+    thin = tsize if from_u else csize + tsize
+    best, best_cost = None, 0.0
+    if nz * ny * nx > 0 and nx % vec == 0:
+        oxs = sorted({vec * -(-(-(-nx // k)) // vec)
+                      for k in range(1, nx // vec + 1)}, reverse=True)
+        oys = sorted({-(-ny // k) for k in range(1, ny + 1)}, reverse=True)
+        tzs = sorted({-(-nz // k) for k in range(1, nz + 1)}, reverse=True)
+        for ox in oxs:
+            for oy in oys:
+                tiles_x, tiles_y, tx, ty = slab_tile(L, napp, vec, ox, oy)
+                threads = tx // vec * ty
+                if threads > SLAB_THREADS:
+                    continue
+                smem = slab_smem(tx * ty, napp, csize, tsize, from_u)
+                if smem > SLAB_MAX_SMEM:
+                    continue
+                per_sm = max(1, min(SLAB_SM_SMEM // (smem + 1024),
+                                    65536 // (128 * 32 * -(-threads // 32))))
+                hx = _halo_cells(nx, min(ox, nx), (tx - min(ox, nx)) // 2,
+                                 vec)
+                hy = _halo_cells(ny, min(oy, ny), (ty - min(oy, ny)) // 2, 1)
+                for tz in tzs:
+                    hz = _halo_cells(nz, tz, napp, 1)
+                    blocks = tiles_x * tiles_y * -(-nz // tz)
+                    waves = -(-blocks // (sms * per_sm))
+                    planes = min(nz, tz + 2 * napp)
+                    loaded = _slab_bytes(hx[0], hy[0], hz[0], napp, full,
+                                         thin)
+                    on_sm = min(blocks, per_sm) * _slab_bytes(
+                        hx[1], hy[1], hz[1], napp, full, thin)
+                    cost = max(waves * (planes + napp) * SLAB_STEP_NS,
+                               waves * on_sm / SLAB_SM_BYTES_PER_NS,
+                               loaded / SLAB_LOAD_BYTES_PER_NS)
+                    if best is None or cost < best_cost:
+                        best, best_cost = (vec, ox, oy, tz), cost
+    _SLAB_PLANS[key] = best
+    return best
+
+
+# Plain version of K10: K2's plain loop, ``n_sweep`` weighted-Jacobi sweeps
+# from ``u`` (None: from zero) and the residual if asked -> (u, r or None).
+# K10 computes K5's function, so K5's plain version serves.
+scalar_jacobi_slab_plain = scalar_jacobi_phase_plain
+
+
+def scalar_jacobi_slab(coef, b, u, omega: float, n_sweep: int,
+                       emit_residual: bool, L, plan=None):
+    """K10 wrapper: one smoothing phase (see ``scalar_jacobi_slab_plain``)
+    of at most ``SLAB_MAX_DEPTH`` stencil applications in one launch, tiled
+    as ``slab_plan`` chooses (``plan`` = (vec, ox, oy, tz) pins it). A
+    lattice no tile fits raises. Returns (u, r or None)."""
+    if _is_cpu(b):
+        return scalar_jacobi_slab_plain(coef, b, u, omega, n_sweep,
+                                        emit_residual, L)
+    nz, ny, nx = L
+    n = nz * ny * nx
+    napp = _phase_depth(u, n_sweep, emit_residual)
+    if not 0 <= napp <= SLAB_MAX_DEPTH or (u is None and n_sweep < 1):
+        raise ValueError(f"scalar_jacobi_slab: {napp} stencil applications "
+                         f"(n_sweep={n_sweep}, residual={emit_residual}); "
+                         f"one launch takes 0..{SLAB_MAX_DEPTH}")
+    b = b.contiguous()
+    entry, narrow = _coef_entry(coef, b, "scalar_jacobi_slab coef")
+    if b.shape != (n,) or coef.shape != (TERMS, 1, n):
+        raise ValueError(f"scalar_jacobi_slab: bad shapes b {tuple(b.shape)},"
+                         f" coef {tuple(coef.shape)} for L={L}")
+    u_ptr = None
+    if u is not None:
+        u = u.contiguous()
+        _require(u, b, "scalar_jacobi_slab u")
+        if u.shape != (n,):
+            raise ValueError(f"scalar_jacobi_slab: bad shape u "
+                             f"{tuple(u.shape)}")
+        u_ptr = u.data_ptr()
+    u_out = torch.empty_like(b)
+    r_out = torch.empty_like(b) if emit_residual else None
+    if plan is None:
+        # V cells a thread copy 16 bytes of a vector stream at once (V
+        # coefficients): every stream aligned alike, or V = 1
+        vecs = [t for t in (b, u, u_out, r_out) if t is not None]
+        aligned = all(t.data_ptr() % 16 == 0 for t in vecs) and \
+            coef.data_ptr() % (16 // b.element_size() *
+                               coef.element_size()) == 0
+        plan = _slab_launch_plan(tuple(L), b.dtype, coef.dtype, napp,
+                                 u is not None, aligned, b.device)
+    vec, ox, oy, tz = plan
+    check(load_library().fn("jt_scalar_jacobi_slab", entry)(
+        coef.data_ptr(), b.data_ptr(), u_ptr, u_out.data_ptr(),
+        None if r_out is None else r_out.data_ptr(), float(omega),
+        int(n_sweep), int(u is None), nz, ny, nx, vec, ox, oy, tz,
+        stream_handle()), "scalar_jacobi_slab")
+    _count(scalar_jacobi_slab, narrow)
+    return u_out, r_out
+
+
+@functools.cache
+def _slab_launch_plan(L, dtype, coef_dtype, napp, from_u, aligned, device):
+    """``slab_plan`` on ``device`` for a launch whose streams are ``aligned``
+    for the type's V cells a thread (else V = 1); raises where no tile
+    fits. Cached: the eager main path asks for the same few again and
+    again."""
+    vec = slab_vec(L[2], dtype) if aligned else 1
+    plan = slab_plan(L, dtype, coef_dtype, napp, from_u,
+                     device_props(device, dtype, coef_dtype), vec)
+    if plan is None:
+        raise ValueError(f"scalar_jacobi_slab: no tile of L={L} ({dtype}, "
+                         f"{napp} applications) fits a CTA")
+    return plan
+
+
+scalar_jacobi_slab.launches = scalar_jacobi_slab.launches_bf16c = 0
+
+
+@functools.cache
+def phase_chunks(n_sweep: int, from_zero: bool, emit_residual: bool,
+                 depth: int) -> tuple:
+    """The launches of a Jacobi phase cut to ``depth`` stencil applications
+    each, as the JAX slab level chunks ``sweep_n`` to its halo depth:
+    ``(sweeps, from zero, residual)`` per launch (a from-zero launch takes
+    ``depth + 1`` sweeps: its first is elementwise)."""
+    out, zero = [], from_zero
+    while True:
+        k = min(n_sweep, depth + int(zero))
+        n_sweep -= k
+        res = emit_residual and n_sweep == 0 and \
+            (k - int(zero)) + 1 <= depth
+        out.append((k, zero, res))
+        zero = False
+        if n_sweep == 0:
+            break
+    if emit_residual and not out[-1][2]:
+        out.append((0, False, True))
+    return tuple(out)
+
+
+def level_route(L, hook: str, dtype, coef_dtype, props,
+                phase_kernel: bool = False, resident: bool = True,
+                slab: bool = True, depth: int = 2) -> str:
+    """Where ``ScalarLevel`` runs ``hook`` on a level of lattice ``L`` with
+    vectors of ``dtype`` and coefficients of ``coef_dtype`` on a card with
+    ``props``: "resident" (one K8/K9 launch: ``resident_plan`` holds the
+    level and ``RESIDENT_HOOKS`` marks the hook), else for the Jacobi hooks
+    "phase" (K5 launches, with ``phase_kernel``), "slab" (K10 launches: at
+    least ``SLAB_MIN_CELLS`` cells and a tile of ``depth`` applications from
+    u that fits), else "chain" (single K2 / K4 passes). A pure function of
+    its arguments; ``resident=False`` and ``slab=False`` keep the chains."""
+    plan = resident_plan(L, dtype, coef_dtype, props) if resident else None
+    if plan is not None and RESIDENT_HOOKS[plan[0]][hook]:
+        return "resident"
+    if hook.endswith("_cheby"):
+        return "chain"
+    if phase_kernel:
+        return "phase"
+    if slab and int(np.prod(L)) >= SLAB_MIN_CELLS and slab_plan(
+            L, dtype, coef_dtype, depth, True, props) is not None:
+        return "slab"
+    return "chain"
+
+
 class ScalarLevel:
-    """GMG level ops for a ScalarStencil through K8/K9, K2, K4 and K5 — the
-    JAX package's level interface (``smooth0``/``smooth``/``residual``, the
-    fused Jacobi phase hooks ``presmooth_residual``/``postsmooth``/
+    """GMG level ops for a ScalarStencil through K8/K9, K10, K2, K4 and K5 —
+    the JAX package's level interface (``smooth0``/``smooth``/``residual``,
+    the fused Jacobi phase hooks ``presmooth_residual``/``postsmooth``/
     ``sweep_n`` and their Chebyshev variants ``*_cheby``).
 
-    A level that K8/K9 can hold (``resident_plan`` on the vectors' device
-    and dtype, with ``resident``) runs each hook that ``RESIDENT_HOOKS``
-    marks as one K8 (Jacobi) or K9 (Chebyshev) launch, whatever
-    ``phase_kernel`` says — the JAX package sends every level whose streams
-    fit VMEM to B3/B6 before it looks at its slab options. Other levels
-    (and ``resident=False``) keep the chains: the Jacobi hooks as a loop of
-    single-pass K2 launches, or with ``phase_kernel``
-    (``GMG.slab_double_buffer``) K5 launches of whole phases, chunked to
-    ``PHASE_MAX_DEPTH`` stencil applications as the JAX slab level chunks
-    ``sweep_n`` to its halo depth; the Chebyshev hooks as one K4 launch per
-    step, the residual after a Chebyshev presmooth as K2's residual pass.
-    Every route gives the same values: K5 and K8 keep K2's arithmetic, K9
-    K4's.
+    Each hook runs where ``level_route`` sends it, as the JAX package's
+    ``scalar_level_ops`` picks a level's kernels: a level that K8/K9 can
+    hold (``resident_plan``, with ``resident``) runs each hook that
+    ``RESIDENT_HOOKS`` marks — the coarse solve — as one K8 (Jacobi) or K9
+    (Chebyshev) launch, whatever ``phase_kernel`` says (B3/B6 take every
+    level whose streams fit VMEM). Otherwise, with ``phase_kernel``
+    (``GMG.slab_double_buffer``, the reference's B8) the Jacobi hooks run
+    as K5 launches of whole phases; on a level of at least
+    ``SLAB_MIN_CELLS`` cells (with ``slab``; the reference's B2 level, the
+    fine and mid levels of the flagship) as K10 launches of whole phases;
+    either chunked to ``depth`` stencil applications (K5: at most
+    ``PHASE_MAX_DEPTH``) as the JAX slab level chunks ``sweep_n`` to its
+    halo depth. The rest keep the chains: the Jacobi hooks as a loop of
+    single-pass K2 launches, the Chebyshev hooks as one K4 launch per step
+    and the residual after a Chebyshev presmooth as K2's residual pass.
+    Every route gives the same values: K5, K8 and K10 keep K2's
+    arithmetic, K9 K4's. ``resident=False, slab=False`` runs every hook on
+    its chain (the card tests hold K8/K9 and K10 to it).
+
+    ``depth``: K10's applications per launch, ``max(n_smooth, 2)`` as the
+    reference sizes its slab halo (``GMG.matvecs`` passes it), at most
+    ``SLAB_MAX_DEPTH``.
 
     The Chebyshev hooks take the level's per-step scalar table
     (``linsolve.cheby.chebyshev_steps``, built once per CPR update) where
@@ -781,12 +1090,18 @@ class ScalarLevel:
     coefficient bytes and computes in the vectors' dtype."""
 
     def __init__(self, A, phase_kernel: bool = False, coef_dtype=None,
-                 resident: bool = True):
+                 resident: bool = True, slab: bool = True, depth: int = 2):
         self.L = tuple(A.L)
         _, _, self.coef = embed(A, coef_dtype)  # (7, 1, n)
         self.phase_kernel = bool(phase_kernel)
         self.resident = bool(resident)
+        self.slab = bool(slab)
+        if not 1 <= depth <= SLAB_MAX_DEPTH:
+            raise ValueError(f"depth={depth}: K10 takes 1..{SLAB_MAX_DEPTH} "
+                             "applications a launch")
+        self.depth = int(depth)
         self._plans = {}
+        self._routes = {}
 
     def plan(self, like):
         """K8/K9's plan (``resident_plan``) for this level with vectors like
@@ -799,12 +1114,15 @@ class ScalarLevel:
                 if self.resident else None
         return self._plans[key]
 
-    def _form(self, b, hook, n_sweep):
-        """The form K8/K9 runs ``hook`` in on this level, or None."""
-        plan = self.plan(b)
-        if plan is None or n_sweep < 1 or not RESIDENT_HOOKS[plan[0]][hook]:
-            return None
-        return plan[0]
+    def route(self, hook: str, like) -> str:
+        """``level_route`` for ``hook`` with vectors like ``like``."""
+        key = (hook, like.device, like.dtype)
+        if key not in self._routes:
+            self._routes[key] = level_route(
+                self.L, hook, like.dtype, self.coef.dtype,
+                device_props(like.device, like.dtype, self.coef.dtype),
+                self.phase_kernel, self.resident, self.slab, self.depth)
+        return self._routes[key]
 
     def _pass(self, b, u, omega, mode):
         return scalar_jacobi(self.coef, b, u, omega, mode, self.L)
@@ -819,27 +1137,24 @@ class ScalarLevel:
     def residual(self, u, b):
         return self._pass(b, u, 0.0, MODE_RESIDUAL)
 
-    def _phase(self, b, u, omega, n_sweep, emit_residual):
+    def _phase(self, route, b, u, omega, n_sweep, emit_residual):
         """``n_sweep`` sweeps from ``u`` (None: zero), then the residual if
-        asked, in K5 launches of at most PHASE_MAX_DEPTH applications."""
+        asked, as the launches of ``phase_chunks``: K10's (``route``
+        "slab", ``depth`` applications each) or K5's (``PHASE_MAX_DEPTH``).
+        Returns (u, r or None)."""
+        if route == "slab":
+            launch, depth = scalar_jacobi_slab, self.depth
+        else:
+            launch, depth = scalar_jacobi_phase, PHASE_MAX_DEPTH
         r = None
-        while True:
-            k = min(n_sweep, PHASE_MAX_DEPTH + int(u is None))
-            n_sweep -= k
-            res = emit_residual and n_sweep == 0 and \
-                _phase_depth(u, k, True) <= PHASE_MAX_DEPTH
-            u, r = scalar_jacobi_phase(self.coef, b, u, omega, k, res,
-                                       self.L)
-            if n_sweep == 0:
-                break
-        if emit_residual and r is None:
-            u, r = scalar_jacobi_phase(self.coef, b, u, omega, 0, True,
-                                       self.L)
+        for k, _, res in phase_chunks(n_sweep, u is None, emit_residual,
+                                      depth):
+            u, r = launch(self.coef, b, u, omega, k, res, self.L)
         return u, r
 
-    def _sweeps(self, b, u, omega, n_sweep, emit_residual, form):
+    def _sweeps(self, b, u, omega, n_sweep, emit_residual):
         return scalar_sweeps_resident(self.coef, b, u, omega, n_sweep,
-                                      emit_residual, self.L, form)
+                                      emit_residual, self.L, self.plan(b)[0])
 
     def _sweep_chain(self, b, omega, n_sweep):
         """``n_sweep`` sweeps from zero as single K2 passes."""
@@ -848,32 +1163,29 @@ class ScalarLevel:
             u = self.smooth(u, b, omega)
         return u
 
+    def _jacobi(self, hook, b, u, omega, n_sweep, emit_residual):
+        """A Jacobi hook on its route. Returns (u, r or None)."""
+        route = self.route(hook, b) if n_sweep >= 1 else "chain"
+        if route == "resident":
+            return self._sweeps(b, u, omega, n_sweep, emit_residual)
+        if route != "chain":
+            return self._phase(route, b, u, omega, n_sweep, emit_residual)
+        if u is None:
+            u = self._sweep_chain(b, omega, n_sweep)
+        else:
+            for _ in range(n_sweep):
+                u = self.smooth(u, b, omega)
+        return u, self.residual(u, b) if emit_residual else None
+
     def sweep_n(self, b, omega, n_sweep):
-        form = self._form(b, "sweep_n", n_sweep)
-        if form:
-            return self._sweeps(b, None, omega, n_sweep, False, form)[0]
-        if self.phase_kernel:
-            return self._phase(b, None, omega, n_sweep, False)[0]
-        return self._sweep_chain(b, omega, n_sweep)
+        return self._jacobi("sweep_n", b, None, omega, n_sweep, False)[0]
 
     def presmooth_residual(self, b, omega, n_sweep):
-        form = self._form(b, "presmooth_residual", n_sweep)
-        if form:
-            return self._sweeps(b, None, omega, n_sweep, True, form)
-        if self.phase_kernel:
-            return self._phase(b, None, omega, n_sweep, True)
-        u = self._sweep_chain(b, omega, n_sweep)
-        return u, self.residual(u, b)
+        return self._jacobi("presmooth_residual", b, None, omega, n_sweep,
+                            True)
 
     def postsmooth(self, u, b, omega, n_sweep):
-        form = self._form(b, "postsmooth", n_sweep)
-        if form:
-            return self._sweeps(b, u, omega, n_sweep, False, form)[0]
-        if self.phase_kernel:
-            return self._phase(b, u, omega, n_sweep, False)[0]
-        for _ in range(n_sweep):
-            u = self.smooth(u, b, omega)
-        return u
+        return self._jacobi("postsmooth", b, u, omega, n_sweep, False)[0]
 
     # -- Chebyshev (GMG(smoother="chebyshev")) ---------------------------
     def _cheby(self, b, u, steps, n_sweep):
@@ -885,26 +1197,24 @@ class ScalarLevel:
                                     self.L)
         return u
 
-    def _cheby_resident(self, b, u, steps, n_sweep, emit_residual, form):
-        return scalar_chebyshev_resident(self.coef, b, u, steps, n_sweep,
-                                         emit_residual, self.L, form)
+    def _cheby_hook(self, hook, b, u, steps, n_sweep, emit_residual):
+        """A Chebyshev hook on its route: one K9 launch, or K4 steps (and
+        K2's residual). Returns (u, r or None)."""
+        if n_sweep >= 1 and self.route(hook, b) == "resident":
+            return scalar_chebyshev_resident(self.coef, b, u, steps, n_sweep,
+                                             emit_residual, self.L,
+                                             self.plan(b)[0])
+        u = self._cheby(b, u, steps, n_sweep)
+        return u, self.residual(u, b) if emit_residual else None
 
     def sweep_n_cheby(self, b, steps, n_sweep):
-        form = self._form(b, "sweep_n_cheby", n_sweep)
-        if form:
-            return self._cheby_resident(b, None, steps, n_sweep, False,
-                                        form)[0]
-        return self._cheby(b, None, steps, n_sweep)
+        return self._cheby_hook("sweep_n_cheby", b, None, steps, n_sweep,
+                                False)[0]
 
     def presmooth_residual_cheby(self, b, steps, n_sweep):
-        form = self._form(b, "presmooth_residual_cheby", n_sweep)
-        if form:
-            return self._cheby_resident(b, None, steps, n_sweep, True, form)
-        u = self._cheby(b, None, steps, n_sweep)
-        return u, self.residual(u, b)
+        return self._cheby_hook("presmooth_residual_cheby", b, None, steps,
+                                n_sweep, True)
 
     def postsmooth_cheby(self, u, b, steps, n_sweep):
-        form = self._form(b, "postsmooth_cheby", n_sweep)
-        if form:
-            return self._cheby_resident(b, u, steps, n_sweep, False, form)[0]
-        return self._cheby(b, u, steps, n_sweep)
+        return self._cheby_hook("postsmooth_cheby", b, u, steps, n_sweep,
+                                False)[0]

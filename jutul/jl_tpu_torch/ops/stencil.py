@@ -39,6 +39,7 @@ from torch.func import jvp
 
 from ..models.equations import AccumulationContribution, FaceFluxContribution
 from .cuda import ScalarLevel, StencilMatvec, darcy_flux_jacobian_lattice
+from .cuda.stencil_kernels import SLAB_MAX_DEPTH
 from .cuda.stencil_kernels import AXIS_SLICES
 
 # F.pad widths (x0, x1, y0, y1, z0, z1) placing a face lattice onto the
@@ -546,7 +547,10 @@ class GMG:
     or "chebyshev" (polynomial smoothing on [cheby_lower*lmax, lmax]
     through K4; no dot products). On the levels K8/K9 hold
     (``ScalarLevel``), the hooks ``RESIDENT_HOOKS`` marks — the coarse
-    solve — run as one launch of K8 (Jacobi) or K9 (Chebyshev).
+    solve — run as one launch of K8 (Jacobi) or K9 (Chebyshev); the
+    Jacobi phases of levels of at least ``SLAB_MIN_CELLS`` cells (the fine
+    and mid levels) as one K10 launch each, ``max(n_smooth, 2)``
+    applications deep, as the reference's slab level.
 
     ``slab_double_buffer`` (an attribute, default False, set after
     construction as in the JAX package, where it selects the pipelined
@@ -597,8 +601,9 @@ class GMG:
 
     def matvecs(self, ops: list) -> list:
         """Per-level fused level ops, built once per update."""
+        depth = min(max(self.n_smooth, 2), SLAB_MAX_DEPTH)
         return [ScalarLevel(A, phase_kernel=self.slab_double_buffer,
-                            coef_dtype=self.coef_torch_dtype())
+                            coef_dtype=self.coef_torch_dtype(), depth=depth)
                 for A in ops]
 
     def cheby_data(self, ops: list) -> list | None:
@@ -661,7 +666,7 @@ class StencilCPRState:
     w: torch.Tensor  # (neq, n) quasi-IMPES row weights
     dinv: torch.Tensor  # (n, ndof, neq) inverse diagonal blocks
     ops: list  # GMG hierarchy of the pressure stencil
-    mvs: list  # per-level ScalarLevel ops (K2/K4/K5/K8/K9)
+    mvs: list  # per-level ScalarLevel ops (K2/K4/K5/K8/K9/K10)
     mv_A: StencilMatvec  # K1 matvec of the full block matrix
     mv_Ap: StencilMatvec  # K1 pressure-COLUMN matvec (K=1): stage 2
     # applies A to a vector that is nonzero only in the pressure dof, so

@@ -192,7 +192,8 @@ def timings():
         steps = chebyshev_steps(torch.tensor(2.5, device="cuda"), 0.25, 12)
         for coef_dtype in (None, torch.bfloat16):
             csize = 2 if coef_dtype else 4
-            chain = SK.ScalarLevel(A, coef_dtype=coef_dtype, resident=False)
+            chain = SK.ScalarLevel(A, coef_dtype=coef_dtype, resident=False,
+                                   slab=False)
             k5 = SK.ScalarLevel(A, coef_dtype=coef_dtype, resident=False,
                                 phase_kernel=True)
             coef = chain.coef

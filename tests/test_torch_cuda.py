@@ -73,7 +73,7 @@ def test_k2_matches_plain(dev, dtype):
     A = ScalarStencil(L, diag.reshape(-1).abs() + 6.0,
                       {a: v[0, 0] for a, v in plus.items()},
                       {a: v[0, 0] for a, v in minus.items()})
-    lv = SK.ScalarLevel(A, resident=False)  # the K2 chain on every hook
+    lv = SK.ScalarLevel(A, resident=False, slab=False)  # the K2 chain
     n = A.n
     b = torch.randn(n, dtype=dtype, device=dev)
     u = torch.randn(n, dtype=dtype, device=dev)
@@ -107,7 +107,7 @@ def test_k4_matches_plain(dev, dtype):
     A = ScalarStencil(L, diag.reshape(-1).abs() + 4.0,
                       {a: -v[0, 0].abs() for a, v in plus.items()},
                       {a: -v[0, 0].abs() for a, v in minus.items()})
-    lv = SK.ScalarLevel(A, resident=False)  # the K4 chain on every hook
+    lv = SK.ScalarLevel(A, resident=False, slab=False)  # the K4 chain
     steps = chebyshev_steps(_cheby_setup(A)[1], 0.25, 12)
     n = A.n
     b = torch.randn(n, dtype=dtype, device=dev)
@@ -168,7 +168,7 @@ def test_k5_matches_plain_and_k2_chain(dev, dtype):
     A = ScalarStencil(L, diag.reshape(-1).abs() + 6.0,
                       {a: -v[0, 0].abs() for a, v in plus.items()},
                       {a: -v[0, 0].abs() for a, v in minus.items()})
-    k2 = SK.ScalarLevel(A, resident=False)
+    k2 = SK.ScalarLevel(A, resident=False, slab=False)
     k5 = SK.ScalarLevel(A, phase_kernel=True, resident=False)
     n = A.n
     b = torch.randn(n, dtype=dtype, device=dev)
@@ -323,7 +323,8 @@ def test_launch_counters_reset(dev):
         "stencil_matvec_bf16c": 0, "scalar_jacobi_bf16c": 0,
         "scalar_chebyshev_bf16c": 0, "scalar_jacobi_phase_bf16c": 0,
         "scalar_sweeps_resident_bf16c": 0,
-        "scalar_chebyshev_resident_bf16c": 0}
+        "scalar_chebyshev_resident_bf16c": 0,
+        "scalar_jacobi_slab": 0, "scalar_jacobi_slab_bf16c": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -1119,6 +1120,126 @@ def test_k8_k9_refuse_a_lattice_over_each_forms_capacity(dev, dtype):
                 SK.scalar_chebyshev_resident.launches) == before
 
 
+# K10: the flagship's fine and mid GMG levels ((nz, ny, nx)) and ragged
+# lattices (nx not a multiple of V, ny = 1, nz = 1, nz below a chunk)
+SLAB_L = [(64, 64, 256), (32, 32, 128), (9, 13, 37), (5, 1, 16),
+          (1, 8, 32), (3, 40, 20)]
+
+
+def _slab_tiles(L_, dtype, coef_dtype, napp, from_u):
+    """The planner's tile (None) and pinned ones of several tiles along x
+    and y and z-chunks of 1 and 2 planes (halos on every side), each at
+    the type's V and at V = 1, where they fit."""
+    nz, ny, nx = L_
+    out = [None]
+    size = 8 if dtype == torch.float64 else 4
+    csize = 2 if coef_dtype == torch.bfloat16 else size
+    for vec in sorted({SK.slab_vec(nx, dtype), 1}):
+        for ox, oy, tz in ((vec * max(1, nx // (3 * vec)),
+                            max(1, ny // 3), 1),
+                           (nx, max(1, ny // 2), 2)):
+            _, _, tx, ty = SK.slab_tile(L_, napp, vec, ox, oy)
+            if tx // vec * ty <= SK.SLAB_THREADS and SK.slab_smem(
+                    tx * ty, napp, csize, size, from_u) <= \
+                    SK.SLAB_MAX_SMEM:
+                out.append((vec, ox, oy, tz))
+    return out
+
+
+@pytest.mark.parametrize("coef_dtype", [torch.float32, torch.float64,
+                                        torch.bfloat16])
+@pytest.mark.parametrize("L_", SLAB_L)
+def test_k10_equals_the_k2_chain_bitwise(dev, L_, coef_dtype):
+    """1-4 stencil applications, from zero and from u, with and without the
+    residual, under the planner's tile and pinned ones: K10 equal to the
+    K2 chain bit for bit, one launch each, and within TOL of its plain
+    version."""
+    c16, c32, b, u, _ = _scalar_coef(L_, dev, seed=sum(L_))
+    vec = torch.float64 if coef_dtype == torch.float64 else torch.float32
+    coef = {torch.bfloat16: c16, torch.float32: c32,
+            torch.float64: c32.double()}[coef_dtype]
+    b, u = b.to(vec), u.to(vec)
+    counter = "launches_bf16c" if coef_dtype == torch.bfloat16 \
+        else "launches"
+    for u0 in (None, u):
+        for n_sweep in (1, 2, 3, 4):
+            for res in (False, True):
+                napp = SK._phase_depth(u0, n_sweep, res)
+                if napp > SK.SLAB_MAX_DEPTH:
+                    continue
+                want = _k2_chain_level(coef, b, u0, n_sweep, res, L_)
+                plain = SK.scalar_jacobi_slab_plain(coef, b, u0, 0.8,
+                                                    n_sweep, res, L_)
+                for plan in _slab_tiles(L_, vec, coef_dtype, napp,
+                                        u0 is not None):
+                    case = (u0 is None, n_sweep, res, plan)
+                    if plan is None and SK.slab_plan(
+                            L_, vec, coef.dtype, napp, u0 is not None) \
+                            is None:
+                        continue  # no tile holds it (4 f64 applications)
+                    before = getattr(SK.scalar_jacobi_slab, counter)
+                    got = SK.scalar_jacobi_slab(coef, b, u0, 0.8, n_sweep,
+                                                res, L_, plan)
+                    assert getattr(SK.scalar_jacobi_slab, counter) == \
+                        before + 1
+                    for g, w, p in zip(got, want, plain):
+                        assert (g is None) == (w is None), case
+                        if w is not None:
+                            assert torch.equal(g, w), case
+                            assert _rel(g, p) <= TOL[vec], case
+
+
+def test_k10_refuses_what_it_cannot_run(dev):
+    """More than SLAB_MAX_DEPTH applications, or a tile the kernel cannot
+    run: the wrapper raises and counts no launch."""
+    L_ = (4, 8, 16)
+    coef = torch.zeros(7, 1, 512, device=dev)
+    b = torch.zeros(512, device=dev)
+    before = SK.scalar_jacobi_slab.launches
+    with pytest.raises(ValueError, match="applications"):
+        SK.scalar_jacobi_slab(coef, b, b, 0.8, SK.SLAB_MAX_DEPTH + 1,
+                              False, L_)
+    # pinned tiles the kernel's launcher refuses: own columns not a
+    # multiple of V, an empty z-chunk
+    for plan in ((4, 6, 8, 1), (4, 16, 8, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            SK.scalar_jacobi_slab(coef, b, None, 0.8, 2, True, L_, plan)
+    assert SK.scalar_jacobi_slab.launches == before
+
+
+def test_gmg_routes_the_fine_and_mid_levels_to_k10(dev):
+    """The flagship's fine and mid level shapes: a Jacobi V-cycle's
+    smoothing phases there are one K10 launch each (4 a V-cycle), the
+    coarse solve one K8 launch, and no K2 pass; the result equals the
+    chains' bit for bit."""
+    from jutul.jl_tpu_torch.ops.stencil import GMG
+
+    g = torch.Generator().manual_seed(5)
+    L_ = (64, 64, 256)
+    nz, ny, nx = L_
+    n = nz * ny * nx
+    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    A = ScalarStencil(L_, (rnd(n).abs() + 6.0).to(dev),
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()},
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()})
+    b = rnd(n).to(dev)
+    gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384)
+    ops = gmg.hierarchy(A)
+    assert [o.L for o in ops] == [(64, 64, 256), (32, 32, 128),
+                                  (16, 16, 64)]
+    mvs = gmg.matvecs(ops)
+    assert [lv.route("postsmooth", b) for lv in mvs[:2]] == ["slab"] * 2
+    chains = [SK.ScalarLevel(o, resident=False, slab=False) for o in ops]
+    kernels.reset_launch_counts()
+    got = gmg.vcycle(ops, b, mvs=mvs)
+    counts = kernels.launch_counts()
+    want = gmg.vcycle(ops, b, mvs=chains)
+    assert torch.equal(got, want)
+    assert (counts["scalar_jacobi_slab"], counts["scalar_sweeps_resident"],
+            counts["scalar_jacobi"]) == (4, 1, 0), counts
+
+
 def test_gmg_routes_the_coarse_solve_to_k8_k9(dev):
     """The flagship's pressure hierarchy shape, cut to its two lower levels
     (the mid level in the grid form, the coarse one in the cluster form):
@@ -1143,7 +1264,8 @@ def test_gmg_routes_the_coarse_solve_to_k8_k9(dev):
         assert [o.L for o in ops] == [(32, 32, 128), (16, 16, 64)]
         mvs, cheb = gmg.matvecs(ops), gmg.cheby_data(ops)
         assert [lv.plan(b)[0] for lv in mvs] == ["grid", "cluster"]
-        chains = [SK.ScalarLevel(o, resident=False) for o in ops]
+        chains = [SK.ScalarLevel(o, resident=False, slab=False)
+                  for o in ops]
         kernels.reset_launch_counts()
         got = gmg.vcycle(ops, b, mvs=mvs, cheb=cheb)
         counts = kernels.launch_counts()
