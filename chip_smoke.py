@@ -17,18 +17,20 @@ failure (nothing is caught, so any failure exits non-zero):
    per axis and as the three-axis lattice launch, which must equal the
    three per-axis launches bit for bit and is timed beside them in turns;
    K4 Chebyshev step — every mode and the 2- and 12-step level hooks — on
-   every GMG level of the well-model flagship's pressure hierarchy; K5
-   whole Jacobi phases on every level of its Jacobi hierarchy, which must
-   equal the K2 chain bit for bit and is timed per level and hook beside
-   it; K8/K9 whole-level Jacobi/Chebyshev phases (one launch each) on the
+   every GMG level of the well-model flagship's pressure hierarchy; K8/K9
+   whole-level Jacobi/Chebyshev phases (one launch each) on the
    levels they hold — the mid level in the grid form, the coarse one in
    the cluster form — every hook at 2 and 12 sweeps equal to the K2/K4
    chain bit for bit (float32, float64, bfloat16 coefficients) and timed
-   per level and hook beside the chain and K5; K10 whole Jacobi phases on
+   per level and hook beside the chain; K10 whole Jacobi phases on
    the fine and mid levels (the launches of ``phase_chunks``, every hook at
    1-3 sweeps and sweep_n at 2 and 12) equal to the K2 chain bit for bit
    (float32, float64, bfloat16 coefficients) and timed per level and hook
-   beside the chain, K5 and K8's grid form; K6/K7 fused BiCGStab body
+   beside the chain and K8's grid form — and again on B8's route
+   (``gmg.slab_double_buffer = True``), which must route every level and
+   hook as the default does (the reference runs B2, or B8, on the fine
+   level and B3 on the mid; the port runs both on K10); K6/K7 fused
+   BiCGStab body
    at the Schur system's 2,097,152 values, also against a second call,
    bitwise; K1 on the adjoint's
    transposed operator with the dot identity); beside each, its bound
@@ -45,7 +47,10 @@ failure (nothing is caught, so any failure exits non-zero):
    solve) must launch in this run and the
    final state be finite; on every stencil slice the GMG level kernels'
    launches must be those the routing gives (two V-cycles per linear
-   iteration);
+   iteration); after the stencil slices, K10's end-to-end share: this
+   slice four times in turns, as routed and with the fine and mid levels
+   on the K2 chain (``phase_k10_share``: equal counts and final state,
+   s/Newton of each route);
 5. its f64 verify: the final accepted ministep's residual re-assembled in
    float64 on the card; CNV and MB within 10x their tolerances;
 6. wells slice: the bench flagship with its 5 well models (1,048,576
@@ -57,8 +62,10 @@ failure (nothing is caught, so any failure exits non-zero):
 8. wells-jacobi-fused slice: the same well flagship with the bench's
    default Jacobi smoother and both opt-ins of bench.py's BENCH_FUSED_BODY=1
    BENCH_GMG_DB=1 (``StencilKrylovSolver(use_fused_body=True)``,
-   ``gmg.slab_double_buffer = True``); K1, K3, K5, K6 and K7 must launch,
-   K2 and K4 never, K6 and K7 once per linear iteration; its f64 verify;
+   ``gmg.slab_double_buffer = True``, which routes as the default: K10
+   on the fine and mid levels, K8 the coarse solve); K1, K3, K6, K7, K8 and
+   K10 must launch, K2 and K4 never, K6 and K7 once per linear iteration;
+   its f64 verify;
 8b. the schedule path, as bench.py's run_product runs it
    (``sim.lower_schedule(...)`` then ``post(*run(*args))``:
    check-before-solve Newton, Eisenstat-Walker forcing, ``pick_next`` dt
@@ -70,8 +77,9 @@ failure (nothing is caught, so any failure exits non-zero):
    float32 level kernel), each with its f64
    verify; ``wells-jacobi-eager`` (the eager loop at a fixed Krylov rtol on
    the same kernels) beside them; two 2-step runs of the schedule path that
-   put the bfloat16 entries of K4 (Chebyshev smoother) and K5 (Jacobi
-   phases) on a full-width path; then ``refine_solution`` on
+   put the bfloat16 entries of K4 (Chebyshev smoother) and K10 under the
+   B8 flag (Jacobi phases) on a full-width path; then
+   ``refine_solution`` on
    ``wells-product``'s last accepted ministep with the bench's settings
    (float64 polish, tol 1e-8), all on the card: the final max|r| must be
    finite and below the start's;
@@ -97,9 +105,9 @@ failure (nothing is caught, so any failure exits non-zero):
    1e-4) and ``force-gradient`` (``solve_adjoint_forces`` on the 8x8x6 well
    model, 1e-5), both in float64;
 9. A/B at 64x32x32 on the card, float32, 2 report steps: both opt-ins,
-   the K5 phases alone, neither, and neither from a 2-ulp perturbed
+   the B8 flag alone, neither, and neither from a 2-ulp perturbed
    initial pressure.
-   The phases alone must reproduce "neither" bit for bit; the fused body
+   The flag alone must reproduce "neither" bit for bit; the fused body
    (another summation order) must succeed and pass the f64 verify, and
    its counts are reported beside the perturbed run's (phase_ab says why
    counts cannot be held equal there);
@@ -124,7 +132,8 @@ failure (nothing is caught, so any failure exits non-zero):
    one assemble, one CPR update and one GMRES iteration timed by CUDA
    events; its f64 verify as phase 5;
 12. generic-fused: the slice's first Newton system solved by
-   BiCGStab with the fused body (K6/K7 once per iteration, K1-K5 never)
+   BiCGStab with the fused body (K6/K7 once per iteration, no stencil
+   kernel)
    and by the plain chain; both converge, true residuals (float64) within
    10 rtol;
 13. generic-engine-check: at full size in float64, one state through both
@@ -144,7 +153,7 @@ failure (nothing is caught, so any failure exits non-zero):
    Newton assembly; its f64 verify (CNV over every submodel, MB of the
    coupled system);
 16. multimodel-fused: its first Newton system, Schur-reduced, solved by
-   BiCGStab on K6/K7 (once per iteration; K1-K5 never), true residual
+   BiCGStab on K6/K7 (once per iteration; no stencil kernel), true residual
    within 10 rtol;
 17. multimodel-engine-check: wells-multimodel's last accepted ministep in
    float64 at full size, the MultiModel's residual and J v against the
@@ -307,10 +316,6 @@ KERNEL_INFO = {
         "jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
         "jutul/jl_tpu/ops/pallas/stencil_kernels.py:716 (B7 "
         "_kernel_slab_sweeps_cheby)"),
-    "scalar_jacobi_phase": (
-        "jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
-        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:602 (B8 "
-        "_kernel_slab_sweeps_db, compute _slab_jacobi_compute :582)"),
     "fused_alpha_s": ("jutul/jl_tpu_torch/csrc/krylov_kernels.cu",
                       "jutul/jl_tpu/ops/pallas/krylov_kernels.py:98 (B10 "
                       "_kernel_alpha_s)"),
@@ -328,7 +333,10 @@ KERNEL_INFO = {
     "scalar_jacobi_slab": (
         "jutul/jl_tpu_torch/csrc/slab_kernels.cu",
         "jutul/jl_tpu/ops/pallas/stencil_kernels.py:555 (B2 "
-        "_kernel_slab_sweeps, called by _scalar_slab_sweeps_call :683)"),
+        "_kernel_slab_sweeps, called by _scalar_slab_sweeps_call :683) and "
+        ":602 (B8 _kernel_slab_sweeps_db, called by "
+        "_scalar_slab_sweeps_db_call :648; both compute "
+        "_slab_jacobi_compute :582)"),
 }
 _B9 = ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
        "B9 (coef_dtype=bfloat16, jutul/jl_tpu/ops/pallas/stencil_kernels.py"
@@ -338,25 +346,25 @@ KERNEL_INFO.update({
     "stencil_matvec_bf16c": (_B9[0], _B9[1] + "B1 :83 _kernel"),
     "scalar_jacobi_bf16c": (_B9[0], _B9[1] + "B4 :252"),
     "scalar_chebyshev_bf16c": (_B9[0], _B9[1] + "B7 :716"),
-    "scalar_jacobi_phase_bf16c": (_B9[0], _B9[1] + "B8 :602"),
     "scalar_sweeps_resident_bf16c": (_LEVEL_CU, _B9[1] + "B3 :389"),
     "scalar_chebyshev_resident_bf16c": (_LEVEL_CU, _B9[1] + "B6 :431"),
     "scalar_jacobi_slab_bf16c": ("jutul/jl_tpu_torch/csrc/slab_kernels.cu",
-                                 _B9[1] + "B2 :555"),
+                                 _B9[1] + "B2 :555 and B8 :602"),
 })
 K8, K9 = "scalar_sweeps_resident", "scalar_chebyshev_resident"
 K10 = "scalar_jacobi_slab"
 SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
     # the well perforations; the lattice's three axes go through one launch;
     # K8/K9: the coarse GMG level's solve; K10: the fine and mid levels'
-    # Jacobi phases; K2: the residual after a Chebyshev presmooth)
+    # Jacobi phases, whatever slab_double_buffer says (the reference: B2 or
+    # B8 on the fine level, B3 on the mid); K2: the residual after a
+    # Chebyshev presmooth)
     "srcwells": ("stencil_matvec", K10, "darcy_flux_jacobian_lattice", K8),
     "wells": ("stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian",
               "darcy_flux_jacobian_lattice", "scalar_chebyshev", K9),
     "wells-jacobi-fused": ("stencil_matvec", "darcy_flux_jacobian",
-                           "darcy_flux_jacobian_lattice",
-                           "scalar_jacobi_phase", "fused_alpha_s",
-                           "fused_omega_update", K8),
+                           "darcy_flux_jacobian_lattice", K10,
+                           "fused_alpha_s", "fused_omega_update", K8),
     "wells-jacobi-eager": ("stencil_matvec", K10, "darcy_flux_jacobian",
                            "darcy_flux_jacobian_lattice", K8),
     "wells-product": ("stencil_matvec", K10, "darcy_flux_jacobian",
@@ -367,8 +375,7 @@ SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
     "wells-product-bf16-cheby": ("stencil_matvec_bf16c",
                                  "scalar_jacobi_bf16c",
                                  "scalar_chebyshev_bf16c", K9 + "_bf16c"),
-    "wells-product-bf16-phases": ("stencil_matvec_bf16c",
-                                  "scalar_jacobi_phase_bf16c",
+    "wells-product-bf16-phases": ("stencil_matvec_bf16c", K10 + "_bf16c",
                                   K8 + "_bf16c"),
 }
 SLICE_KERNELS["generic"] = ()  # the generic path has no kernel of its own
@@ -381,9 +388,8 @@ SLICE_KERNELS["multimodel-fused"] = SLICE_KERNELS["generic-fused"]
 SLICE_KERNELS["weno-transport"] = ()
 SLICE_KERNELS["nfvm-pressure"] = ()
 SLICE_KERNELS["weno-transport-fused"] = SLICE_KERNELS["generic-fused"]
-_F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", "scalar_jacobi_phase",
-              K8, K9, K10)
-# K1-K5, K8-K10 and every bf16 entry: the stencil engine's kernels
+_F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", K8, K9, K10)
+# K1-K4, K8-K10 and every bf16 entry: the stencil engine's kernels
 _STENCIL_KERNELS = tuple(k for k in KERNEL_INFO
                          if k not in ("fused_alpha_s", "fused_omega_update"))
 SLICE_FORBIDDEN = {  # kernels a slice must never launch
@@ -394,12 +400,11 @@ SLICE_FORBIDDEN = {  # kernels a slice must never launch
     "weno-transport": tuple(KERNEL_INFO),
     "nfvm-pressure": tuple(KERNEL_INFO),
     "weno-transport-fused": _STENCIL_KERNELS,
-    "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev", K9, K10),
+    "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev", K9),
     "wells-product": tuple(k for k in KERNEL_INFO if k.endswith("_bf16c")),
     "wells-product-bf16": _F32_LEVEL,
     "wells-product-bf16-cheby": _F32_LEVEL,
-    "wells-product-bf16-phases": _F32_LEVEL + ("scalar_jacobi_bf16c",
-                                               K10 + "_bf16c"),
+    "wells-product-bf16-phases": _F32_LEVEL + ("scalar_jacobi_bf16c",),
 }
 # the slice whose launches a kernel's JSON entry reports as ``launches``
 MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
@@ -407,14 +412,12 @@ MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
               "darcy_flux_jacobian": "wells-jacobi-fused",
               "darcy_flux_jacobian_lattice": "wells-jacobi-fused",
               "scalar_chebyshev": "wells",
-              "scalar_jacobi_phase": "wells-jacobi-fused",
               "fused_alpha_s": "wells-jacobi-fused",
               "fused_omega_update": "wells-jacobi-fused",
               K8: "srcwells", K9: "wells",
               "stencil_matvec_bf16c": "wells-product-bf16",
               "scalar_jacobi_bf16c": "wells-product-bf16-cheby",
               "scalar_chebyshev_bf16c": "wells-product-bf16-cheby",
-              "scalar_jacobi_phase_bf16c": "wells-product-bf16-phases",
               K8 + "_bf16c": "wells-product-bf16",
               K9 + "_bf16c": "wells-product-bf16-cheby",
               K10: "srcwells", K10 + "_bf16c": "wells-product-bf16"}
@@ -762,9 +765,10 @@ def sim_config(min_cells, smoother="jacobi", fused=False, coef_dtype=None,
                product=False):
     """The bench product path's solver and Newton settings
     (bench.py:528-601). ``fused``: bench.py's BENCH_FUSED_BODY=1 and
-    BENCH_GMG_DB=1 (the fused BiCGStab body K6/K7 and the whole-phase Jacobi
-    kernel K5); ``coef_dtype``: its BENCH_GMG_COEF_DTYPE; ``product``: the
-    schedule path's own options (Eisenstat-Walker forcing, 16 ministep
+    BENCH_GMG_DB=1 (the fused BiCGStab body K6/K7, and
+    ``gmg.slab_double_buffer``, which routes as the default);
+    ``coef_dtype``: its BENCH_GMG_COEF_DTYPE; ``product``: the schedule
+    path's own options (Eisenstat-Walker forcing, 16 ministep
     records per report step) for ``lower_schedule`` / ``simulate_jit``.
 
     The slices srcwells, wells, wells-jacobi-fused and wells-jacobi-eager
@@ -1093,7 +1097,7 @@ def k1_entry(key, mv, x, timed=True, library=True):
     return row
 
 
-def phase_kernels(case, records):
+def kernel_checks(case, records):
     from jutul.jl_tpu_torch import compile_model
     from jutul.jl_tpu_torch.models.setup import merge_state
     from jutul.jl_tpu_torch.ops.cuda import assembly_kernels as AK
@@ -1247,7 +1251,7 @@ def phase_kernels(case, records):
         torch.cuda.empty_cache()
 
 
-def phase_kernels_cheby(case, records):
+def kernel_checks_cheby(case, records):
     """K4 against its plain version on every GMG level of the well-model
     flagship's pressure hierarchy (the Chebyshev slice's levels): every
     mode, and the level hooks at 2 and 12 steps."""
@@ -1319,133 +1323,6 @@ def phase_kernels_cheby(case, records):
         torch.cuda.empty_cache()
 
 
-def _phase_level_rows(pst, om, gen, coef_dtype=None):
-    """K5 on every level of a Jacobi hierarchy, float32, timed as the
-    V-cycle calls it (fine and mid: presmooth+residual and postsmooth at
-    2 sweeps; coarse: the 12-sweep solve in all its launches) beside the
-    K2 chain of the same hook, in turns (K5, K2, K2, K5) in this call; each
-    with its bound (the hook's bytes: 7 coefficient streams and b, u in
-    where given; u, r out where made) and the planner's z-chunk depth per
-    launch. ``coef_dtype=torch.bfloat16``: both chains on bfloat16
-    coefficients (``pst`` built with ``GMG(coef_dtype="bf16")``), the bound
-    with 2-byte coefficient streams."""
-    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
-
-    rows = []
-    csize = 2 if coef_dtype == torch.bfloat16 else 4
-    counter = "launches_bf16c" if csize == 2 else "launches"
-    for op in pst.ops:  # K5 and the K2 chain on every level
-        lv = SK.ScalarLevel(op, phase_kernel=True, coef_dtype=coef_dtype,
-                            resident=False)
-        k2 = SK.ScalarLevel(op, coef_dtype=coef_dtype, resident=False,
-                            slab=False)
-        n = int(np.prod(lv.L))
-        b, u = (torch.randn(n, generator=gen, device="cuda",
-                            dtype=torch.float32) for _ in range(2))
-        if op is pst.ops[-1]:
-            hooks = [("sweep_n x12", lambda l_: l_.sweep_n(b, om, 12), 9,
-                      [(5, True, False), (4, False, False),
-                       (3, False, False)])]
-        else:
-            hooks = [("presmooth+residual x2",
-                      lambda l_: l_.presmooth_residual(b, om, 2), 10,
-                      [(2, True, True)]),
-                     ("postsmooth x2", lambda l_: l_.postsmooth(u, b, om, 2),
-                      10, [(2, False, False)])]
-        for what, hook, streams, launches in hooks:
-            before = getattr(SK.scalar_jacobi_phase, counter)
-            hook(lv)
-            n_launch = getattr(SK.scalar_jacobi_phase, counter) - before
-            turns = [graph_ms(lambda: hook(lv)), graph_ms(lambda: hook(k2)),
-                     graph_ms(lambda: hook(k2)), graph_ms(lambda: hook(lv))]
-            row = {"L": list(lv.L), "hook": what, "k5_launches": n_launch,
-                   "k5_graph_ms": (turns[0] + turns[3]) / 2,
-                   "k2_chain_graph_ms": (turns[1] + turns[2]) / 2,
-                   "bound_ms": (7 * csize + (streams - 7) * 4) * n
-                   / HBM_BYTES_PER_S * 1e3,
-                   "plans_tz_blocks_per_sm": [
-                       SK.phase_plan(torch.float32, *p, lv.L,
-                                     coef_dtype=coef_dtype)
-                       for p in launches]}
-            row["share_of_bound"] = row["bound_ms"] / row["k5_graph_ms"]
-            log(f"  K5 {lv.L} {what}: " + json.dumps(row))
-            rows.append(row)
-    return rows
-
-
-def phase_kernels_phase(case, records):
-    """K5 (whole Jacobi phases) on every level of the well flagship's
-    Jacobi GMG hierarchy, against its plain version (K2's plain loop) and
-    against the K2 chain on the card (the same arithmetic: bitwise
-    equality required), for every hook at 2 and 12 sweeps; timed on every
-    level beside the K2 chain (``_phase_level_rows``), the fine level's
-    presmooth + residual also eagerly."""
-    from jutul.jl_tpu_torch import compile_model, from_numpy
-    from jutul.jl_tpu_torch.models.setup import merge_state
-    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
-    from jutul.jl_tpu_torch.ops.stencil import GMG, StencilCPR
-    from jutul.jl_tpu_torch.ops.stencil_wells import BorderedStencilModel
-
-    model, state0, params, forces = case
-    eng = BorderedStencilModel(compile_model(model), "cuda")
-    rec = records["scalar_jacobi_phase"]
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    for dtype in (torch.float32, torch.float64):
-        full = merge_state(from_numpy(state0, "cuda", dtype),
-                           from_numpy(params, "cuda", dtype))
-        _, B, _ = eng.assemble(full, full, DT, forces)
-        gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384)
-        gmg.slab_double_buffer = True
-        pst = StencilCPR(gmg=gmg).update(B.A)
-        om = gmg.omega
-        log(f"# K5 vs plain and vs K2, {dtype}, levels "
-            f"{[lv.L for lv in pst.mvs]}")
-        for op in pst.ops:  # every level through K5, and the K2 chain
-            lv = SK.ScalarLevel(op, phase_kernel=True, resident=False)
-            k2 = SK.ScalarLevel(op, resident=False, slab=False)
-            n = int(np.prod(lv.L))
-            b, u = (torch.randn(n, generator=gen, device="cuda", dtype=dtype)
-                    for _ in range(2))
-            for n_sweep in (2, 12):
-                cases = (
-                    ("presmooth+residual", lambda lv_: torch.stack(
-                        lv_.presmooth_residual(b, om, n_sweep)),
-                     lambda: torch.stack(SK.scalar_jacobi_phase_plain(
-                         lv.coef, b, None, om, n_sweep, True, lv.L))),
-                    ("postsmooth", lambda lv_: lv_.postsmooth(
-                        u, b, om, n_sweep),
-                     lambda: SK.scalar_jacobi_phase_plain(
-                         lv.coef, b, u, om, n_sweep, False, lv.L)[0]),
-                    ("sweep_n", lambda lv_: lv_.sweep_n(b, om, n_sweep),
-                     lambda: SK.scalar_jacobi_phase_plain(
-                         lv.coef, b, None, om, n_sweep, False, lv.L)[0]))
-                for what, hook, plain in cases:
-                    got = hook(lv)
-                    rec.compare(dtype, f"K5 {lv.L} {what} x{n_sweep}", got,
-                                plain())
-                    if not torch.equal(got, hook(k2)):
-                        raise RuntimeError(
-                            f"K5 {lv.L} {what} x{n_sweep} [{dtype}]: differs "
-                            "from the K2 chain")
-            if dtype == torch.float32 and op is pst.ops[0]:
-                uo = torch.empty_like(b)
-                rec.set_work([lv.coef, b, uo, uo], (2 + 2 * 16) * n)
-                rec.ms = cuda_ms(lambda: lv.presmooth_residual(b, om, 2))
-                rec.plain_ms = cuda_ms(lambda: SK.scalar_jacobi_phase_plain(
-                    lv.coef, b, None, om, 2, True, lv.L))
-                rec.extra["k2_chain_ms"] = cuda_ms(
-                    lambda: k2.presmooth_residual(b, om, 2))
-                rec.extra["timed"] = "presmooth_residual(n_sweep=2), fine level"
-        if dtype == torch.float32:
-            rec.extra["levels"] = _phase_level_rows(pst, om, gen)
-            fine = rec.extra["levels"][0]
-            rec.graph_ms = fine["k5_graph_ms"]
-            rec.extra["k2_chain_graph_ms"] = fine["k2_chain_graph_ms"]
-        del B, pst
-        torch.cuda.empty_cache()
-    log("  K5 = the K2 chain on the card, bitwise, on every level and hook")
-
-
 def _in_turns(fn_a, fn_b):
     """Graph ms of ``fn_a`` and ``fn_b`` measured a, b, b, a in this call:
     (mean a, mean b, the four)."""
@@ -1453,9 +1330,9 @@ def _in_turns(fn_a, fn_b):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def phase_kernels_bf16(case, records):
+def kernel_checks_bf16(case, records):
     """The bfloat16-coefficient entries of K1 (K=1: CPR's stage-2 matvec),
-    K2, K4 and K5 on every level of the well flagship's Jacobi and
+    K2 and K4 on every level of the well flagship's Jacobi and
     Chebyshev hierarchies built with ``GMG(coef_dtype="bf16")``, float32
     vectors. Each against the float32 entry on the same coefficients
     rounded to bfloat16 and widened — bit for bit, or it raises: the
@@ -1492,8 +1369,7 @@ def phase_kernels_bf16(case, records):
     def wide(lv, op):
         """``lv``'s level through the float32 entries on its coefficients
         widened."""
-        lv32 = SK.ScalarLevel(op, phase_kernel=lv.phase_kernel,
-                              resident=lv.resident)
+        lv32 = SK.ScalarLevel(op, resident=lv.resident, slab=lv.slab)
         lv32.coef = lv.coef.to(f32)
         return lv32
 
@@ -1532,10 +1408,9 @@ def phase_kernels_bf16(case, records):
             lambda: SK.stencil_matvec_plain(mv.coef, x, mv.L, 2, 1),
             "K1 bf16 mv_Ap (C=2, K=1), fine level")
 
-    # K2 and K5 on every level of the Jacobi hierarchy
+    # K2 on every level of the Jacobi hierarchy
     om = gmg.omega
-    rec2, rec5 = records["scalar_jacobi_bf16c"], \
-        records["scalar_jacobi_phase_bf16c"]
+    rec2 = records["scalar_jacobi_bf16c"]
     for op, lv in zip(pst.ops, pst.mvs):
         if lv.coef.dtype != bf16:
             raise RuntimeError("GMG(coef_dtype='bf16'): level not bfloat16")
@@ -1551,9 +1426,6 @@ def phase_kernels_bf16(case, records):
             rec2.compare(f32, f"K2 bf16 {lv.L} mode {mode}", got,
                          SK.scalar_jacobi_plain(lv.coef, b, u, om, mode,
                                                 lv.L))
-        k5 = SK.ScalarLevel(op, phase_kernel=True, coef_dtype=bf16,
-                            resident=False)
-        k5_32 = wide(k5, op)
         for n_sweep in (2, 12):
             hooks = (("presmooth+residual",
                       lambda l_: l_.presmooth_residual(b, om, n_sweep),
@@ -1566,15 +1438,11 @@ def phase_kernels_bf16(case, records):
             for what, hook, (u0, ns, res) in hooks:
                 ref = SK.scalar_jacobi_phase_plain(lv.coef, b, u0, om, ns,
                                                    res, lv.L)
-                for tag, l16, l32, r_ in (("K2", lv, lv32, rec2),
-                                          ("K5", k5, k5_32, rec5)):
-                    got = hook(l16)
-                    same(f"{tag} {lv.L} {what} x{n_sweep}", got, hook(l32))
-                    r_.compare(f32, f"{tag} bf16 {lv.L} {what} x{n_sweep}",
-                               torch.stack([g for g in got if g is not None]),
-                               torch.stack([g for g in ref if g is not None]))
-                same(f"K5 = K2 chain {lv.L} {what} x{n_sweep}", hook(k5),
-                     hook(lv))
+                got = hook(lv)
+                same(f"K2 {lv.L} {what} x{n_sweep}", got, hook(lv32))
+                rec2.compare(f32, f"K2 bf16 {lv.L} {what} x{n_sweep}",
+                             torch.stack([g for g in got if g is not None]),
+                             torch.stack([g for g in ref if g is not None]))
         if op is pst.ops[0]:
             rec2.set_work([lv.coef, b, u, b], 18 * n)
             timings(rec2, lambda: lv.smooth(u, b, om),
@@ -1582,17 +1450,6 @@ def phase_kernels_bf16(case, records):
                     lambda: SK.scalar_jacobi_plain(lv.coef, b, u, om,
                                                    SK.MODE_SMOOTH, lv.L),
                     "K2 bf16 smooth, fine level")
-            rec5.set_work([lv.coef, b, b, b], (2 + 2 * 16) * n)
-            timings(rec5, lambda: k5.presmooth_residual(b, om, 2),
-                    lambda: k5_32.presmooth_residual(b, om, 2),
-                    lambda: SK.scalar_jacobi_phase_plain(
-                        lv.coef, b, None, om, 2, True, lv.L),
-                    "K5 bf16 presmooth_residual(n_sweep=2), fine level")
-    gmg5 = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
-               coef_dtype="bf16")
-    gmg5.slab_double_buffer = True
-    rec5.extra["levels"] = _phase_level_rows(
-        StencilCPR(gmg=gmg5).update(A), om, gen, coef_dtype=bf16)
     del pst
 
     # K4 on every level of the Chebyshev hierarchy
@@ -1671,7 +1528,7 @@ def _resident_hooks(SK, lv, form, cheby, b, u, om, steps, n_sweep):
                 l_.sweep_n(b, om, n_sweep), None), False, False))
 
 
-def phase_kernels_resident(case, records):
+def kernel_checks_resident(case, records):
     """K8 (Jacobi) and K9 (Chebyshev) on every level of the well flagship's
     GMG hierarchies that they hold (the mid level in the grid form, the
     coarse one in the cluster form), float32 and float64 vectors and
@@ -1682,10 +1539,9 @@ def phase_kernels_resident(case, records):
     version; and the V-cycle's level hooks route as ``RESIDENT_HOOKS``
     says. Then the V-cycle's hooks (mid: presmooth+residual and postsmooth
     at 2 sweeps; coarse: the 12-sweep solve) timed in turns with the chain
-    (K8/K9, chain, chain, K8/K9) as CUDA-graph replays, beside K5 (Jacobi),
-    eager ms of each, the plain version and the hook's bound (7 coefficient
-    streams, b and u in where given, u and r out where made, once, over
-    3.35 TB/s); ``routed`` says which ones the V-cycle takes."""
+    (K8/K9, chain, chain, K8/K9) as CUDA-graph replays, eager ms of each,
+    the plain version and the hook's bound (7 coefficient streams, b and u
+    in where given, u and r out where made, once, over 3.35 TB/s); ``routed`` says which ones the V-cycle takes."""
     from jutul.jl_tpu_torch import compile_model, from_numpy
     from jutul.jl_tpu_torch.models.setup import merge_state
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
@@ -1765,9 +1621,6 @@ def phase_kernels_resident(case, records):
                     continue
                 last = op is pst.ops[-1]
                 csize = 2 if cd else 4
-                k5 = SK.ScalarLevel(op, phase_kernel=True,
-                                    coef_dtype=gmg.coef_torch_dtype(),
-                                    resident=False)
                 for what, k_call, hook, from_u, res in _resident_hooks(
                         SK, lv, plan[0], cheby, b, u, om, steps,
                         12 if last else 2):
@@ -1789,8 +1642,6 @@ def phase_kernels_resident(case, records):
                                res), reps=5),
                            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                            "bound_bytes": nbytes}
-                    if not cheby:
-                        row["k5_graph_ms"] = graph_ms(lambda: hook(k5))
                     row["share_of_bound"] = row["bound_ms"] / k_ms
                     log(f"  {name} {lv.L} {what}: " + json.dumps(row))
                     rec.extra["levels"].append(row)
@@ -1809,7 +1660,10 @@ def phase_kernels_resident(case, records):
         "and hook they hold")
 
 
-def phase_kernels_slab(case, records):
+SLAB_HOOKS = ("presmooth_residual", "postsmooth", "sweep_n")
+
+
+def kernel_checks_slab(case, records):
     """K10 on every level of the well flagship's Jacobi GMG hierarchy that
     ``ScalarLevel`` routes to it (the fine (64, 64, 256) and mid
     (32, 32, 128) levels: at least ``SLAB_MIN_CELLS`` cells), float32 and
@@ -1820,10 +1674,15 @@ def phase_kernels_slab(case, records):
     replaces (``ScalarLevel(resident=False, slab=False)``) and within
     REL_TOL of the plain version. Then the V-cycle's two hooks at 2 sweeps
     on each level timed in turns with the chain (K10, chain, chain, K10) as
-    CUDA-graph replays, beside K5, K8's grid form where the level fits it,
+    CUDA-graph replays, beside K8's grid form where the level fits it,
     eager ms (20 calls back to back) of K10 and the chain, the plain
     version and the hook's bound (7 coefficient streams, b and u in where
-    given, u and r out where made, once, over 3.35 TB/s)."""
+    given, u and r out where made, once, over 3.35 TB/s).
+
+    All of it twice: through the default GMG (the reference's B2; rows
+    ``levels``) and through one with ``gmg.slab_double_buffer = True``
+    (B8's route; rows ``b8_levels``), whose every level and hook must
+    route as the default's."""
     from jutul.jl_tpu_torch import compile_model, from_numpy
     from jutul.jl_tpu_torch.models.setup import merge_state
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
@@ -1838,114 +1697,129 @@ def phase_kernels_slab(case, records):
         full = merge_state(from_numpy(state0, "cuda", dtype),
                            from_numpy(params, "cuda", dtype))
         _, B, _ = eng.assemble(full, full, DT, forces)
+        like = torch.empty(0, dtype=dtype, device="cuda")
         for cd in (None, "bf16"):
             if cd and dtype == torch.float64:
                 continue  # bfloat16 coefficients: float32 vectors only
-            gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
-                      coef_dtype=cd)
-            pst = StencilCPR(gmg=gmg).update(B.A)
             name = K10 + ("_bf16c" if cd else "")
             counter = "launches_bf16c" if cd else "launches"
             rec = records[name]
-            rec.extra.setdefault("levels", [])
-            om = gmg.omega
-            routed = 0
-            for op, lv in zip(pst.ops, pst.mvs):
-                n = op.n
-                b, u = (torch.randn(n, generator=gen, device="cuda",
-                                    dtype=dtype) for _ in range(2))
-                if lv.route("presmooth_residual", b) != "slab":
-                    continue
-                routed += 1
-                chain = SK.ScalarLevel(op, coef_dtype=gmg.coef_torch_dtype(),
-                                       resident=False, slab=False)
-                hooks = [(f"presmooth_residual x{k}", None, k, True,
-                          lambda l_, k=k: l_.presmooth_residual(b, om, k))
-                         for k in (1, 2, 3)]
-                hooks += [(f"postsmooth x{k}", u, k, False,
-                           lambda l_, k=k: (l_.postsmooth(u, b, om, k), None))
-                          for k in (1, 2, 3)]
-                hooks += [(f"sweep_n x{k}", None, k, False,
-                           lambda l_, k=k: (l_.sweep_n(b, om, k), None))
-                          for k in (2, 12)]
-                for what, u0, k, res, hook in hooks:
-                    tag = f"{name} {lv.L} {what}"
-                    want = len(SK.phase_chunks(k, u0 is None, res, lv.depth))
-                    before = getattr(wrapper, counter)
-                    got = hook(lv)
-                    if getattr(wrapper, counter) != before + want:
-                        raise RuntimeError(f"{tag}: not {want} launches")
-                    for g_, w_ in zip(got, hook(chain)):
-                        if (g_ is None) != (w_ is None) or (
-                                g_ is not None and not torch.equal(g_, w_)):
-                            raise RuntimeError(f"{tag} [{dtype}]: differs "
-                                               "from the K2 chain")
-                    ref = SK.scalar_jacobi_slab_plain(lv.coef, b, u0, om, k,
-                                                      res, lv.L)
-                    rec.compare(dtype, tag, torch.stack(
-                        [g_ for g_ in got if g_ is not None]),
-                        torch.stack([r_ for r_ in ref if r_ is not None]))
-                if dtype != torch.float32:
-                    continue
-                csize = 2 if cd else 4
-                k5 = SK.ScalarLevel(op, phase_kernel=True,
-                                    coef_dtype=gmg.coef_torch_dtype(),
-                                    resident=False)
-                grid = SK.resident_plan(lv.L, dtype, lv.coef.dtype,
-                                        SK.device_props(b.device, dtype,
-                                                        lv.coef.dtype),
-                                        "grid")
-                for what, u0, k, res, hook in hooks:
-                    if what not in ("presmooth_residual x2",
-                                    "postsmooth x2"):
-                        continue  # the hooks the V-cycle calls here
-                    k_ms, c_ms, turns = _in_turns(lambda: hook(lv),
-                                                  lambda: hook(chain))
-                    from_u = u0 is not None
-                    nbytes = (7 * csize + 4 * (2 + from_u + res)) * n
-                    row = {"L": list(lv.L), "coef": cd or "f32",
-                           "hook": what,
-                           "plan": list(SK.slab_plan(
-                               lv.L, dtype, lv.coef.dtype,
-                               SK._phase_depth(u0, k, res), from_u)),
-                           "graph_ms": k_ms, "chain_graph_ms": c_ms,
-                           "graph_ms_turns_k_chain_chain_k": turns,
-                           "eager_ms": cuda_ms(lambda: hook(lv)),
-                           "chain_eager_ms": cuda_ms(lambda: hook(chain)),
-                           "k5_graph_ms": graph_ms(lambda: hook(k5)),
-                           "plain_ms": cuda_ms(
-                               lambda: SK.scalar_jacobi_slab_plain(
-                                   lv.coef, b, u0, om, k, res, lv.L),
-                               reps=5),
-                           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                           "bound_bytes": nbytes}
-                    if grid is not None:
-                        row["k8_grid_graph_ms"] = graph_ms(
-                            lambda: SK.scalar_sweeps_resident(
-                                lv.coef, b, u0, om, k, res, lv.L, "grid"))
-                    row["share_of_bound"] = row["bound_ms"] / k_ms
-                    log(f"  {name} {lv.L} {what}: " + json.dumps(row))
-                    rec.extra["levels"].append(row)
-                    if op is pst.ops[0] and res:
-                        # the record's timed call: the fine level's
-                        # presmooth+residual; ~17 flops a cell and
-                        # application
-                        rec.ms, rec.graph_ms = row["eager_ms"], k_ms
-                        rec.plain_ms = row["plain_ms"]
-                        rec.extra["chain_graph_ms"] = c_ms
-                        rec.extra["timed"] = f"{what}, level {lv.L}"
-                        rec.bytes, rec.ops = nbytes, 17 * 2 * n
-            if routed != 2:
-                raise RuntimeError(f"{name}: {routed} levels route to K10, "
-                                   "the flagship's fine and mid expected")
-            del pst
+            default_routes = None
+            for b8 in (False, True):
+                gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+                          coef_dtype=cd)
+                gmg.slab_double_buffer = b8
+                pst = StencilCPR(gmg=gmg).update(B.A)
+                routes = [[lv.route(h, like) for h in SLAB_HOOKS]
+                          for lv in pst.mvs]
+                if b8 and routes != default_routes:
+                    raise RuntimeError(f"{name}: B8's route {routes} differs "
+                                       f"from the default's {default_routes}")
+                default_routes = routes
+                rows = rec.extra.setdefault(
+                    "b8_levels" if b8 else "levels", [])
+                route_tag = "B8 " if b8 else ""
+                _slab_levels(SK, pst, gmg, dtype, gen, rec, rows, wrapper,
+                             counter, f"{route_tag}{name}",
+                             timed_call=not b8)
+                del pst
         del B
         torch.cuda.empty_cache()
     log("  K10 = the K2 chain on the card, bitwise, on the fine and mid "
-        "levels, every hook")
+        "levels, every hook, on the default route and on B8's")
 
 
-def phase_kernels_transpose(case, records):
+def _slab_levels(SK, pst, gmg, dtype, gen, rec, rows, wrapper, counter,
+                 name, timed_call):
+    """``kernel_checks_slab``'s checks and timings on the levels of ``pst``
+    that route to K10 (raises unless the fine and the mid level do), its
+    timed rows appended to ``rows``; ``timed_call``: the fine level's
+    presmooth+residual is ``rec``'s timed call."""
+    om = gmg.omega
+    routed = 0
+    for op, lv in zip(pst.ops, pst.mvs):
+        n = op.n
+        b, u = (torch.randn(n, generator=gen, device="cuda", dtype=dtype)
+                for _ in range(2))
+        if lv.route("presmooth_residual", b) != "slab":
+            continue
+        routed += 1
+        chain = SK.ScalarLevel(op, coef_dtype=gmg.coef_torch_dtype(),
+                               resident=False, slab=False)
+        hooks = [(f"presmooth_residual x{k}", None, k, True,
+                  lambda l_, k=k: l_.presmooth_residual(b, om, k))
+                 for k in (1, 2, 3)]
+        hooks += [(f"postsmooth x{k}", u, k, False,
+                   lambda l_, k=k: (l_.postsmooth(u, b, om, k), None))
+                  for k in (1, 2, 3)]
+        hooks += [(f"sweep_n x{k}", None, k, False,
+                   lambda l_, k=k: (l_.sweep_n(b, om, k), None))
+                  for k in (2, 12)]
+        for what, u0, k, res, hook in hooks:
+            tag = f"{name} {lv.L} {what}"
+            want = len(SK.phase_chunks(k, u0 is None, res, lv.depth))
+            before = getattr(wrapper, counter)
+            got = hook(lv)
+            if getattr(wrapper, counter) != before + want:
+                raise RuntimeError(f"{tag}: not {want} launches")
+            for g_, w_ in zip(got, hook(chain)):
+                if (g_ is None) != (w_ is None) or (
+                        g_ is not None and not torch.equal(g_, w_)):
+                    raise RuntimeError(f"{tag} [{dtype}]: differs from the "
+                                       "K2 chain")
+            ref = SK.scalar_jacobi_slab_plain(lv.coef, b, u0, om, k, res,
+                                              lv.L)
+            rec.compare(dtype, tag, torch.stack(
+                [g_ for g_ in got if g_ is not None]),
+                torch.stack([r_ for r_ in ref if r_ is not None]))
+        if dtype != torch.float32:
+            continue
+        csize = 2 if lv.coef.dtype == torch.bfloat16 else 4
+        grid = SK.resident_plan(lv.L, dtype, lv.coef.dtype,
+                                SK.device_props(b.device, dtype,
+                                                lv.coef.dtype), "grid")
+        for what, u0, k, res, hook in hooks:
+            if what not in ("presmooth_residual x2", "postsmooth x2"):
+                continue  # the hooks the V-cycle calls here
+            k_ms, c_ms, turns = _in_turns(lambda: hook(lv),
+                                          lambda: hook(chain))
+            from_u = u0 is not None
+            nbytes = (7 * csize + 4 * (2 + from_u + res)) * n
+            row = {"L": list(lv.L), "coef": "bf16" if csize == 2 else "f32",
+                   "hook": what,
+                   "plan": list(SK.slab_plan(
+                       lv.L, dtype, lv.coef.dtype,
+                       SK._phase_depth(u0, k, res), from_u)),
+                   "graph_ms": k_ms, "chain_graph_ms": c_ms,
+                   "graph_ms_turns_k_chain_chain_k": turns,
+                   "eager_ms": cuda_ms(lambda: hook(lv)),
+                   "chain_eager_ms": cuda_ms(lambda: hook(chain)),
+                   "plain_ms": cuda_ms(
+                       lambda: SK.scalar_jacobi_slab_plain(
+                           lv.coef, b, u0, om, k, res, lv.L), reps=5),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_bytes": nbytes}
+            if grid is not None:
+                row["k8_grid_graph_ms"] = graph_ms(
+                    lambda: SK.scalar_sweeps_resident(
+                        lv.coef, b, u0, om, k, res, lv.L, "grid"))
+            row["share_of_bound"] = row["bound_ms"] / k_ms
+            log(f"  {name} {lv.L} {what}: " + json.dumps(row))
+            rows.append(row)
+            if timed_call and op is pst.ops[0] and res:
+                # the record's timed call: the fine level's
+                # presmooth+residual; ~17 flops a cell and application
+                rec.ms, rec.graph_ms = row["eager_ms"], k_ms
+                rec.plain_ms = row["plain_ms"]
+                rec.extra["chain_graph_ms"] = c_ms
+                rec.extra["timed"] = f"{what}, level {lv.L}"
+                rec.bytes, rec.ops = nbytes, 17 * 2 * n
+    if routed != 2:
+        raise RuntimeError(f"{name}: {routed} levels route to K10, the "
+                           "flagship's fine and mid expected")
+
+
+def kernel_checks_transpose(case, records):
     """K1 on the adjoint's transposed lattice operator (``stencil_transpose``
     of the well flagship's assembled matrix: every field a non-contiguous
     view, which ``embed`` packs) against its plain version and, bit for
@@ -1993,7 +1867,7 @@ def phase_kernels_transpose(case, records):
         torch.cuda.empty_cache()
 
 
-def phase_kernels_krylov(records):
+def kernel_checks_krylov(records):
     """K6/K7 at the Schur system's 2 x 1,048,576 values against their
     plain versions, and against a second call on the same inputs, bitwise
     (the sums have a fixed order)."""
@@ -2089,20 +1963,19 @@ def warm_up_multimodel():
     torch.cuda.synchronize()
 
 
-GMG_LEVEL_KERNELS = ("scalar_jacobi", "scalar_chebyshev",
-                     "scalar_jacobi_phase", K8, K9, K10)
+GMG_LEVEL_KERNELS = ("scalar_jacobi", "scalar_chebyshev", K8, K9, K10)
 
 
-def level_launches_per_vcycle(L, smoother, phases, coef_dtype=None,
-                              n_smooth=2, n_coarse=12, min_cells=16384,
-                              props=None):
+def level_launches_per_vcycle(L, smoother, coef_dtype=None, n_smooth=2,
+                              n_coarse=12, min_cells=16384, props=None):
     """The GMG level kernels' launches in one V-cycle of the flagship's
     pressure hierarchy on ``L`` (nz, ny, nx), as ``ScalarLevel`` routes it
     (``level_route``) on a card with ``props`` (None: this card's): a
-    "resident" hook is one K8/K9 launch, a "slab" or "phase" hook the K10
-    or K5 launches of ``phase_chunks``, a "chain" K2 one pass per sweep and
-    residual, or K4 one step per launch and K2's residual after a
-    Chebyshev presmooth. Keys as ``launch_counts``."""
+    "resident" hook is one K8/K9 launch, a "slab" hook the K10 launches of
+    ``phase_chunks``, a "chain" K2 one pass per sweep and residual, or K4
+    one step per launch and K2's residual after a Chebyshev presmooth.
+    ``GMG.slab_double_buffer`` changes no route. Keys as
+    ``launch_counts``."""
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
 
     cd = torch.bfloat16 if coef_dtype == "bf16" else None
@@ -2124,29 +1997,27 @@ def level_launches_per_vcycle(L, smoother, phases, coef_dtype=None,
             res = h == "presmooth_residual"
             hook = h + "_cheby" if cheby else h
             route = SK.level_route(shape, hook, torch.float32, cd, props,
-                                   bool(phases), depth=depth)
+                                   depth=depth)
             if route == "resident":
                 out[(K9 if cheby else K8) + sfx] += 1
             elif cheby:
                 out["scalar_chebyshev" + sfx] += n_sweep
                 out["scalar_jacobi" + sfx] += res
-            elif route in ("slab", "phase"):
-                kernel = K10 if route == "slab" else "scalar_jacobi_phase"
-                out[kernel + sfx] += len(SK.phase_chunks(
-                    n_sweep, h != "postsmooth", res,
-                    depth if route == "slab" else SK.PHASE_MAX_DEPTH))
+            elif route == "slab":
+                out[K10 + sfx] += len(SK.phase_chunks(
+                    n_sweep, h != "postsmooth", res, depth))
             else:
                 out["scalar_jacobi" + sfx] += n_sweep + res
     return out
 
 
-def check_level_launches(name, launches, lin, smoother, phases, coef_dtype):
+def check_level_launches(name, launches, lin, smoother, coef_dtype):
     """The level kernels' launches of a slice at GRID: two V-cycles per
     linear iteration (BiCGStab applies CPR twice), each as
     ``level_launches_per_vcycle`` routes it; raises on any other count.
     Returns the expected launches per linear iteration."""
     per = level_launches_per_vcycle((GRID[2], GRID[1], GRID[0]), smoother,
-                                    phases, coef_dtype)
+                                    coef_dtype)
     got = {k: launches[k] for k in per}
     want = {k: 2 * v * lin for k, v in per.items()}
     if got != want:
@@ -2164,7 +2035,8 @@ def phase_slice(case, name, smoother, fused=False, product=False,
     per linear iteration. ``product``: through the schedule path as
     bench.py's run_product calls it — ``lower_schedule`` (timed apart: the
     set-up), then ``post(*run(*args))`` — instead of the eager ``simulate``;
-    ``phases``: Jacobi phases through K5 whatever ``fused`` says."""
+    ``phases``: ``gmg.slab_double_buffer`` (B8's route) whatever ``fused``
+    says."""
     from jutul.jl_tpu_torch import Simulator, report_stats
     from jutul.jl_tpu_torch.ops.cuda import (
         launch_counts,
@@ -2212,9 +2084,8 @@ def phase_slice(case, name, smoother, fused=False, product=False,
                       == launches["fused_omega_update"]):
         raise RuntimeError(f"{name} slice: K6/K7 launches {launches} differ "
                            f"from the {lin} linear iterations")
-    level_per_lin = check_level_launches(
-        name, launches, lin, smoother,
-        fused if phases is None else phases, coef_dtype)
+    level_per_lin = check_level_launches(name, launches, lin, smoother,
+                                         coef_dtype)
     if coef_dtype == "bf16" and launches["stencil_matvec_bf16c"] != 2 * lin:
         # CPR's stage 2 runs once per preconditioner application, two per
         # linear iteration, and nothing else takes bfloat16 K1 coefficients
@@ -2264,6 +2135,68 @@ def phase_slice(case, name, smoother, fused=False, product=False,
                                f"{stats['ministeps']} ministeps")
     log(f"# {name} slice: " + json.dumps(out))
     return sim, res, schedule[-1], out
+
+
+def phase_k10_share(case, n_step=3):
+    """K10's share of the eager main path: srcwells' slice (``n_step``
+    report steps, float32, its solver settings) four times in turns in this
+    process — as routed (K10 on the fine and mid levels), with those levels
+    on the K2 chain (``SLAB_MIN_CELLS`` set above every level for the run),
+    chain again, routed again — and the s/Newton of each route, the mean of
+    its two runs. K10 is the K2 chain bit for bit, so every run must give
+    the same counts in every ministep and the same final state; the routed
+    runs launch K10 and no K2 pass, the chain runs no K10."""
+    from jutul.jl_tpu_torch import Simulator, report_stats
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
+
+    model, state0, params, forces = case
+    schedule = rate_schedule(forces, n_step)
+    threshold = SK.SLAB_MIN_CELLS
+    runs, first = [], None
+    for route in ("routed", "chain", "chain", "routed"):
+        sim = Simulator(model, state0, params, use_stencil=True)
+        cfg = sim_config(16384)
+        SK.SLAB_MIN_CELLS = threshold if route == "routed" else 2 ** 62
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = sim.simulate([DT] * n_step, forces=schedule, **cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            SK.SLAB_MIN_CELLS = threshold
+        n = launch_counts()
+        st = report_stats(res.reports)
+        per = [[m["iterations"], m["linear_iterations"]]
+               for r in res.reports for m in r["ministeps"]]
+        if (n[K10] == 0 or n["scalar_jacobi"] != 0) if route == "routed" \
+                else (n[K10] != 0 or n["scalar_jacobi"] == 0):
+            raise RuntimeError(f"K10 share: the {route} run launched K10 "
+                               f"{n[K10]}, K2 {n['scalar_jacobi']} times")
+        if first is None:
+            first = (per, res.states[-1])
+        elif per != first[0] or any(
+                not np.array_equal(v, first[1][k])
+                for k, v in res.states[-1].items()):
+            raise RuntimeError("K10 share: the runs differ: "
+                               f"{per} against {first[0]}")
+        runs.append({"route": route, "wall_s": wall,
+                     "newtons": st["newtons"],
+                     "s_per_newton": wall / st["newtons"],
+                     "k10_launches": n[K10],
+                     "k2_launches": n["scalar_jacobi"]})
+        del sim, res
+    mean = {r: sum(x["s_per_newton"] for x in runs if x["route"] == r) / 2
+            for r in ("routed", "chain")}
+    out = {"ministeps": len(first[0]), "newtons": runs[0]["newtons"],
+           "linear_iterations": sum(p[1] for p in first[0]),
+           "routed_s_per_newton": mean["routed"],
+           "chain_s_per_newton": mean["chain"], "runs": runs}
+    log("# K10 share (srcwells eager, routed / chain / chain / routed, same "
+        "counts and state): " + json.dumps(out))
+    return out
 
 
 def refine(sim, res, forces, n_lin_it, budget_s=None):
@@ -2366,15 +2299,16 @@ def phase_f64_verify(sim, res, forces, name):
 
 def phase_ab(case_small, n_step=3):
     """The well flagship at AB_GRID with Jacobi GMG on the card, float32,
-    ``n_step`` report steps, in four runs: both opt-ins ("fused": K5 phases and the
-    K6/K7 body), the K5 phases alone ("phases"), neither (K10 phases on
-    the 65,536-cell fine level, the plain BiCGStab chain), and neither
+    ``n_step`` report steps, in four runs: both opt-ins ("fused": the B8
+    flag and the K6/K7 body), the B8 flag alone ("phases"), neither, and
+    neither
     again from an initial pressure scaled by 1 + 2^-22 (two float32 ulps:
     "neither_perturbed").
 
     - "phases" against "neither" must match exactly — the same counts in
-      every ministep, bitwise-equal states — because K5 and K10 both
-      compute the K2 chain's values bit for bit;
+      every ministep, bitwise-equal states — because the flag routes
+      every level as the default does (K10 on the 65,536-cell fine level,
+      the K2 chain below it);
     - "fused" sums its dot products in another order than the plain chain,
       and on this float32 Schur system Krylov and Newton counts move with
       any roundoff: the "neither_perturbed" run shows how far. So "fused"
@@ -2426,7 +2360,7 @@ def phase_ab(case_small, n_step=3):
     if out["phases"]["per_ministep"] != out["neither"]["per_ministep"] or \
             out["phases"]["max_rel_dev_pressure"] != 0.0 or \
             out["phases"]["max_abs_dev_saturations"] != 0.0:
-        raise RuntimeError("A/B: the K5 phases change the run: "
+        raise RuntimeError("A/B: the B8 flag changes the run: "
                            + json.dumps(out))
     return out
 
@@ -2434,8 +2368,8 @@ def phase_ab(case_small, n_step=3):
 def phase_cross_check(build, dims, smoother, name, phases=False,
                       product=False):
     """The slice at ``dims`` in float64, 2 report steps, on the card and
-    on the CPU: identical counts, states within 1e-9. ``phases``: Jacobi
-    phases through K5 (``slab_double_buffer``; the fused body is float32
+    on the CPU: identical counts, states within 1e-9. ``phases``: B8's
+    route (``slab_double_buffer``; the fused body is float32
     only and stays off). ``product``: through the schedule path with
     Eisenstat-Walker forcing (``simulate_jit``; its final state)."""
     from jutul.jl_tpu_torch import Simulator
@@ -2668,7 +2602,8 @@ def phase_generic_fused(sim, case, amg, rtol=1e-3):
     system at 16x16x8 on a CPU: 5.2e-4 against a true 2.2e-3, the same
     for both bodies), so the true residuals, evaluated in float64, are
     held to 10 rtol and the solutions' gap to their sum, |J dx| <= 20 rtol
-    |b|; K6 and K7 launch once per fused iteration, K1-K5 never."""
+    |b|; K6 and K7 launch once per fused iteration, no stencil kernel
+    ever."""
     from jutul.jl_tpu_torch import (BlockELL, CPRPreconditioner,
                                     GenericKrylov, from_numpy)
     from jutul.jl_tpu_torch.models.setup import merge_state
@@ -2939,8 +2874,8 @@ def phase_multimodel_fused(sim, case_mm, rtol=1e-3):
     6 h step, under the first step's rates), Schur-reduced onto the
     reservoir and solved by ``GenericKrylov("bicgstab",
     GroupWisePreconditioner(CPRPreconditioner()), use_fused_body=True)``:
-    K6/K7 launch once per iteration on the flat coupled vector, K1-K5
-    never; the true residual of the whole coupled system (float64) within
+    K6/K7 launch once per iteration on the flat coupled vector, no stencil
+    kernel ever; the true residual of the whole coupled system (float64) within
     10 rtol."""
     from jutul.jl_tpu_torch import (CPRPreconditioner, GenericKrylov,
                                     GroupWisePreconditioner,
@@ -3105,9 +3040,8 @@ def phase_multimodel_cross_check(dims=WELL_SMALL_EW):
 ADJ_DT = 1.5 * 3600.0  # bench.py run_adjoint's report step (BENCH_ADJ_DT)
 # kernels the adjoint's sweep must never launch: the opt-in smoothers and
 # Krylov bodies, and every bfloat16 entry
-ADJOINT_FORBIDDEN = ("scalar_jacobi", "scalar_chebyshev",
-                     "scalar_jacobi_phase", K9, "fused_alpha_s",
-                     "fused_omega_update") + tuple(
+ADJOINT_FORBIDDEN = ("scalar_jacobi", "scalar_chebyshev", K9,
+                     "fused_alpha_s", "fused_omega_update") + tuple(
     k for k in KERNEL_INFO if k.endswith("_bf16c"))
 
 
@@ -4153,8 +4087,8 @@ def phase_weno_transport_fused(sim, state0, rtol=1e-3):
     ``GenericKrylov("bicgstab", ILU0Preconditioner(),
     use_fused_body=True)`` (K6/K7 on the flat vectors) and by the plain
     chain. Both converge, true residuals (float64) within 10 rtol; K6 and
-    K7 launch once per fused iteration, K1-K5 never, the plain chain
-    nothing."""
+    K7 launch once per fused iteration, no stencil kernel ever, the plain
+    chain nothing."""
     from jutul.jl_tpu_torch import (BlockELL, GenericKrylov,
                                     ILU0Preconditioner, from_numpy)
     from jutul.jl_tpu_torch.models.setup import merge_state
@@ -6330,14 +6264,13 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     records = {name: KernelRecord() for name in KERNEL_INFO}
     t0 = time.perf_counter()
-    phase_kernels(case, records)
-    phase_kernels_cheby(case_w, records)
-    phase_kernels_phase(case_w, records)
-    phase_kernels_krylov(records)
-    phase_kernels_bf16(case_w, records)
-    phase_kernels_resident(case_w, records)
-    phase_kernels_slab(case_w, records)
-    phase_kernels_transpose(case_w, records)
+    kernel_checks(case, records)
+    kernel_checks_cheby(case_w, records)
+    kernel_checks_krylov(records)
+    kernel_checks_bf16(case_w, records)
+    kernel_checks_resident(case_w, records)
+    kernel_checks_slab(case_w, records)
+    kernel_checks_transpose(case_w, records)
     log(f"# kernel phases: {time.perf_counter() - t0:.1f} s")
     phase_warm_up()
     slices = {}
@@ -6363,6 +6296,7 @@ def main():
             slices[name]["refine"] = phase_refine(sim, res, last_forces)
         del sim, res
         torch.cuda.empty_cache()
+    records[K10].extra["end_to_end_srcwells"] = phase_k10_share(case)
     sides = {g: start_side(g, slab_ref) for g in SIDE_GROUPS}
     t0 = time.perf_counter()
     sim, res, last_forces, slices["generic"] = phase_generic(case, n_step=2)

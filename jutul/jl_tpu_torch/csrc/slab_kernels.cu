@@ -6,11 +6,16 @@
 // slab_plan and the routing of GMG levels).
 //
 // K10 replaces jutul/jl_tpu/ops/pallas/stencil_kernels.py:_kernel_slab_sweeps
-// (B2, :555, with _slab_jacobi_compute; called by _scalar_slab_sweeps_call
-// :683, pallas_call :697), which the JAX package runs on every level of at
-// least 65,536 cells whose streams do not fit VMEM (scalar_level_ops
-// :922-951): a z-slab with a deep row halo, every stencil application of a
-// phase on it, the coefficients read once per phase. Here: from zero (the
+// (B2, :555, with _slab_jacobi_compute :582; called by
+// _scalar_slab_sweeps_call :683, pallas_call :697) and
+// _kernel_slab_sweeps_db (B8, :602, the same compute; called by
+// _scalar_slab_sweeps_db_call :648, pallas_call :663), which the JAX package
+// runs on every level of at least 65,536 cells whose streams do not fit
+// VMEM (scalar_level_ops :922-955), B8 under double_buffer: a z-slab with a
+// deep row halo, every stencil application of a phase on it, the
+// coefficients read once per phase. B8 only starts slab i+1's copies before
+// slab i's sweeps; K10's rings copy the next plane while the current one is
+// swept in every launch, so both take this kernel. Here: from zero (the
 // first sweep is omega*b*dinv) or from u0, then the sweeps, then optionally
 // the residual b - A u, in ONE launch.
 //
@@ -20,16 +25,17 @@
 // -y, +z, -z) with the terms whose neighbour lies outside the lattice left
 // out, res = b - acc, u + omega*res*dinv written as K2 writes it so that nvcc
 // contracts it alike. So K10 equals the chain of K2 launches bit for bit,
-// as K5 and K8 do. A bfloat16 coefficient is widened where it is read.
+// as K8 does. A bfloat16 coefficient is widened where it is read.
 //
 // What bounds it on this card: the bytes its CTAs load (halos included)
 // and the z-march's serial steps. A phase must read 7 coefficient streams
 // and b (and u0) once and write u (and r): ~10 values a cell, 41.9 MB at
 // float32 on the flagship's 1,048,576-cell fine level (12.5 us at
 // 3.35 TB/s). The K2 chain reads the coefficients once per application;
-// K5 (B8's counterpart) reads them once per phase but is bound by
-// instructions: one thread per cell inside 32x16 tiles with a 2-deep xy
-// halo, each thread issuing nine 4-byte copies per plane. K10 instead:
+// a z-march with one thread per cell (the port's first B8 kernel, retired)
+// read them once per phase but was bound by instructions: 32x16 tiles with
+// a 2-deep xy halo, each thread issuing nine 4-byte copies per plane. K10
+// instead:
 // - gives a thread V consecutive cells of a lattice row (4 at float32
 //   vectors and at bfloat16 coefficients, 2 at float64): one 16-byte copy
 //   per stream (8 for bfloat16), one 16-byte shared load per term and
@@ -42,7 +48,7 @@
 //   card's times over a grid of tiles (scripts/slab_sweeps_probe.py): the
 //   flagship's fine (64, 64, 256) level gets 72x20-cell tiles of 8 planes,
 //   128 CTAs; the mid (32, 32, 128) level whole rows;
-// - marches z as a wavefront, as K5 does: at step j plane zs + j arrives
+// - marches z as a wavefront: at step j plane zs + j arrives
 //   and sweep k runs on plane zs + j - k, so the +-z neighbours of each
 //   sweep are the thread's own register values and the in-plane neighbours
 //   come from one shared copy of the previous step's values, double

@@ -1,7 +1,6 @@
 // 7-point lattice stencil kernels for Hopper (sm_90a): K1 stencil_matvec,
-// K2 scalar_jacobi, K4 scalar_chebyshev and K5 scalar_jacobi_phase. Built by
-// nvcc into one shared library with a plain C
-// interface (ops/cuda/_build.py) and bound with ctypes
+// K2 scalar_jacobi and K4 scalar_chebyshev. Built by nvcc into one shared
+// library with a plain C interface (ops/cuda/_build.py) and bound with ctypes
 // (ops/cuda/stencil_kernels.py, which also holds the plain PyTorch versions).
 //
 // Lattice: cells in natural C order on (nz, ny, nx), i = (z*ny + y)*nx + x.
@@ -14,8 +13,8 @@
 // write one value per cell and component: they are bound by HBM bytes, ~4
 // bytes of coefficients per flop. K1 gives a thread a few cells of a row and
 // all their components, K2 and K4 one thread per output value; all three
-// rely on L1/L2 for the neighbour reuse. K5 blocks a whole Jacobi smoothing
-// phase in time (several sweeps per coefficient read).
+// rely on L1/L2 for the neighbour reuse. A whole Jacobi smoothing phase in
+// one launch is K8's or K10's (level_kernels.cu, slab_kernels.cu).
 //
 // Coefficient type CT (replaces the coef_dtype=bfloat16 form of the TPU
 // kernels, stencil_kernels.py:177-231, 323, 819, 922-955): every kernel takes
@@ -429,475 +428,6 @@ __global__ void scalar_chebyshev_kernel(const CT* __restrict__ coef,
   u_out[i] = u[i] + dn;
 }
 
-// K5 (replaces stencil_kernels.py:_kernel_slab_sweeps_db / _slab_jacobi_compute,
-// B8): a whole weighted-Jacobi smoothing PHASE in one launch — from zero (the
-// first sweep is omega*b*dinv) or from u0, then the sweeps, then optionally the
-// residual b - A u — with K2's per-cell arithmetic, term order and skips, so
-// it equals the chain of K2 launches bit for bit.
-//
-// B8 runs a z-slab with a deep row halo from VMEM and starts slab i+1's DMAs
-// before slab i's sweeps. A (64, 256) plane of 9 streams does not fit a
-// block's shared memory here, so K5 is 2.5-D z-marching instead:
-// - a block is a (16, 32) tile of lattice columns, NAPP of them on each
-//   side a halo (NAPP = stencil applications in the phase), and a chunk of
-//   tz planes (plus NAPP halo planes below and above);
-// - each thread owns one column and walks z. Sweep k runs on plane s - k
-//   while plane s arrives (a wavefront), so each sweep's +-z neighbours are
-//   the thread's own earlier values and its +-x/+-y neighbours come from
-//   one shared plane per sweep, double buffered so that one barrier per step
-//   suffices;
-// - coefficients are only ever needed at the thread's own cell, so they
-//   live in registers and are read from HBM once per phase (plus the halo's
-//   share), not once per sweep.
-// What bounds it on this card: instructions per thread and z-step, not
-// bytes. Every cell of the tile and its halo is swept by its own thread at
-// every step, so a z-step costs ~1.2 ns per thread on an SM with 32
-// resident warps whatever the level's size (scripts/k5_tiling_probe.py),
-// and a sweep written with a branch around each skipped neighbour's shared
-// load and a register ring shifted by moves every step costs more than a
-// whole K2 pass. The design therefore
-// - reads the four in-plane neighbours unconditionally (every index lies in
-//   the tile) and predicates the FMAs that K2's skip rule leaves out;
-// - unrolls the z loop by the register rings' period P, so that every ring
-//   slot is a constant and nothing is moved;
-// - fills a ring of kPhaseStages planes in shared memory with cp.async
-//   groups, kPhaseStages - 1 planes ahead of the sweeps (each thread copies
-//   and later reads only its own column's words, so the ring needs no
-//   barrier of its own; the step's barrier orders a slot's reuse);
-// - chooses the chunk depth tz per level (choose_phase_plan) from what the
-//   card measured: the busiest SM's thread-steps, or the halo-amplified
-//   bytes where those dominate. Large levels get long chunks; small levels,
-//   where bytes cost nothing, get short chunks and few serial steps.
-// The tile is 32x16: a 32x32 tile (a smaller xy halo at depth 2) measured
-// slower on every level, with half the blocks per SM.
-// Wrong values creep in one cell per application from the tile's edges and
-// from the chunk's first and last loaded planes; only owner threads (NAPP
-// from every tile edge) write, and only planes of their chunk. Neighbours
-// outside the lattice are skipped, as in K2, so halo cells there are never
-// read.
-constexpr int kPhaseBX = 32;
-constexpr int kPhaseBY = 16;
-constexpr int kPhaseThreads = kPhaseBX * kPhaseBY;
-constexpr int kPhaseStages = 4;    // ring depth: planes in flight + 1
-constexpr int kPhaseMaxDepth = 4;  // stencil applications per launch
-// planner (choose_phase_plan): ns per thread-step on an SM, with >= 32 and
-// with fewer resident warps (H100 SXM, scripts/k5_tiling_probe.py), and a
-// sustained HBM rate
-constexpr double kPhaseStepNs32 = 1.2;
-constexpr double kPhaseStepNs16 = 1.5;
-constexpr double kHbmBytesPerNs = 3000.0;
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-               "l"(gmem), "n"(BYTES)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// K5's ring slot of one coefficient: a T-wide word per thread. A coefficient
-// of type T is copied as it is. A bfloat16 coefficient cannot be: cp.async
-// moves 4, 8 or 16 bytes from an address aligned alike, so each thread
-// copies the aligned 4-byte word that holds its element e (element e ^ 1
-// rides along; neighbouring threads ask for the same word and L1 merges
-// them, so HBM serves each word once), and picks its half — by e's parity —
-// when it reads the slot. The coefficient tensor starts on a 4-byte
-// boundary and an odd count is followed by one padding element (the
-// wrapper checks both), so every word lies inside its storage. Shared
-// memory stays T-wide; HBM bytes halve. K5 is bound by instructions per
-// thread and z-step, so the parity is kept to a few 32-bit operations.
-template <typename T, typename CT>
-struct RingCoef {
-  static __device__ __forceinline__ void fetch(T* slot, const CT* coef,
-                                               long long e) {
-    cp_async<sizeof(T)>(slot, coef + e);
-  }
-  static __device__ __forceinline__ T read(const T* slot, unsigned) {
-    return *slot;
-  }
-};
-
-template <typename T>
-struct RingCoef<T, __nv_bfloat16> {
-  static __device__ __forceinline__ void fetch(T* slot,
-                                               const __nv_bfloat16* coef,
-                                               long long e) {
-    cp_async<4>(slot, reinterpret_cast<const unsigned*>(coef) + (e >> 1));
-  }
-  // odd: e & 1. The bfloat16's two bytes become the float's high half.
-  static __device__ __forceinline__ T read(const T* slot, unsigned odd) {
-    const unsigned w = *reinterpret_cast<const unsigned*>(slot);
-    return static_cast<T>(
-        __uint_as_float(__byte_perm(w, 0u, 0x1044u + odd * 0x2200u)));
-  }
-};
-
-// Dynamic shared memory of one block: the double-buffered sweep planes
-// [2][max(NAPP, 1)][threads] and the ring [kPhaseStages][nstream][threads].
-template <typename T>
-size_t phase_smem_bytes(int napp, int threads, int nstream) {
-  return static_cast<size_t>(2 * (napp > 0 ? napp : 1) +
-                             kPhaseStages * nstream) *
-         threads * sizeof(T);
-}
-
-template <typename T, typename CT, int NAPP>
-__global__ void __launch_bounds__(kPhaseThreads,
-                                  (sizeof(T) == 4 && NAPP <= 2) ? 2 : 1)
-scalar_jacobi_phase_kernel(const CT* __restrict__ coef, const T* __restrict__ b,
-                           const T* __restrict__ u0, T* __restrict__ u_out,
-                           T* __restrict__ r_out, T omega, int init_zero,
-                           int nz, int ny, int nx, int tz) {
-  constexpr int BX = kPhaseBX, BY = kPhaseBY, NT = kPhaseThreads;
-  constexpr int S = kPhaseStages;
-  constexpr int NS = NAPP > 0 ? NAPP : 1;
-  extern __shared__ __align__(16) unsigned char phase_smem[];
-  T* sh = reinterpret_cast<T*>(phase_smem);  // [2][NS][NT]
-  T* ring = sh + 2 * NS * NT;                // [S][nstream][NT]
-  const int nstream = init_zero ? 8 : 9;     // 7 coef, b (, u0)
-  const int tx = threadIdx.x, ty = threadIdx.y, lt = ty * BX + tx;
-  const int gx = static_cast<int>(blockIdx.x) * (BX - 2 * NAPP) - NAPP + tx;
-  const int gy = static_cast<int>(blockIdx.y) * (BY - 2 * NAPP) - NAPP + ty;
-  const bool in_lat = gx >= 0 && gx < nx && gy >= 0 && gy < ny;
-  const bool owner = in_lat && tx >= NAPP && tx < BX - NAPP &&
-                     ty >= NAPP && ty < BY - NAPP;
-  const bool emit_residual = r_out != nullptr;
-  const long long plane = static_cast<long long>(ny) * nx;
-  const long long n = plane * nz;
-  const long long col = in_lat ? static_cast<long long>(gy) * nx + gx : 0;
-  const unsigned n_odd = static_cast<unsigned>(n) & 1u;
-  const unsigned plane_odd = static_cast<unsigned>(plane) & 1u;
-  const unsigned col_odd = static_cast<unsigned>(col) & 1u;
-  // lattice neighbours (else the term is skipped, as in K2); their values
-  // come from the tile, clamped at its edge (edge values are never used by
-  // an owner)
-  const bool xp = gx + 1 < nx, xm = gx > 0, yp = gy + 1 < ny, ym = gy > 0;
-  const int lxp = ty * BX + min(tx + 1, BX - 1);
-  const int lxm = ty * BX + max(tx - 1, 0);
-  const int lyp = min(ty + 1, BY - 1) * BX + tx;
-  const int lym = max(ty - 1, 0) * BX + tx;
-  const int z0 = static_cast<int>(blockIdx.z) * tz;
-  const int z1 = min(nz, z0 + tz);  // written planes [z0, z1)
-  const int zs = max(0, z0 - NAPP);  // loaded planes [zs, ze]
-  const int ze = min(nz - 1, z1 - 1 + NAPP);
-
-  // plane s's streams into ring slot (s - zs) % S: one commit group per
-  // plane (empty beyond ze or outside the lattice) keeps the count uniform
-  auto fetch = [&](int s) {
-    if (in_lat && s <= ze) {
-      const long long i = s * plane + col;
-      T* slot = ring + ((s - zs) % S) * nstream * NT + lt;
-#pragma unroll
-      for (int t = 0; t < 7; ++t)
-        RingCoef<T, CT>::fetch(slot + t * NT, coef, t * n + i);
-      cp_async<sizeof(T)>(slot + 7 * NT, b + i);
-      if (!init_zero) cp_async<sizeof(T)>(slot + 8 * NT, u0 + i);
-    }
-    cp_async_commit();
-  };
-
-  // Register rings of period P, indexed by plane: cf/bv/dv hold planes
-  // s - NAPP .. s (slot (plane - zs) % P), hist[j] sweep j's values on the
-  // same slots. The step loop is unrolled by P below, so every slot index
-  // is a constant and no ring is ever shifted.
-  constexpr int P = NAPP + 1 > 3 ? NAPP + 1 : 3;
-  T cf[P][7], bv[P], dv[P];
-  T hist[NS][P];
-#pragma unroll
-  for (int m = 0; m < P; ++m) {
-#pragma unroll
-    for (int t = 0; t < 7; ++t) cf[m][t] = T(0);
-    bv[m] = dv[m] = T(0);
-#pragma unroll
-    for (int j = 0; j < NS; ++j) hist[j][m] = T(0);
-  }
-#pragma unroll
-  for (int q = 0; q < S; ++q) fetch(zs + q);
-
-  const int s_end = ze + NAPP;
-  for (int s0 = zs; s0 <= s_end; s0 += P) {
-#pragma unroll
-    for (int r = 0; r < P; ++r) {  // r = (s - zs) % P
-      const int s = s0 + r;
-      if (s > s_end) break;
-      const int q = s - zs;
-      const T* sh_r = sh + ((q + 1) & 1) * NS * NT;  // the previous step's
-      T* sh_w = sh + (q & 1) * NS * NT;
-      T v0 = T(0);  // sweep 0 (the start) on plane s
-      if (s <= ze) {
-        cp_async_wait<S - 1>();  // this thread's copies of plane s landed
-        T nu = T(0);
-        if (in_lat) {
-          const T* slot = ring + (q % S) * nstream * NT + lt;
-#pragma unroll
-          for (int t = 0; t < 7; ++t)  // parity of t * n + s * plane + col
-            cf[r][t] = RingCoef<T, CT>::read(
-                slot + t * NT,
-                ((t & n_odd) ^ (static_cast<unsigned>(s) & plane_odd) ^
-                 col_odd) & 1u);
-          bv[r] = slot[7 * NT];
-          if (!init_zero) nu = slot[8 * NT];
-        } else {
-#pragma unroll
-          for (int t = 0; t < 7; ++t) cf[r][t] = T(0);
-          bv[r] = T(0);
-        }
-        dv[r] = cf[r][0] != T(0) ? T(1) / cf[r][0] : T(0);
-        v0 = init_zero ? omega * bv[r] * dv[r] : nu;
-      } else {
-#pragma unroll
-        for (int t = 0; t < 7; ++t) cf[r][t] = T(0);
-        bv[r] = dv[r] = T(0);
-      }
-      hist[0][r] = v0;
-      if (NAPP == 0 && owner && s >= z0 && s < z1)
-        u_out[s * plane + col] = v0;
-#pragma unroll
-      for (int k = 1; k <= NAPP; ++k) {
-        const int p = s - k;            // sweep k's plane this step
-        const int m = (r - k + 2 * P) % P;  // its slot (a constant)
-        // the four in-plane neighbours, read unconditionally (every index
-        // lies in the tile) so that the skips below predicate the FMAs
-        // instead of branching around the loads
-        const T* prev = sh_r + (k - 1) * NT;
-        const T vxp = prev[lxp], vxm = prev[lxm], vyp = prev[lyp],
-                vym = prev[lym];
-        T val = T(0);
-        if (in_lat && p >= zs && p <= ze) {
-          const T c = hist[k - 1][m];
-          T acc = T(0);
-          acc += cf[m][0] * c;
-          if (xp) acc += cf[m][1] * vxp;
-          if (xm) acc += cf[m][2] * vxm;
-          if (yp) acc += cf[m][3] * vyp;
-          if (ym) acc += cf[m][4] * vym;
-          if (p + 1 < nz) acc += cf[m][5] * hist[k - 1][(m + 1) % P];
-          if (p > 0) acc += cf[m][6] * hist[k - 1][(m + P - 1) % P];
-          const T res = bv[m] - acc;
-          val = (emit_residual && k == NAPP) ? res : c + omega * res * dv[m];
-          if (k == NAPP && owner && p >= z0 && p < z1) {
-            const long long i = p * plane + col;
-            if (emit_residual) {
-              u_out[i] = c;
-              r_out[i] = res;
-            } else {
-              u_out[i] = val;
-            }
-          }
-        }
-        if (k < NAPP) hist[k][m] = val;
-      }
-#pragma unroll
-      for (int j = 0; j < NAPP; ++j)
-        sh_w[j * NT + lt] = hist[j][(r - j + 2 * P) % P];
-      // sh_w is complete for the next step, every read of sh_r and of ring
-      // slot q % S is done: the slot may be refilled
-      __syncthreads();
-      fetch(s + S);
-    }
-  }
-}
-
-int multiprocessors() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (count <= 0) count = 1;
-  }
-  return count;
-}
-
-// Resident blocks per SM of one instantiation at its shared-memory size
-// (0: it cannot launch). Raises the dynamic shared-memory limit first.
-template <typename T, typename CT, int NAPP>
-int phase_blocks_per_sm(int nstream) {
-  static int cached[2] = {-1, -1};  // nstream 8, 9
-  int& c = cached[nstream - 8];
-  if (c < 0) {
-    auto kern = scalar_jacobi_phase_kernel<T, CT, NAPP>;
-    const size_t most = phase_smem_bytes<T>(NAPP, kPhaseThreads, 9);
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(most));
-    int blocks = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, kern, kPhaseThreads,
-            phase_smem_bytes<T>(NAPP, kPhaseThreads, nstream)) != cudaSuccess)
-      blocks = 0;
-    cudaGetLastError();  // a refused query leaves no sticky error
-    c = blocks;
-  }
-  return c;
-}
-
-// Cells loaded along one axis of length len by tiles owning `own` cells
-// with `halo` more on each side, clipped to the lattice.
-long long loaded_extent(int len, int own, int halo) {
-  long long total = 0;
-  for (int t0 = 0; t0 < len; t0 += own)
-    total += min(len, t0 + own + halo) - max(0, t0 - halo);
-  return total;
-}
-
-struct PhasePlan {
-  int tz = 0;
-  long long blocks = 0;
-  int per_sm = 0;  // resident blocks per SM
-};
-
-// The chunk depth tz of a phase launch on this lattice: the least of the
-// larger of (a) the busiest SM's thread-steps (blocks per SM x threads x
-// serial steps tz + 3 NAPP) times what one costs and (b) the halo-amplified
-// bytes over the HBM rate of the SMs in use. (a) is what the card measured
-// (scripts/k5_tiling_probe.py): the kernel executes ~200 instructions per
-// thread and step, so a step costs ~kPhaseStepNs32 per thread-step on an SM
-// holding >= 32 warps and ~kPhaseStepNs16 with fewer to hide latency.
-// Cached per shape (a V-cycle asks for the same few again and again).
-template <typename T, typename CT, int NAPP>
-PhasePlan choose_phase_plan(int init_zero, int residual, int nz, int ny,
-                            int nx) {
-  struct Entry {
-    int key[5];
-    PhasePlan plan;
-  };
-  static Entry cache[32];
-  static int used = 0, next = 0;
-  const int key[5] = {init_zero, residual, nz, ny, nx};
-  for (int e = 0; e < used; ++e) {
-    bool same = true;
-    for (int q = 0; q < 5; ++q) same = same && cache[e].key[q] == key[q];
-    if (same) return cache[e].plan;
-  }
-  const int nstream = init_zero ? 8 : 9;
-  const int nout = residual ? 2 : 1;
-  const int per_sm = max(1, phase_blocks_per_sm<T, CT, NAPP>(nstream));
-  constexpr int TX = kPhaseBX - 2 * NAPP, TY = kPhaseBY - 2 * NAPP;
-  const long long tiles =
-      static_cast<long long>((nx + TX - 1) / TX) * ((ny + TY - 1) / TY);
-  const double cols = static_cast<double>(loaded_extent(nx, TX, NAPP)) *
-                      static_cast<double>(loaded_extent(ny, TY, NAPP));
-  const double n = static_cast<double>(nz) * ny * nx;
-  const int sms = multiprocessors();
-  PhasePlan best;
-  best.per_sm = per_sm;
-  double best_cost = 0.0;
-  for (int t = 1; t <= nz; ++t) {
-    long long planes = 0;
-    int steps = 0;
-    for (int z0 = 0; z0 < nz; z0 += t) {
-      const int l = min(nz, z0 + t + NAPP) - max(0, z0 - NAPP);
-      planes += l;
-      steps = max(steps, l + NAPP);
-    }
-    const long long blocks = tiles * ((nz + t - 1) / t);
-    const long long per_sm_load = (blocks + sms - 1) / sms;
-    const int warps =
-        static_cast<int>(per_sm_load < per_sm ? per_sm_load : per_sm) *
-        kPhaseThreads / 32;
-    const double step_ns = warps >= 32 ? kPhaseStepNs32 : kPhaseStepNs16;
-    const double busy = min(1.0, static_cast<double>(blocks) / sms);
-    const double bytes =
-        cols * planes * (7 * sizeof(CT) + (nstream - 7) * sizeof(T)) +
-        n * nout * sizeof(T);
-    const double cost =
-        max(per_sm_load * kPhaseThreads * steps * step_ns,
-            bytes / (kHbmBytesPerNs * busy));
-    if (best.tz == 0 || cost < best_cost) {
-      best.tz = t;
-      best.blocks = blocks;
-      best_cost = cost;
-    }
-  }
-  Entry& slot = cache[next];
-  next = (next + 1) % 32;
-  if (used < 32) ++used;
-  for (int q = 0; q < 5; ++q) slot.key[q] = key[q];
-  slot.plan = best;
-  return best;
-}
-
-// tz: the z-chunk depth; 0 lets the planner choose (the tests pin it to
-// reach ragged chunkings).
-template <typename T, typename CT, int NAPP>
-int launch_phase_depth(const CT* coef, const T* b, const T* u0, T* u_out,
-                       T* r_out, double omega, int init_zero, int nz, int ny,
-                       int nx, int tz, void* stream) {
-  constexpr int TX = kPhaseBX - 2 * NAPP, TY = kPhaseBY - 2 * NAPP;
-  const int nstream = init_zero ? 8 : 9;
-  if (tz == 0)
-    tz = choose_phase_plan<T, CT, NAPP>(init_zero, r_out != nullptr, nz, ny,
-                                        nx)
-             .tz;
-  if (tz < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (phase_blocks_per_sm<T, CT, NAPP>(nstream) <= 0)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + tz - 1) / tz);
-  const dim3 block(kPhaseBX, kPhaseBY);
-  scalar_jacobi_phase_kernel<T, CT, NAPP>
-      <<<grid, block, phase_smem_bytes<T>(NAPP, kPhaseThreads, nstream),
-         static_cast<cudaStream_t>(stream)>>>(
-          coef, b, u0, u_out, r_out, static_cast<T>(omega), init_zero, nz,
-          ny, nx, tz);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int phase_depth(int n_sweep, int init_zero, int residual) {
-  return (init_zero ? n_sweep - 1 : n_sweep) + (residual ? 1 : 0);
-}
-
-template <typename T, typename CT>
-int launch_phase(const CT* coef, const T* b, const T* u0, T* u_out, T* r_out,
-                 double omega, int n_sweep, int init_zero, int nz, int ny,
-                 int nx, int tz, void* stream) {
-  const int napp = phase_depth(n_sweep, init_zero, r_out != nullptr);
-  if (napp < 0 || napp > kPhaseMaxDepth)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(nz) * ny * nx == 0) return 0;
-  switch (napp) {
-    case 0: return launch_phase_depth<T, CT, 0>(coef, b, u0, u_out, r_out, omega,
-                                            init_zero, nz, ny, nx, tz, stream);
-    case 1: return launch_phase_depth<T, CT, 1>(coef, b, u0, u_out, r_out, omega,
-                                            init_zero, nz, ny, nx, tz, stream);
-    case 2: return launch_phase_depth<T, CT, 2>(coef, b, u0, u_out, r_out, omega,
-                                            init_zero, nz, ny, nx, tz, stream);
-    case 3: return launch_phase_depth<T, CT, 3>(coef, b, u0, u_out, r_out, omega,
-                                            init_zero, nz, ny, nx, tz, stream);
-    case 4: return launch_phase_depth<T, CT, 4>(coef, b, u0, u_out, r_out, omega,
-                                            init_zero, nz, ny, nx, tz, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The planner's (tz, blocks, resident blocks per SM) for a phase launch.
-template <typename T, typename CT>
-int plan_phase(int n_sweep, int init_zero, int residual, int nz, int ny,
-               int nx, int* out) {
-  const int napp = phase_depth(n_sweep, init_zero, residual);
-  PhasePlan p;
-  switch (napp) {
-    case 0: p = choose_phase_plan<T, CT, 0>(init_zero, residual, nz, ny, nx); break;
-    case 1: p = choose_phase_plan<T, CT, 1>(init_zero, residual, nz, ny, nx); break;
-    case 2: p = choose_phase_plan<T, CT, 2>(init_zero, residual, nz, ny, nx); break;
-    case 3: p = choose_phase_plan<T, CT, 3>(init_zero, residual, nz, ny, nx); break;
-    case 4: p = choose_phase_plan<T, CT, 4>(init_zero, residual, nz, ny, nx); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  out[0] = p.tz;
-  out[1] = static_cast<int>(p.blocks);
-  out[2] = p.per_sm;
-  return 0;
-}
-
 template <typename T, typename CT>
 int launch_chebyshev(const CT* coef, const T* b, const T* u, const T* d,
                      const T* steps, T* u_out, T* d_out, int step, int mode,
@@ -1073,33 +603,6 @@ int jt_scalar_chebyshev_f64(const double* coef, const double* b,
                                   mode, nz, ny, nx, stream);
 }
 
-int jt_scalar_jacobi_phase_f32(const float* coef, const float* b,
-                               const float* u0, float* u_out, float* r_out,
-                               double omega, int n_sweep, int init_zero,
-                               int nz, int ny, int nx, int tz, void* stream) {
-  return launch_phase<float, float>(coef, b, u0, u_out, r_out, omega, n_sweep,
-                             init_zero, nz, ny, nx, tz, stream);
-}
-
-int jt_scalar_jacobi_phase_f64(const double* coef, const double* b,
-                               const double* u0, double* u_out, double* r_out,
-                               double omega, int n_sweep, int init_zero,
-                               int nz, int ny, int nx, int tz, void* stream) {
-  return launch_phase<double, double>(coef, b, u0, u_out, r_out, omega, n_sweep,
-                              init_zero, nz, ny, nx, tz, stream);
-}
-
-// out[3] = (chunk depth, blocks, resident blocks per SM) of a phase's plan.
-int jt_scalar_jacobi_phase_plan_f32(int n_sweep, int init_zero, int residual,
-                                    int nz, int ny, int nx, int* out) {
-  return plan_phase<float, float>(n_sweep, init_zero, residual, nz, ny, nx, out);
-}
-
-int jt_scalar_jacobi_phase_plan_f64(int n_sweep, int init_zero, int residual,
-                                    int nz, int ny, int nx, int* out) {
-  return plan_phase<double, double>(n_sweep, init_zero, residual, nz, ny, nx, out);
-}
-
 // The same kernels with bfloat16 coefficients and float32 vectors.
 int jt_stencil_matvec_bf16c_f32(const __nv_bfloat16* coef, const float* x,
                                 float* y, int C, int K, int nz, int ny,
@@ -1123,23 +626,6 @@ int jt_scalar_chebyshev_bf16c_f32(const __nv_bfloat16* coef, const float* b,
                                   int ny, int nx, void* stream) {
   return launch_chebyshev<float, __nv_bfloat16>(
       coef, b, u, d, steps, u_out, d_out, step, mode, nz, ny, nx, stream);
-}
-
-int jt_scalar_jacobi_phase_bf16c_f32(const __nv_bfloat16* coef, const float* b,
-                                     const float* u0, float* u_out,
-                                     float* r_out, double omega, int n_sweep,
-                                     int init_zero, int nz, int ny, int nx,
-                                     int tz, void* stream) {
-  return launch_phase<float, __nv_bfloat16>(coef, b, u0, u_out, r_out, omega,
-                                            n_sweep, init_zero, nz, ny, nx, tz,
-                                            stream);
-}
-
-int jt_scalar_jacobi_phase_plan_bf16c_f32(int n_sweep, int init_zero,
-                                          int residual, int nz, int ny, int nx,
-                                          int* out) {
-  return plan_phase<float, __nv_bfloat16>(n_sweep, init_zero, residual, nz, ny,
-                                          nx, out);
 }
 
 }  // extern "C"

@@ -15,7 +15,6 @@ from .stencil_kernels import (  # noqa: F401
     scalar_chebyshev,
     scalar_chebyshev_resident,
     scalar_jacobi,
-    scalar_jacobi_phase,
     scalar_jacobi_slab,
     scalar_sweeps_resident,
     stencil_matvec,
@@ -27,20 +26,17 @@ KERNELS = {
     "darcy_flux_jacobian": darcy_flux_jacobian,
     "darcy_flux_jacobian_lattice": darcy_flux_jacobian_lattice,
     "scalar_chebyshev": scalar_chebyshev,
-    "scalar_jacobi_phase": scalar_jacobi_phase,
     "fused_alpha_s": fused_alpha_s,
     "fused_omega_update": fused_omega_update,
     "scalar_sweeps_resident": scalar_sweeps_resident,
     "scalar_chebyshev_resident": scalar_chebyshev_resident,
     "scalar_jacobi_slab": scalar_jacobi_slab,
 }
-# the bfloat16-coefficient entries of K1, K2, K4, K5, K8, K9 and K10 count
-# apart
+# the bfloat16-coefficient entries of K1, K2, K4, K8, K9 and K10 count apart
 KERNELS_BF16C = {
     "stencil_matvec_bf16c": stencil_matvec,
     "scalar_jacobi_bf16c": scalar_jacobi,
     "scalar_chebyshev_bf16c": scalar_chebyshev,
-    "scalar_jacobi_phase_bf16c": scalar_jacobi_phase,
     "scalar_sweeps_resident_bf16c": scalar_sweeps_resident,
     "scalar_chebyshev_resident_bf16c": scalar_chebyshev_resident,
     "scalar_jacobi_slab_bf16c": scalar_jacobi_slab,

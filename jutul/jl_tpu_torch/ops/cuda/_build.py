@@ -41,9 +41,6 @@ _SIGNATURES = {
                             _P],
     "jt_darcy_flux_jacobian": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "jt_darcy_flux_jacobian_lattice": [_P] * 10 + [_I, _I, _I, _P, _P],
-    "jt_scalar_jacobi_phase": [_P, _P, _P, _P, _P, _D, _I, _I, _I, _I, _I,
-                               _I, _P],
-    "jt_scalar_jacobi_phase_plan": [_I, _I, _I, _I, _I, _I, _P],
     "jt_fused_alpha_s": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "jt_fused_omega_update": [_P] * 15 + [_I, _I, _P],
     "jt_scalar_sweeps_resident": [_P] * 7 + [_D] + [_I] * 9 + [_P],
@@ -55,7 +52,6 @@ _SIGNATURES = {
 
 # entries that also exist with bfloat16 coefficients and float32 vectors
 _BF16C = ("jt_stencil_matvec", "jt_scalar_jacobi", "jt_scalar_chebyshev",
-          "jt_scalar_jacobi_phase", "jt_scalar_jacobi_phase_plan",
           "jt_scalar_sweeps_resident", "jt_scalar_chebyshev_resident",
           "jt_level_resident_props", "jt_scalar_jacobi_slab")
 

@@ -1,7 +1,7 @@
 """Stencil kernels K1 (block-stencil SpMV), K2 (scalar Jacobi pass), K4
-(scalar Chebyshev step), K5 (a whole scalar Jacobi smoothing phase), K8/K9
-(a whole GMG level's Jacobi / Chebyshev phase held on chip) and K10 (a
-whole Jacobi phase of a large level, tiled and marched in z).
+(scalar Chebyshev step), K8/K9 (a whole GMG level's Jacobi / Chebyshev
+phase held on chip) and K10 (a whole Jacobi phase of a large level, tiled
+and marched in z).
 
 Wrappers around ``csrc/stencil_kernels.cu``, ``csrc/level_kernels.cu`` and
 ``csrc/slab_kernels.cu``,
@@ -30,17 +30,6 @@ fallback.
   step of the Chebyshev recurrence on a scalar stencil, per-step scalars
   read from a small device table. Bound by HBM bytes as K2 (plus the
   direction vector d in and out); one launch per step.
-- K5 ``scalar_jacobi_phase`` replaces ``_kernel_slab_sweeps_db`` (B8, the
-  double-buffered deep-halo slab kernel): a whole weighted-Jacobi phase
-  (up to ``PHASE_MAX_DEPTH`` stencil applications: the sweeps from zero
-  or from u, plus an optional residual) in one launch, by 2.5-D
-  z-marching with a register wavefront, so the coefficients stream once
-  per phase. A ring of plane stages in shared memory, filled by
-  ``cp.async`` several planes ahead, hides the per-step HBM latency, and
-  the z-chunk depth is chosen per level (``phase_plan``) for the least
-  work on the busiest SM. Its plain version is K2's plain loop; it keeps K2's per-cell
-  arithmetic. ``ScalarLevel(phase_kernel=True)`` runs its Jacobi hooks on
-  it (``GMG.slab_double_buffer``) on the levels K8 does not hold.
 - K8 ``scalar_sweeps_resident`` replaces ``_kernel_sweeps`` (B3) and K9
   ``scalar_chebyshev_resident`` replaces ``_kernel_sweeps_cheby`` (B6): a
   whole level's Jacobi (K2's arithmetic) or Chebyshev (K4's) phase, with
@@ -53,17 +42,20 @@ fallback.
   those chains' plain loops. ``ScalarLevel`` routes the coarse solve to
   the cluster form (``RESIDENT_HOOKS``), as the JAX package routes every
   level whose streams fit VMEM to B3/B6 (``scalar_level_ops``).
-- K10 ``scalar_jacobi_slab`` replaces ``_kernel_slab_sweeps`` (B2): a
-  whole weighted-Jacobi phase (up to ``SLAB_MAX_DEPTH`` applications) in
-  one launch on a level of at least ``SLAB_MIN_CELLS`` cells, the JAX
-  package's slab level. Bound by the bytes its CTAs load (halos
-  included) and its z-steps: a thread owns V cells of a lattice row, a
-  CTA an xy tile and a z-chunk, marched as a wavefront with each plane's
-  streams copied into shared rings ahead of the sweeps; the outer halo
-  loads only its first sweep's inputs (``slab_plan`` picks the tile per
-  level). Its
-  plain version is K5's (K2's plain loop); it keeps K2's per-cell
-  arithmetic, so it equals the K2 chain bit for bit.
+- K10 ``scalar_jacobi_slab`` replaces ``_kernel_slab_sweeps`` (B2) and
+  ``_kernel_slab_sweeps_db`` (B8): a whole weighted-Jacobi phase (up to
+  ``SLAB_MAX_DEPTH`` applications) in one launch on a level of at least
+  ``SLAB_MIN_CELLS`` cells, the JAX package's slab level. B2 and B8 are
+  one function (``_slab_jacobi_compute``) under two DMA schedules; B8
+  starts the next slab's copies before the current slab's sweeps, which
+  K10's plane rings do for every launch, so ``GMG.slab_double_buffer``
+  changes no route. Bound by the bytes its CTAs load (halos included) and
+  its z-steps: a thread owns V cells of a lattice row, a CTA an xy tile
+  and a z-chunk, marched as a wavefront with each plane's streams copied
+  into shared rings ahead of the sweeps; the outer halo loads only its
+  first sweep's inputs (``slab_plan`` picks the tile per level). Its plain
+  version is K2's plain loop (``scalar_jacobi_phase_plain``); it keeps
+  K2's per-cell arithmetic, so it equals the K2 chain bit for bit.
 
 Coefficient dtype (replaces the ``coef_dtype=bfloat16`` form of B1-B4 and
 B6-B8, jutul/jl_tpu/ops/pallas/stencil_kernels.py:177-231, :323, :819,
@@ -122,13 +114,11 @@ def _require(t, like, name):
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
-def _coef_entry(coef, like, name, word_reads=False):
+def _coef_entry(coef, like, name):
     """The CUDA entry's suffix for coefficients ``coef`` with vectors like
     ``like``: the pair (coefficient dtype, vector dtype) must be (T, T) or
     (bfloat16, float32); ``coef`` contiguous on ``like``'s device.
-    ``word_reads``: the kernel reads bfloat16 coefficients as aligned 4-byte
-    words (K5), so an odd count needs its padding element (``embed`` gives
-    one). Returns (suffix, counts as bfloat16)."""
+    Returns (suffix, counts as bfloat16)."""
     if coef.dtype != torch.bfloat16:
         _require(coef, like, name)
         return dtype_suffix(like), False
@@ -140,15 +130,6 @@ def _coef_entry(coef, like, name, word_reads=False):
             f"{name}: the CUDA kernels take bfloat16 coefficients with "
             f"float32 vectors only, got {like.dtype} vectors (the plain "
             "versions take float64 too)")
-    if coef.data_ptr() % 4:
-        raise ValueError(f"{name}: bfloat16 coefficients must start on a "
-                         "4-byte boundary")
-    if word_reads and coef.numel() % 2 and \
-            coef.untyped_storage().nbytes() < \
-            2 * (coef.storage_offset() + coef.numel() + 1):
-        raise ValueError(f"{name}: an odd number of bfloat16 coefficients "
-                         "needs one padding element after it in its "
-                         "storage (embed(A, torch.bfloat16) allocates it)")
     return "bf16c_f32", True
 
 
@@ -285,13 +266,8 @@ def embed(A, coef_dtype=None):
         plus = {a: v[None, None] for a, v in A.plus.items()}
         minus = {a: v[None, None] for a, v in A.minus.items()}
     coef = lattice_coefficients(tuple(A.L), diag, plus, minus)
-    if coef_dtype is not None and coef_dtype != coef.dtype:
-        # an even number of elements in the storage: K5 reads bfloat16
-        # coefficients as 4-byte words, the last one may hold a padding half
-        n = coef.numel()
-        buf = torch.zeros(n + n % 2, dtype=coef_dtype, device=coef.device)
-        buf[:n] = coef.reshape(-1)
-        coef = buf[:n].view(coef.shape)
+    if coef_dtype is not None:
+        coef = coef.to(coef_dtype)
     return C, K, coef
 
 
@@ -364,11 +340,8 @@ scalar_jacobi.launches = scalar_jacobi.launches_bf16c = 0
 
 
 # ---------------------------------------------------------------------------
-# K5: a whole weighted-Jacobi smoothing phase on a scalar stencil
+# A whole weighted-Jacobi phase: the plain version K8 and K10 share
 # ---------------------------------------------------------------------------
-PHASE_MAX_DEPTH = 4  # stencil applications per K5 launch (csrc kPhaseMaxDepth)
-
-
 def _phase_depth(u, n_sweep: int, emit_residual: bool) -> int:
     """Stencil applications of a phase: the sweeps (the first one from
     zero is elementwise) plus the residual."""
@@ -377,7 +350,7 @@ def _phase_depth(u, n_sweep: int, emit_residual: bool) -> int:
 
 def scalar_jacobi_phase_plain(coef, b, u, omega: float, n_sweep: int,
                               emit_residual: bool, L):
-    """Plain version of K5: K2's plain loop — ``n_sweep`` weighted-Jacobi
+    """A Jacobi phase as K2's plain loop: ``n_sweep`` weighted-Jacobi
     sweeps from ``u`` (None: from zero, the first sweep ``omega*b*dinv``),
     then the residual ``b - A u`` if asked. Returns (u, r or None)."""
     coef = _wide(coef, b)
@@ -389,75 +362,6 @@ def scalar_jacobi_phase_plain(coef, b, u, omega: float, n_sweep: int,
     r = scalar_jacobi_plain(coef, b, u, 0.0, MODE_RESIDUAL, L) \
         if emit_residual else None
     return u, r
-
-
-def scalar_jacobi_phase(coef, b, u, omega: float, n_sweep: int,
-                        emit_residual: bool, L):
-    """K5 wrapper: one smoothing phase (see ``scalar_jacobi_phase_plain``)
-    of at most ``PHASE_MAX_DEPTH`` stencil applications. Returns
-    (u, r or None)."""
-    if _is_cpu(b):
-        return scalar_jacobi_phase_plain(coef, b, u, omega, n_sweep,
-                                         emit_residual, L)
-    return _launch_phase(coef, b, u, omega, n_sweep, emit_residual, L)
-
-
-def _launch_phase(coef, b, u, omega, n_sweep, emit_residual, L, tz=0):
-    """K5's launch on CUDA tensors. ``tz`` pins the z-chunk depth the
-    kernel's planner otherwise picks (0): the card tests use it to reach
-    ragged chunkings."""
-    nz, ny, nx = L
-    n = nz * ny * nx
-    depth = _phase_depth(u, n_sweep, emit_residual)
-    if not 0 <= depth <= PHASE_MAX_DEPTH:
-        raise ValueError(f"scalar_jacobi_phase: {depth} stencil applications "
-                         f"(n_sweep={n_sweep}, residual={emit_residual}); "
-                         f"one launch takes 0..{PHASE_MAX_DEPTH}")
-    b = b.contiguous()
-    entry, narrow = _coef_entry(coef, b, "scalar_jacobi_phase coef",
-                                word_reads=True)
-    if b.shape != (n,) or coef.shape != (TERMS, 1, n):
-        raise ValueError(f"scalar_jacobi_phase: bad shapes b {tuple(b.shape)},"
-                         f" coef {tuple(coef.shape)} for L={L}")
-    u_ptr = None
-    if u is not None:
-        u = u.contiguous()
-        _require(u, b, "scalar_jacobi_phase u")
-        if u.shape != (n,):
-            raise ValueError(f"scalar_jacobi_phase: bad shape u "
-                             f"{tuple(u.shape)}")
-        u_ptr = u.data_ptr()
-    u_out = torch.empty_like(b)
-    r_out = torch.empty_like(b) if emit_residual else None
-    lib = load_library()
-    check(lib.fn("jt_scalar_jacobi_phase", entry)(
-        coef.data_ptr(), b.data_ptr(), u_ptr, u_out.data_ptr(),
-        None if r_out is None else r_out.data_ptr(), float(omega),
-        int(n_sweep), int(u is None), nz, ny, nx, int(tz), stream_handle()),
-        "scalar_jacobi_phase")
-    _count(scalar_jacobi_phase, narrow)
-    return u_out, r_out
-
-
-def phase_plan(dtype, n_sweep: int, from_zero: bool, emit_residual: bool, L,
-               coef_dtype=None):
-    """(z-chunk depth tz, blocks, resident blocks per SM) of the plan K5's
-    planner picks for a phase on the card (csrc ``choose_phase_plan``), for
-    reports. ``coef_dtype=torch.bfloat16``: the bfloat16-coefficient entry's
-    plan (float32 vectors)."""
-    out = (ctypes.c_int * 3)()
-    suffix = dtype_suffix(torch.empty(0, dtype=dtype))
-    if coef_dtype == torch.bfloat16:
-        if dtype != torch.float32:
-            raise TypeError("bfloat16 coefficients: float32 vectors only")
-        suffix = "bf16c_f32"
-    check(load_library().fn("jt_scalar_jacobi_phase_plan", suffix)(
-        int(n_sweep), int(from_zero), int(emit_residual), *L,
-        ctypes.cast(out, ctypes.c_void_p)), "phase_plan")
-    return tuple(out)
-
-
-scalar_jacobi_phase.launches = scalar_jacobi_phase.launches_bf16c = 0
 
 
 # ---------------------------------------------------------------------------
@@ -551,8 +455,10 @@ H100_PROPS = {"sms": 132, "max_cluster": 16, "grid_ctas_per_sm": 1}
 # L2 in the grid form), so it wins where it replaces many launches — the
 # coarse solve's 12 sweeps — and not at the V-cycle's 2 sweeps, whose
 # chains of 2-3 launches were as fast or faster. A hook set False takes the
-# level's next route (``level_route``: K10 on the mid level, K5, or the
-# chain). The mid level is the JAX package's slab level (B2), not B3's.
+# level's next route (``level_route``: K10 on the mid level, or the chain).
+# The JAX package runs the mid level on B3 (its streams fit VMEM); the port
+# runs its Jacobi phases on K10, faster there than K8's grid form (graph ms
+# 0.0064 / 0.0063 against 0.0076 / 0.0072, PERF.md §6).
 RESIDENT_HOOKS = {
     "cluster": {"sweep_n": True, "presmooth_residual": False,
                 "postsmooth": False, "sweep_n_cheby": True,
@@ -775,8 +681,10 @@ SLAB_THREADS = 512  # threads per CTA at most (kSlabThreads)
 SLAB_MAX_SMEM = 227 * 1024  # dynamic shared memory per CTA (kSlabMaxSmem)
 SLAB_SM_SMEM = 228 * 1024  # shared memory of one SM
 SLAB_PREFETCH = 1  # planes copied ahead (csrc kSlabPrefetch)
-# The JAX package's slab threshold (``scalar_level_ops``' ``min_cells``):
-# ScalarLevel routes a level of at least this many cells to K10.
+# The JAX package's slab threshold (``scalar_level_ops``' ``min_cells``; it
+# takes B2, or B8, only where a level's streams also miss VMEM: the
+# flagship's fine level). ScalarLevel routes every level of at least this
+# many cells to K10: the fine and the mid level.
 SLAB_MIN_CELLS = 65536
 # The planner's cost model (``slab_plan``), fitted to K10's times over a
 # grid of tiles on both flagship levels (scripts/slab_sweeps_probe.py,
@@ -934,7 +842,6 @@ def slab_plan(L, dtype, coef_dtype, napp: int, from_u: bool,
 
 # Plain version of K10: K2's plain loop, ``n_sweep`` weighted-Jacobi sweeps
 # from ``u`` (None: from zero) and the residual if asked -> (u, r or None).
-# K10 computes K5's function, so K5's plain version serves.
 scalar_jacobi_slab_plain = scalar_jacobi_phase_plain
 
 
@@ -971,11 +878,12 @@ def scalar_jacobi_slab(coef, b, u, omega: float, n_sweep: int,
     r_out = torch.empty_like(b) if emit_residual else None
     if plan is None:
         # V cells a thread copy 16 bytes of a vector stream at once (V
-        # coefficients): every stream aligned alike, or V = 1
-        vecs = [t for t in (b, u, u_out, r_out) if t is not None]
-        aligned = all(t.data_ptr() % 16 == 0 for t in vecs) and \
-            coef.data_ptr() % (16 // b.element_size() *
-                               coef.element_size()) == 0
+        # coefficients): every stream aligned alike, or V = 1. The pointers
+        # are OR-ed: this test runs on every launch of the eager main path
+        ptrs = b.data_ptr() | u_out.data_ptr() | (u_ptr or 0) | \
+            (0 if r_out is None else r_out.data_ptr())
+        aligned = ptrs % 16 == 0 and coef.data_ptr() % (
+            16 // b.element_size() * coef.element_size()) == 0
         plan = _slab_launch_plan(tuple(L), b.dtype, coef.dtype, napp,
                                  u is not None, aligned, b.device)
     vec, ox, oy, tz = plan
@@ -1029,23 +937,21 @@ def phase_chunks(n_sweep: int, from_zero: bool, emit_residual: bool,
 
 
 def level_route(L, hook: str, dtype, coef_dtype, props,
-                phase_kernel: bool = False, resident: bool = True,
-                slab: bool = True, depth: int = 2) -> str:
+                resident: bool = True, slab: bool = True,
+                depth: int = 2) -> str:
     """Where ``ScalarLevel`` runs ``hook`` on a level of lattice ``L`` with
     vectors of ``dtype`` and coefficients of ``coef_dtype`` on a card with
     ``props``: "resident" (one K8/K9 launch: ``resident_plan`` holds the
     level and ``RESIDENT_HOOKS`` marks the hook), else for the Jacobi hooks
-    "phase" (K5 launches, with ``phase_kernel``), "slab" (K10 launches: at
-    least ``SLAB_MIN_CELLS`` cells and a tile of ``depth`` applications from
-    u that fits), else "chain" (single K2 / K4 passes). A pure function of
-    its arguments; ``resident=False`` and ``slab=False`` keep the chains."""
+    "slab" (K10 launches: at least ``SLAB_MIN_CELLS`` cells and a tile of
+    ``depth`` applications from u that fits), else "chain" (single K2 / K4
+    passes). A pure function of its arguments; ``resident=False`` and
+    ``slab=False`` keep the chains."""
     plan = resident_plan(L, dtype, coef_dtype, props) if resident else None
     if plan is not None and RESIDENT_HOOKS[plan[0]][hook]:
         return "resident"
     if hook.endswith("_cheby"):
         return "chain"
-    if phase_kernel:
-        return "phase"
     if slab and int(np.prod(L)) >= SLAB_MIN_CELLS and slab_plan(
             L, dtype, coef_dtype, depth, True, props) is not None:
         return "slab"
@@ -1053,27 +959,25 @@ def level_route(L, hook: str, dtype, coef_dtype, props,
 
 
 class ScalarLevel:
-    """GMG level ops for a ScalarStencil through K8/K9, K10, K2, K4 and K5 —
-    the JAX package's level interface (``smooth0``/``smooth``/``residual``,
-    the fused Jacobi phase hooks ``presmooth_residual``/``postsmooth``/
+    """GMG level ops for a ScalarStencil through K8/K9, K10, K2 and K4 — the
+    JAX package's level interface (``smooth0``/``smooth``/``residual``, the
+    fused Jacobi phase hooks ``presmooth_residual``/``postsmooth``/
     ``sweep_n`` and their Chebyshev variants ``*_cheby``).
 
     Each hook runs where ``level_route`` sends it, as the JAX package's
     ``scalar_level_ops`` picks a level's kernels: a level that K8/K9 can
     hold (``resident_plan``, with ``resident``) runs each hook that
     ``RESIDENT_HOOKS`` marks — the coarse solve — as one K8 (Jacobi) or K9
-    (Chebyshev) launch, whatever ``phase_kernel`` says (B3/B6 take every
-    level whose streams fit VMEM). Otherwise, with ``phase_kernel``
-    (``GMG.slab_double_buffer``, the reference's B8) the Jacobi hooks run
-    as K5 launches of whole phases; on a level of at least
-    ``SLAB_MIN_CELLS`` cells (with ``slab``; the reference's B2 level, the
-    fine and mid levels of the flagship) as K10 launches of whole phases;
-    either chunked to ``depth`` stencil applications (K5: at most
-    ``PHASE_MAX_DEPTH``) as the JAX slab level chunks ``sweep_n`` to its
-    halo depth. The rest keep the chains: the Jacobi hooks as a loop of
-    single-pass K2 launches, the Chebyshev hooks as one K4 launch per step
-    and the residual after a Chebyshev presmooth as K2's residual pass.
-    Every route gives the same values: K5, K8 and K10 keep K2's
+    (Chebyshev) launch (B3/B6 take every level whose streams fit VMEM).
+    Otherwise the Jacobi hooks of a level of at least ``SLAB_MIN_CELLS``
+    cells (with ``slab``: the flagship's fine level, which the reference
+    gives B2, or B8 under ``GMG.slab_double_buffer``, and its mid level,
+    which the reference gives B3) run as K10 launches of whole phases,
+    chunked to ``depth`` stencil applications as the JAX slab level chunks
+    ``sweep_n`` to its halo depth. The rest keep the chains: the Jacobi
+    hooks as a loop of single-pass K2 launches, the Chebyshev hooks as one
+    K4 launch per step and the residual after a Chebyshev presmooth as K2's
+    residual pass. Every route gives the same values: K8 and K10 keep K2's
     arithmetic, K9 K4's. ``resident=False, slab=False`` runs every hook on
     its chain (the card tests hold K8/K9 and K10 to it).
 
@@ -1089,11 +993,10 @@ class ScalarLevel:
     bfloat16 (``GMG(coef_dtype="bf16")``): every hook then reads half the
     coefficient bytes and computes in the vectors' dtype."""
 
-    def __init__(self, A, phase_kernel: bool = False, coef_dtype=None,
-                 resident: bool = True, slab: bool = True, depth: int = 2):
+    def __init__(self, A, coef_dtype=None, resident: bool = True,
+                 slab: bool = True, depth: int = 2):
         self.L = tuple(A.L)
         _, _, self.coef = embed(A, coef_dtype)  # (7, 1, n)
-        self.phase_kernel = bool(phase_kernel)
         self.resident = bool(resident)
         self.slab = bool(slab)
         if not 1 <= depth <= SLAB_MAX_DEPTH:
@@ -1121,7 +1024,7 @@ class ScalarLevel:
             self._routes[key] = level_route(
                 self.L, hook, like.dtype, self.coef.dtype,
                 device_props(like.device, like.dtype, self.coef.dtype),
-                self.phase_kernel, self.resident, self.slab, self.depth)
+                self.resident, self.slab, self.depth)
         return self._routes[key]
 
     def _pass(self, b, u, omega, mode):
@@ -1137,19 +1040,14 @@ class ScalarLevel:
     def residual(self, u, b):
         return self._pass(b, u, 0.0, MODE_RESIDUAL)
 
-    def _phase(self, route, b, u, omega, n_sweep, emit_residual):
+    def _phase(self, b, u, omega, n_sweep, emit_residual):
         """``n_sweep`` sweeps from ``u`` (None: zero), then the residual if
-        asked, as the launches of ``phase_chunks``: K10's (``route``
-        "slab", ``depth`` applications each) or K5's (``PHASE_MAX_DEPTH``).
-        Returns (u, r or None)."""
-        if route == "slab":
-            launch, depth = scalar_jacobi_slab, self.depth
-        else:
-            launch, depth = scalar_jacobi_phase, PHASE_MAX_DEPTH
+        asked, as the K10 launches of ``phase_chunks`` (``depth``
+        applications each). Returns (u, r or None)."""
         r = None
         for k, _, res in phase_chunks(n_sweep, u is None, emit_residual,
-                                      depth):
-            u, r = launch(self.coef, b, u, omega, k, res, self.L)
+                                      self.depth):
+            u, r = scalar_jacobi_slab(self.coef, b, u, omega, k, res, self.L)
         return u, r
 
     def _sweeps(self, b, u, omega, n_sweep, emit_residual):
@@ -1168,8 +1066,8 @@ class ScalarLevel:
         route = self.route(hook, b) if n_sweep >= 1 else "chain"
         if route == "resident":
             return self._sweeps(b, u, omega, n_sweep, emit_residual)
-        if route != "chain":
-            return self._phase(route, b, u, omega, n_sweep, emit_residual)
+        if route == "slab":
+            return self._phase(b, u, omega, n_sweep, emit_residual)
         if u is None:
             u = self._sweep_chain(b, omega, n_sweep)
         else:

@@ -10,7 +10,7 @@ Counterpart of the reference's hard-coded TPFA assembly path
 
 The hot operations run through the CUDA kernels of ``ops/cuda``: the
 face flux + Jacobian blocks (K3), the block-stencil SpMV (K1), the GMG
-level passes (K2 Jacobi/residual, K4 Chebyshev, K5 whole Jacobi phases)
+level passes (K2 Jacobi/residual, K4 Chebyshev, K8/K9/K10 whole phases)
 and, opted in, the fused BiCGStab body (K6/K7). On CPU tensors those
 wrappers run their plain PyTorch versions. Well models ride this engine
 through ``ops/stencil_wells.py`` (bordered matrix, Schur-eliminated
@@ -536,7 +536,7 @@ class GMG:
     factor 2 only).
 
     ``coef_dtype``: None/"f32" keep the level coefficients as assembled;
-    "bf16" stores what the level kernels (K2, K4, K5, K8, K9) and CPR's
+    "bf16" stores what the level kernels (K2, K4, K8, K9, K10) and CPR's
     stage-2 matvec (K1, K=1) read in bfloat16, at half the bytes, widened
     on load with the arithmetic in the vectors' dtype. The hierarchy's Galerkin
     coarsening and the Chebyshev bound stay in full precision. GMG is a
@@ -554,9 +554,11 @@ class GMG:
 
     ``slab_double_buffer`` (an attribute, default False, set after
     construction as in the JAX package, where it selects the pipelined
-    slab kernel B8): the Jacobi phases run as whole-phase K5 launches
-    instead of K2 sweep chains — the same values, fewer coefficient
-    reads."""
+    slab kernel B8) changes no route here: B8 and B2 compute one function
+    and differ only in when a slab's copies start, and K10's plane rings
+    already copy the next plane while the current one is swept — they are
+    the double buffer. The flag is kept so that the JAX package's
+    settings carry over."""
 
     def __init__(self, omega: float = 0.8, n_smooth: int = 2,
                  n_coarse_sweeps: int = 40, min_cells: int = 32,
@@ -602,9 +604,8 @@ class GMG:
     def matvecs(self, ops: list) -> list:
         """Per-level fused level ops, built once per update."""
         depth = min(max(self.n_smooth, 2), SLAB_MAX_DEPTH)
-        return [ScalarLevel(A, phase_kernel=self.slab_double_buffer,
-                            coef_dtype=self.coef_torch_dtype(), depth=depth)
-                for A in ops]
+        return [ScalarLevel(A, coef_dtype=self.coef_torch_dtype(),
+                            depth=depth) for A in ops]
 
     def cheby_data(self, ops: list) -> list | None:
         """Per-level Chebyshev step tables (``chebyshev_steps``, enough
@@ -666,7 +667,7 @@ class StencilCPRState:
     w: torch.Tensor  # (neq, n) quasi-IMPES row weights
     dinv: torch.Tensor  # (n, ndof, neq) inverse diagonal blocks
     ops: list  # GMG hierarchy of the pressure stencil
-    mvs: list  # per-level ScalarLevel ops (K2/K4/K5/K8/K9/K10)
+    mvs: list  # per-level ScalarLevel ops (K2/K4/K8/K9/K10)
     mv_A: StencilMatvec  # K1 matvec of the full block matrix
     mv_Ap: StencilMatvec  # K1 pressure-COLUMN matvec (K=1): stage 2
     # applies A to a vector that is nonzero only in the pressure dof, so

@@ -18,10 +18,11 @@ Run from the repository root on a machine with a CUDA card and nvcc:
    coarse (16, 16, 64) levels and of (8, 8, 32), float32 and bfloat16
    coefficients: every hook the V-cycle calls (presmooth+residual and
    postsmooth at 2 sweeps, sweep_n at 12; Jacobi and Chebyshev) as
-   CUDA-graph replays in turns (K8/K9, chain, chain, K8/K9), the K5 phases
-   beside them, eager ms (20 calls back to back) of each, and the hook's
-   bound (7 coefficient streams, b and u in where given, u and r out where
-   made, once, over 3.35 TB/s), each form where the level fits it.
+   CUDA-graph replays in turns (K8/K9, chain, chain, K8/K9), K10's phases
+   beside them where the level routes to it, eager ms (20 calls back to
+   back) of each, and the hook's bound (7 coefficient streams, b and u in
+   where given, u and r out where made, once, over 3.35 TB/s), each form
+   where the level fits it.
 One JSON line per result; the card's name and power limit first.
 """
 
@@ -194,8 +195,7 @@ def timings():
             csize = 2 if coef_dtype else 4
             chain = SK.ScalarLevel(A, coef_dtype=coef_dtype, resident=False,
                                    slab=False)
-            k5 = SK.ScalarLevel(A, coef_dtype=coef_dtype, resident=False,
-                                phase_kernel=True)
+            slab = SK.ScalarLevel(A, coef_dtype=coef_dtype, resident=False)
             coef = chain.coef
             cheb = lambda u0, k, res: lambda form: (  # noqa: E731
                 lambda: SK.scalar_chebyshev_resident(coef, b, u0, steps, k,
@@ -240,8 +240,8 @@ def timings():
                            "bound_ms": (7 * csize + 4 * (1 + has_u + 1
                                                          + has_r)) * n
                            / HBM_BYTES_PER_S * 1e3}
-                    if "cheby" not in what:
-                        row["k5_graph_ms"] = graph_ms(lambda: hook(k5))
+                    if slab.route(what.split()[0], b) == "slab":
+                        row["k10_graph_ms"] = graph_ms(lambda: hook(slab))
                     print(json.dumps(row), flush=True)
 
 

@@ -1,6 +1,6 @@
 """K10 ``scalar_jacobi_slab`` (csrc/slab_kernels.cu) on the card: bitwise
 against the K2 chain it replaces, then timed per level and hook beside the
-chain, K5, K8's grid form and the bound, and over a grid of tilings (the
+chain, K8's grid form and the bound, and over a grid of tilings (the
 data behind ``slab_plan``'s constants).
 
 Run from the repository root on a machine with a CUDA card and nvcc:
@@ -20,7 +20,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
    fine and mid levels, float32 and bfloat16 coefficients: the V-cycle's
    two Jacobi hooks at 2 sweeps (presmooth+residual, postsmooth) as K10
    and as the chain in turns (K10, chain, chain, K10) replayed from CUDA
-   graphs, K5 and (mid) K8's grid form beside them, eager ms (20 calls
+   graphs, (mid) K8's grid form beside them, eager ms (20 calls
    back to back) of K10 and the chain, and the bound (7 coefficient
    streams, b and u in where given, u and r out where made, once, over
    3.35 TB/s);
@@ -154,8 +154,6 @@ def timings():
             k10 = SK.ScalarLevel(A, coef_dtype=coef_dtype)
             chain = SK.ScalarLevel(A, coef_dtype=coef_dtype, resident=False,
                                    slab=False)
-            k5 = SK.ScalarLevel(A, coef_dtype=coef_dtype, resident=False,
-                                phase_kernel=True)
             props = SK.device_props(b.device, torch.float32, coef_dtype)
             grid = SK.resident_plan(L, torch.float32, k10.coef.dtype, props,
                                     "grid")
@@ -176,7 +174,6 @@ def timings():
                        "turns": turns,
                        "eager_ms": eager_ms(lambda: hook(k10)),
                        "chain_eager_ms": eager_ms(lambda: hook(chain)),
-                       "k5_graph_ms": graph_ms(lambda: hook(k5)),
                        "bound_ms": (7 * csize + 4 * (1 + has_u + 1 + has_r))
                        * n / HBM_BYTES_PER_S * 1e3}
                 if grid is not None:

@@ -7,7 +7,7 @@ in bfloat16 and widen it to the vector dtype on load; the arithmetic is
 unchanged. The port's kernels do the same, and on the CPU each wrapper runs
 its plain version, so here:
 
-- each plain version (K1, K2, K4, K5) with bfloat16 coefficients against the
+- each plain version (K1, K2, K4, K10) with bfloat16 coefficients against the
   JAX interpret-mode kernel with ``coef_dtype=jnp.bfloat16`` on the same
   inputs: 1e-6 of the largest value at float32 vectors (the same arithmetic
   on the same rounded coefficients, sums in another order);
@@ -140,15 +140,27 @@ def test_k2_bf16_matches_jax_whole_level_kernel(level):
 
 
 @pytest.mark.parametrize("double_buffer", [False, True])
-def test_k2_k5_bf16_match_jax_slab_kernel(level, double_buffer):
-    """B2 (K2 chain) and, with ``double_buffer``, B8 (K5 phases) with
-    bfloat16 coefficients (``PallasSlabFusedScalarLevel``)."""
+def test_k2_k5_bf16_match_jax_slab_kernel(level, double_buffer, monkeypatch):
+    """B2 (the K2 chain at this size) and, with ``double_buffer``, B8 with
+    bfloat16 coefficients (``PallasSlabFusedScalarLevel``), through the
+    level a GMG with ``slab_double_buffer`` builds. B8's route is K10's:
+    with every level a slab level, as the flagship's fine level is, its
+    phases go through K10's wrapper."""
     A_j, A_t, b, u = level
     jlv = PallasSlabFusedScalarLevel(
         A_j, n_smooth=2, interpret=True, vmem_budget=128 * 1024,
         coef_dtype=jnp.bfloat16, double_buffer=double_buffer)
     assert jlv.tz < L[0], "the budget should force several z-slabs"
-    lv = SK.ScalarLevel(A_t, phase_kernel=double_buffer, coef_dtype=BF16)
+    calls = []
+    if double_buffer:
+        monkeypatch.setattr(SK, "SLAB_MIN_CELLS", 0)
+        real = SK.scalar_jacobi_slab
+        monkeypatch.setattr(SK, "scalar_jacobi_slab", lambda *a, **k: (
+            calls.append(a[4]), real(*a, **k))[1])
+    gmg = tst.GMG(n_smooth=2, coef_dtype="bf16")
+    gmg.slab_double_buffer = double_buffer
+    lv, = gmg.matvecs([A_t])
+    assert lv.coef.dtype == BF16
     j, t = jnp.asarray, torch.from_numpy
     uu, rr = lv.presmooth_residual(t(b), OMEGA, 2)
     ju, jr = jlv.presmooth_residual(j(b), OMEGA, 2)
@@ -158,6 +170,9 @@ def test_k2_k5_bf16_match_jax_slab_kernel(level, double_buffer):
            jlv.postsmooth(j(u), j(b), OMEGA, 2), "postsmooth")
     _close(lv.sweep_n(t(b), OMEGA, 5), jlv.sweep_n(j(b), OMEGA, 5),
            "sweep_n")
+    # the two V-cycle hooks are one K10 call each (sweep_n: K8's, the
+    # level fits it)
+    assert calls == ([2, 2] if double_buffer else [])
 
 
 @pytest.mark.parametrize("kernel", ["B6", "B7"])
@@ -213,8 +228,8 @@ def test_plain_versions_equal_their_pre_rounded_run(dtype):
     assert float(SK.scalar_jacobi(c16, b, u, OMEGA, SK.MODE_INIT, L_)[17]) \
         == 0.0
     for u0, n_sweep, res in ((None, 2, True), (u, 3, False), (None, 5, False)):
-        got = SK.scalar_jacobi_phase(c16, b, u0, OMEGA, n_sweep, res, L_)
-        want = SK.scalar_jacobi_phase(wide, b, u0, OMEGA, n_sweep, res, L_)
+        got = SK.scalar_jacobi_slab(c16, b, u0, OMEGA, n_sweep, res, L_)
+        want = SK.scalar_jacobi_slab(wide, b, u0, OMEGA, n_sweep, res, L_)
         assert torch.equal(got[0], want[0])
         assert (got[1] is None) == (want[1] is None) == (not res)
         if res:

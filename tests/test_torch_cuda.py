@@ -162,47 +162,75 @@ def test_wrappers_raise_on_mismatch(dev):
         mv(torch.zeros(5, 2, dtype=torch.float64, device=dev))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_k5_matches_plain_and_k2_chain(dev, dtype):
-    diag, plus, minus = _random_matrix(1, 1, dtype, dev, seed=3)
-    A = ScalarStencil(L, diag.reshape(-1).abs() + 6.0,
-                      {a: -v[0, 0].abs() for a, v in plus.items()},
-                      {a: -v[0, 0].abs() for a, v in minus.items()})
-    k2 = SK.ScalarLevel(A, resident=False, slab=False)
-    k5 = SK.ScalarLevel(A, phase_kernel=True, resident=False)
-    n = A.n
-    b = torch.randn(n, dtype=dtype, device=dev)
-    u = torch.randn(n, dtype=dtype, device=dev)
-    for u0 in (None, u):
-        for n_sweep in range(0 if u0 is not None else 1, 6):
-            for res in (False, True):
-                if SK._phase_depth(u0, n_sweep, res) > SK.PHASE_MAX_DEPTH:
-                    with pytest.raises(ValueError):
-                        SK.scalar_jacobi_phase(k5.coef, b, u0, 0.8, n_sweep,
-                                               res, L)
-                    continue
-                before = SK.scalar_jacobi_phase.launches
-                got = SK.scalar_jacobi_phase(k5.coef, b, u0, 0.8, n_sweep,
-                                             res, L)
-                assert SK.scalar_jacobi_phase.launches == before + 1
-                ref = SK.scalar_jacobi_phase_plain(k5.coef, b, u0, 0.8,
-                                                   n_sweep, res, L)
-                for g, r in zip(got, ref):
-                    if r is not None:
-                        assert _rel(g, r) <= TOL[dtype], (n_sweep, res)
-    # the level hooks against the K2 chain (the same arithmetic)
-    for n_sweep in (2, 12):
-        assert _rel(k5.sweep_n(b, 0.8, n_sweep),
-                    k2.sweep_n(b, 0.8, n_sweep)) <= TOL[dtype]
-        assert _rel(torch.stack(k5.presmooth_residual(b, 0.8, n_sweep)),
-                    torch.stack(k2.presmooth_residual(b, 0.8, n_sweep))) \
-            <= TOL[dtype]
-        assert _rel(k5.postsmooth(u, b, 0.8, n_sweep),
-                    k2.postsmooth(u, b, 0.8, n_sweep)) <= TOL[dtype]
+@pytest.mark.parametrize("coef_dtype", [torch.float32, torch.float64,
+                                        torch.bfloat16])
+def test_b8_route_runs_k10_bitwise_the_k2_chain(dev, coef_dtype):
+    """B8's route (``GMG.slab_double_buffer``) on the flagship's hierarchy
+    shape: every level and hook routes as without the flag; on the fine
+    and mid levels every Jacobi hook (1-3 sweeps, sweep_n at 12) is the K10
+    launches of ``phase_chunks``, equal to the K2 chain bit for bit and
+    within TOL of the plain version."""
+    from jutul.jl_tpu_torch.ops.stencil import GMG
+
+    vec = torch.float64 if coef_dtype == torch.float64 else torch.float32
+    g = torch.Generator().manual_seed(6)
+    L_ = (64, 64, 256)
+    nz, ny, nx = L_
+    n = nz * ny * nx
+    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=vec)  # noqa: E731
+    A = ScalarStencil(L_, (rnd(n).abs() + 6.0).to(dev),
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()},
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()})
+    cd = "bf16" if coef_dtype == torch.bfloat16 else None
+    counter = "launches_bf16c" if cd else "launches"
+    mvs = {}
+    for flag in (False, True):
+        gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+                  coef_dtype=cd)
+        gmg.slab_double_buffer = flag
+        ops = gmg.hierarchy(A)
+        mvs[flag] = gmg.matvecs(ops)
+    hooks = ("presmooth_residual", "postsmooth", "sweep_n")
+    for lv0, lv in zip(mvs[False], mvs[True]):
+        b = torch.randn(lv.coef.shape[-1], generator=g,
+                        dtype=vec).to(dev)
+        assert [lv.route(h, b) for h in hooks] == \
+            [lv0.route(h, b) for h in hooks]
+    assert [lv.route("postsmooth", b) for lv in mvs[True]] == \
+        ["slab", "slab", "chain"]
+    for op, lv in zip(ops[:2], mvs[True][:2]):
+        m = op.n
+        b, u = rnd(m).to(dev), rnd(m).to(dev)
+        chain = SK.ScalarLevel(op, coef_dtype=gmg.coef_torch_dtype(),
+                               resident=False, slab=False)
+        cases = [(u0, k, res) for u0 in (None, u) for k in (1, 2, 3)
+                 for res in (False, True)] + [(None, 12, False)]
+        for u0, k, res in cases:
+            if u0 is None:
+                call = (lambda l_: l_.presmooth_residual(b, 0.8, k)) if res \
+                    else (lambda l_: (l_.sweep_n(b, 0.8, k), None))
+            elif res:
+                continue  # no hook sweeps from u and then takes r
+            else:
+                call = lambda l_: (l_.postsmooth(u, b, 0.8, k), None)  # noqa: E731
+            before = getattr(SK.scalar_jacobi_slab, counter)
+            got = call(lv)
+            assert getattr(SK.scalar_jacobi_slab, counter) == before + len(
+                SK.phase_chunks(k, u0 is None, res, lv.depth))
+            want = call(chain)
+            plain = SK.scalar_jacobi_slab_plain(lv.coef, b, u0, 0.8, k, res,
+                                                op.L)
+            for gv, wv, pv in zip(got, want, plain):
+                assert (gv is None) == (wv is None)
+                if wv is not None:
+                    assert torch.equal(gv, wv), (op.L, u0 is None, k, res)
+                    assert _rel(gv, pv) <= TOL[vec]
 
 
 def _k2_chain(coef, b, u, omega, n_sweep, residual, L_):
-    """The phase as a chain of K2 launches (the arithmetic K5 keeps)."""
+    """The phase as a chain of K2 launches (the arithmetic K8 and K10
+    keep)."""
     if u is None:
         u = SK.scalar_jacobi(coef, b, None, omega, SK.MODE_INIT, L_)
         n_sweep -= 1
@@ -211,40 +239,6 @@ def _k2_chain(coef, b, u, omega, n_sweep, residual, L_):
     r = SK.scalar_jacobi(coef, b, u, 0.0, SK.MODE_RESIDUAL, L_) \
         if residual else None
     return u, r
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("L_", [(9, 13, 37), (16, 16, 64)])
-def test_k5_equals_k2_chain_bitwise_at_every_depth_and_tiling(dev, dtype, L_):
-    """Every depth 0-4, from zero and from u, with and without the
-    residual, under the planner's z-chunk depth and under pinned ones that
-    do not divide nz: equal to the K2 chain bit for bit."""
-    g = torch.Generator().manual_seed(7)
-    nz, ny, nx = L_
-    n = nz * ny * nx
-    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
-    rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype)  # noqa: E731
-    A = ScalarStencil(L_, (rnd(n).abs() + 6.0).to(dev),
-                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()},
-                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()})
-    coef = SK.ScalarLevel(A).coef
-    b, u = rnd(n).to(dev), rnd(n).to(dev)
-    for u0 in (None, u):
-        for n_sweep in range(0 if u0 is not None else 1, 6):
-            for res in (False, True):
-                if SK._phase_depth(u0, n_sweep, res) > SK.PHASE_MAX_DEPTH:
-                    continue
-                want = _k2_chain(coef, b, u0, 0.8, n_sweep, res, L_)
-                for tz in (0, 1, 3, 5, 7, nz):
-                    got = SK._launch_phase(coef, b, u0, 0.8, n_sweep, res, L_,
-                                           tz)
-                    for gv, wv in zip(got, want):
-                        assert (gv is None) == (wv is None)
-                        if wv is not None:
-                            assert torch.equal(gv, wv), (u0 is None, n_sweep,
-                                                         res, tz)
-    with pytest.raises(RuntimeError):  # a chunk depth below 1 is refused
-        SK._launch_phase(coef, b, None, 0.8, 2, True, L_, -1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -318,11 +312,10 @@ def test_launch_counters_reset(dev):
     assert kernels.launch_counts() == {
         "stencil_matvec": 1, "scalar_jacobi": 0, "darcy_flux_jacobian": 0,
         "darcy_flux_jacobian_lattice": 0, "scalar_chebyshev": 0,
-        "scalar_jacobi_phase": 0, "fused_alpha_s": 0, "fused_omega_update": 0,
+        "fused_alpha_s": 0, "fused_omega_update": 0,
         "scalar_sweeps_resident": 0, "scalar_chebyshev_resident": 0,
         "stencil_matvec_bf16c": 0, "scalar_jacobi_bf16c": 0,
-        "scalar_chebyshev_bf16c": 0, "scalar_jacobi_phase_bf16c": 0,
-        "scalar_sweeps_resident_bf16c": 0,
+        "scalar_chebyshev_bf16c": 0, "scalar_sweeps_resident_bf16c": 0,
         "scalar_chebyshev_resident_bf16c": 0,
         "scalar_jacobi_slab": 0, "scalar_jacobi_slab_bf16c": 0}
 
@@ -406,46 +399,14 @@ def test_k4_bf16_coefficients_bitwise(dev, L_):
             assert _rel(gv, rv) <= TOL[torch.float32], (mode, k)
 
 
-@pytest.mark.parametrize("L_", RAGGED)
-def test_k5_bf16_coefficients_bitwise_at_every_depth_and_tiling(dev, L_):
-    """Every depth 0-4 under the planner's z-chunk depth and pinned ones:
-    the bfloat16 entry equals the float32 entry on the widened
-    coefficients, and so the K2 chain on them, bit for bit."""
-    c16, c32, b, u, _ = _scalar_coef(L_, dev, 14)
-    nz = L_[0]
-    for u0 in (None, u):
-        for n_sweep in range(0 if u0 is not None else 1, 6):
-            for res in (False, True):
-                if SK._phase_depth(u0, n_sweep, res) > SK.PHASE_MAX_DEPTH:
-                    continue
-                want = _k2_chain(c32, b, u0, 0.8, n_sweep, res, L_)
-                for tz in (0, 1, 3, 5, nz):
-                    before = SK.scalar_jacobi_phase.launches_bf16c
-                    got = SK._launch_phase(c16, b, u0, 0.8, n_sweep, res, L_,
-                                           tz)
-                    assert SK.scalar_jacobi_phase.launches_bf16c == before + 1
-                    mid = SK._launch_phase(c32, b, u0, 0.8, n_sweep, res, L_,
-                                           tz)
-                    for gv, mv_, wv in zip(got, mid, want):
-                        assert (gv is None) == (wv is None)
-                        if wv is not None:
-                            assert torch.equal(gv, mv_) and \
-                                torch.equal(gv, wv), (u0 is None, n_sweep,
-                                                      res, tz)
-    ref = SK.scalar_jacobi_phase_plain(c16, b, None, 0.8, 2, True, L_)
-    got = SK.scalar_jacobi_phase(c16, b, None, 0.8, 2, True, L_)
-    assert _rel(torch.stack(got), torch.stack(ref)) <= TOL[torch.float32]
-
-
 def test_bf16_coefficients_refuse_float64_vectors(dev):
     c16, _, b, u, _ = _scalar_coef((5, 7, 3), dev, 15)
     with pytest.raises(TypeError):
         SK.scalar_jacobi(c16, b.double(), u.double(), 0.8, SK.MODE_SMOOTH,
                          (5, 7, 3))
-    # K5 reads bfloat16 coefficients as 4-byte words: an odd count (7 * 105)
-    # without embed's padding element is refused
-    with pytest.raises(ValueError, match="padding"):
-        SK._launch_phase(c16.clone(), b, u, 0.8, 2, False, (5, 7, 3))
+    with pytest.raises(TypeError):
+        SK.scalar_jacobi_slab(c16, b.double(), u.double(), 0.8, 2, False,
+                              (5, 7, 3))
 
 
 @pytest.mark.parametrize("coef_dtype", [None, "bf16"])
@@ -1205,6 +1166,23 @@ def test_k10_refuses_what_it_cannot_run(dev):
         with pytest.raises(RuntimeError, match="launch failed"):
             SK.scalar_jacobi_slab(coef, b, None, 0.8, 2, True, L_, plan)
     assert SK.scalar_jacobi_slab.launches == before
+
+
+@pytest.mark.parametrize("coef_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L_", [(32, 32, 128), (9, 13, 37)])
+def test_k10_takes_unaligned_vectors(dev, L_, coef_dtype):
+    """b or u starting one element into its storage: the wrapper's
+    alignment test drops to one cell a thread, and K10 still equals the K2
+    chain bit for bit."""
+    c16, c32, b, u, _ = _scalar_coef(L_, dev, seed=sum(L_) + 1)
+    coef = c16 if coef_dtype == torch.bfloat16 else c32
+    for u0 in (None, u):
+        want = _k2_chain_level(coef, b, u0, 2, True, L_)
+        for bb, uu in ((_unaligned(b), u0),
+                       (b, None if u0 is None else _unaligned(u0))):
+            got = SK.scalar_jacobi_slab(coef, bb, uu, 0.8, 2, True, L_)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
 
 
 def test_gmg_routes_the_fine_and_mid_levels_to_k10(dev):

@@ -217,13 +217,13 @@ def test_forced_form_capacity(dtype):
 
 def test_levels_route_to_k8_k9_whatever_phase_kernel_says(monkeypatch):
     """A routed level runs each hook that RESIDENT_HOOKS marks as one K8/K9
-    call, with or without ``phase_kernel`` (GMG.slab_double_buffer): by
-    default the coarse solve (sweep_n) in the cluster form, every other hook
-    on its chain; with every hook marked, all six; ``resident=False`` and
-    unmarked hooks keep the chains."""
+    call, with or without GMG.slab_double_buffer (B8's flag, which routes
+    nothing apart): by default the coarse solve (sweep_n) in the cluster
+    form, every other hook on its chain; with every hook marked, all six;
+    ``resident=False`` and unmarked hooks keep the chains."""
     calls = []
     for name in ("scalar_sweeps_resident", "scalar_chebyshev_resident",
-                 "scalar_jacobi_phase", "scalar_jacobi",
+                 "scalar_jacobi_slab", "scalar_jacobi",
                  "scalar_chebyshev"):
         real = getattr(SK, name)
         monkeypatch.setattr(SK, name, lambda *a, _n=name, _f=real, **k: (
@@ -245,23 +245,28 @@ def test_levels_route_to_k8_k9_whatever_phase_kernel_says(monkeypatch):
             out.append(list(calls))
         return out
 
+    def flagged(flag):
+        """The level a GMG with ``slab_double_buffer = flag`` builds."""
+        gmg = tst.GMG(n_smooth=2)
+        gmg.slab_double_buffer = flag
+        return gmg.matvecs([A_t])[0]
+
     jacobi_chain = ["scalar_jacobi"] * 3
-    for phase_kernel in (False, True):
-        lv = SK.ScalarLevel(A_t, phase_kernel=phase_kernel)
+    for flag in (False, True):
+        lv = flagged(flag)
         assert lv.plan(bt) == ("cluster", 4, 32, 48)
         got = hooks(lv)
         assert got[2] == ["scalar_sweeps_resident"]
         assert got[5] == ["scalar_chebyshev_resident"]
-        assert got[0] == (["scalar_jacobi_phase"] if phase_kernel
-                          else jacobi_chain)
+        assert got[0] == jacobi_chain
         assert got[3] == ["scalar_chebyshev"] * 2 + ["scalar_jacobi"]
     chain = hooks(SK.ScalarLevel(A_t, resident=False))
     assert chain[2] == ["scalar_jacobi"] * 12
     assert chain[5] == ["scalar_chebyshev"] * 12
     monkeypatch.setattr(SK, "RESIDENT_HOOKS", {
         f: dict.fromkeys(h, True) for f, h in SK.RESIDENT_HOOKS.items()})
-    for phase_kernel in (False, True):
-        assert hooks(SK.ScalarLevel(A_t, phase_kernel=phase_kernel)) == \
+    for flag in (False, True):
+        assert hooks(flagged(flag)) == \
             [["scalar_sweeps_resident"]] * 3 + \
             [["scalar_chebyshev_resident"]] * 3
 

@@ -1,14 +1,16 @@
-"""K5 (``scalar_jacobi_phase``: a whole Jacobi smoothing phase) and
-``GMG.slab_double_buffer`` against the JAX package, on the CPU.
+"""B8's route (``GMG.slab_double_buffer``: the JAX package's double-buffered
+slab level) against the JAX package, on the CPU. The port runs it on K10
+(``scalar_jacobi_slab``), as it runs B2: the two compute one function.
 
-- K5's plain version, through the level hooks of ``ScalarLevel(...,
-  phase_kernel=True)``, against the JAX package's double-buffered slab
-  level (B8, ``PallasSlabFusedScalarLevel(double_buffer=True)`` in
-  interpret mode) on tests/test_pallas.py's seeded (8, 8, 16) stencil, for
-  every hook: to 1e-6 (float32) and 1e-12 (float64) of the largest value
-  — the same sweeps, sums in another order;
-- a V-cycle with ``slab_double_buffer`` equals one without, exactly (K5
-  keeps K2's arithmetic);
+- K10's plain version, through the launches of ``phase_chunks`` and through
+  the level hooks of the level a flagged GMG builds, against the JAX
+  package's double-buffered slab level (B8,
+  ``PallasSlabFusedScalarLevel(double_buffer=True)`` in interpret mode) on
+  tests/test_pallas.py's seeded (8, 8, 16) stencil, for every hook: to 1e-6
+  (float32) and 1e-12 (float64) of the largest value — the same sweeps,
+  sums in another order;
+- a V-cycle with ``slab_double_buffer`` routes every level and hook as one
+  without it and equals it exactly;
 - the 10x10x6 well-model slice with Jacobi GMG and ``slab_double_buffer``
   at float64: the same ministep, Newton and linear-iteration counts as the
   JAX package's run of that case (whose CPU GMG runs XLA levels whatever
@@ -62,6 +64,14 @@ def _close(got, ref, dtype, what):
     assert err <= TOL[dtype] * np.abs(ref).max(), (what, err)
 
 
+def _k10_phase(coef, b, u, n_sweep, residual, depth=2):
+    """A phase as K10's launches (``phase_chunks``), on CPU tensors."""
+    r = None
+    for k, _, res in SK.phase_chunks(n_sweep, u is None, residual, depth):
+        u, r = SK.scalar_jacobi_slab(coef, b, u, 0.8, k, res, L)
+    return u, r
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_phase_hooks_match_jax_slab_level(dtype):
     diag, plus, minus, b, u0 = _stencil(dtype)
@@ -72,42 +82,58 @@ def test_phase_hooks_match_jax_slab_level(dtype):
         n_smooth=2, double_buffer=True, interpret=True,
         vmem_budget=128 * 1024)
     assert jlv.tz < L[0], "the budget should force several z-slabs"
-    lv = SK.ScalarLevel(_port(diag, plus, minus), phase_kernel=True)
+    gmg = GMG(n_smooth=2)
+    gmg.slab_double_buffer = True
+    lv, = gmg.matvecs([_port(diag, plus, minus)])
     bt, ut = torch.from_numpy(b), torch.from_numpy(u0)
-    before = SK.scalar_jacobi_phase.launches
-    u, r = lv.presmooth_residual(bt, 0.8, 2)
+    before = SK.scalar_jacobi_slab.launches
     ju, jr = jlv.presmooth_residual(j(b), 0.8, 2)
-    _close(u, ju, dtype, "presmooth u")
-    _close(r, jr, dtype, "presmooth r")
-    _close(lv.postsmooth(ut, bt, 0.8, 2), jlv.postsmooth(j(u0), j(b), 0.8, 2),
-           dtype, "postsmooth")
-    _close(lv.sweep_n(bt, 0.8, 5), jlv.sweep_n(j(b), 0.8, 5), dtype,
-           "sweep_n")
+    jpost = jlv.postsmooth(j(u0), j(b), 0.8, 2)
+    jsweep = jlv.sweep_n(j(b), 0.8, 5)
+    for u, r, post, sweep in (
+            (*lv.presmooth_residual(bt, 0.8, 2), lv.postsmooth(ut, bt, 0.8, 2),
+             lv.sweep_n(bt, 0.8, 5)),
+            (*_k10_phase(lv.coef, bt, None, 2, True),
+             _k10_phase(lv.coef, bt, ut, 2, False)[0],
+             _k10_phase(lv.coef, bt, None, 5, False)[0])):
+        _close(u, ju, dtype, "presmooth u")
+        _close(r, jr, dtype, "presmooth r")
+        _close(post, jpost, dtype, "postsmooth")
+        _close(sweep, jsweep, dtype, "sweep_n")
     # CPU tensors run the plain version, which counts no launch
-    assert SK.scalar_jacobi_phase.launches == before
+    assert SK.scalar_jacobi_slab.launches == before
 
 
 @pytest.mark.parametrize("n_sweep,residual", [(1, False), (2, True),
                                               (5, False), (4, True)])
 def test_phase_plain_is_the_k2_chain(n_sweep, residual):
-    """One K5 phase (from zero and from u) is K2's sweep loop, exactly;
-    a phase deeper than one launch takes is refused on the card only."""
+    """One Jacobi phase's plain version (K8's and K10's), from zero and
+    from u, is K2's sweep loop, exactly, and so is K10's wrapper on CPU
+    tensors, which takes every depth there (the card refuses more than
+    ``SLAB_MAX_DEPTH`` applications a launch)."""
     diag, plus, minus, b, u0 = _stencil(np.float64)
     ref = SK.ScalarLevel(_port(diag, plus, minus))
     bt, ut = torch.from_numpy(b), torch.from_numpy(u0)
     for u in (None, ut):
-        got_u, got_r = SK.scalar_jacobi_phase_plain(ref.coef, bt, u, 0.8,
-                                                    n_sweep, residual, L)
         want = ref.sweep_n(bt, 0.8, n_sweep) if u is None else \
             ref.postsmooth(u, bt, 0.8, n_sweep)
-        assert torch.equal(got_u, want)
-        if residual:
-            assert torch.equal(got_r, ref.residual(want, bt))
-        else:
-            assert got_r is None
+        for fn in (SK.scalar_jacobi_phase_plain, SK.scalar_jacobi_slab):
+            got_u, got_r = fn(ref.coef, bt, u, 0.8, n_sweep, residual, L)
+            assert torch.equal(got_u, want)
+            if residual:
+                assert torch.equal(got_r, ref.residual(want, bt))
+            else:
+                assert got_r is None
 
 
-def test_vcycle_with_phase_kernel_equals_k2_chain():
+HOOKS = ("presmooth_residual", "postsmooth", "sweep_n",
+         "presmooth_residual_cheby", "postsmooth_cheby", "sweep_n_cheby")
+
+
+def test_vcycle_with_phase_kernel_equals_k2_chain(monkeypatch):
+    """``slab_double_buffer`` changes no route (here with every level a
+    slab level, as the flagship's fine level is) and no value."""
+    monkeypatch.setattr(SK, "SLAB_MIN_CELLS", 0)
     rng = np.random.default_rng(3)
     L3 = (8, 12, 16)
     n = int(np.prod(L3))
@@ -117,15 +143,22 @@ def test_vcycle_with_phase_kernel_equals_k2_chain():
         {a: torch.from_numpy(-np.abs(rng.normal(size=s))) for a, s in fs.items()},
         {a: torch.from_numpy(-np.abs(rng.normal(size=s))) for a, s in fs.items()})
     b = torch.from_numpy(rng.normal(size=n))
-    out = []
+    out, routes = [], []
     for flag in (False, True):
         gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=64)
         gmg.slab_double_buffer = flag
         ops = gmg.hierarchy(A)
         mvs = gmg.matvecs(ops)
-        assert len(ops) == 3 and all(lv.phase_kernel == flag for lv in mvs)
+        assert len(ops) == 3
+        routes.append([[lv.route(h, b) for h in HOOKS] for lv in mvs])
         out.append(gmg.vcycle(ops, b, mvs=mvs))
-    assert torch.equal(out[0], out[1])
+    assert routes[0] == routes[1]
+    assert routes[0][0][:2] == ["slab"] * 2
+    chain = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=64)
+    ops = chain.hierarchy(A)
+    want = chain.vcycle(ops, b, mvs=[
+        SK.ScalarLevel(o, resident=False, slab=False) for o in ops])
+    assert torch.equal(out[0], out[1]) and torch.equal(out[1], want)
 
 
 DIMS = (10, 10, 6)

@@ -8,9 +8,10 @@ GMG level in one launch) on the CPU, against the JAX package.
   every hook, ``n_smooth`` 2 and 3: to 1e-6 (float32) and 1e-12 (float64)
   of the largest value (of b for the residual) — the same sweeps, sums in
   another order;
-- the flagship's GMG hierarchy routes as the reference's
-  ``scalar_level_ops`` picks its kernels: the fine and mid Jacobi hooks to
-  K10, the coarse solve to K8's cluster form, ``phase_kernel`` to K5;
+- the flagship's GMG hierarchy routes its Jacobi phases to K10 on the fine
+  and mid levels (the reference runs B2, or B8 under ``double_buffer``, on
+  the fine level and B3 on the mid) and the coarse solve to K8's cluster
+  form; ``GMG.slab_double_buffer`` changes no route;
 - a V-cycle with K10 routing equals the chains exactly and the JAX
   V-cycle to the tolerances above;
 - ``chip_smoke.level_launches_per_vcycle`` gives the routing's launches;
@@ -125,11 +126,13 @@ def test_slab_hooks_match_jax_b2(dtype, n_smooth, slab_calls):
 @pytest.mark.parametrize("dtype,coef", [(F32, None), (F64, None),
                                         (F32, BF16)])
 def test_flagship_hierarchy_routes_k10_k8_k5(dtype, coef):
-    """The fine and mid levels (at least SLAB_MIN_CELLS cells, the
-    reference's slab levels) run their Jacobi phases on K10; the coarse
-    level (the reference's whole-lattice B3) its solve on K8's cluster
-    form; ``phase_kernel`` keeps K5 (the reference's B8) and the
-    Chebyshev hooks keep K4/K9; ``slab=False`` keeps the chains."""
+    """The fine and mid levels (at least SLAB_MIN_CELLS cells) run their
+    Jacobi phases on K10 — the reference gives the fine level its slab
+    kernel (B2, or B8) and the mid level, whose streams fit VMEM, B3; K10
+    measured faster there than K8's grid form. The coarse level runs its
+    solve on K8's cluster form; the Chebyshev hooks keep K4/K9;
+    ``slab=False`` keeps the chains; nothing routes to a kernel of its own
+    for B8."""
     jac = ("presmooth_residual", "postsmooth", "sweep_n")
 
     def routes(L_, hooks, **kw):
@@ -140,12 +143,10 @@ def test_flagship_hierarchy_routes_k10_k8_k5(dtype, coef):
         assert int(np.prod(L_)) >= SK.SLAB_MIN_CELLS
         assert routes(L_, jac) == ["slab"] * 3
         assert routes(L_, jac, depth=3) == ["slab"] * 3
-        assert routes(L_, jac, phase_kernel=True) == ["phase"] * 3
         assert routes(L_, jac, slab=False) == ["chain"] * 3
         assert routes(L_, [h + "_cheby" for h in jac]) == ["chain"] * 3
     assert int(np.prod(coarse)) < SK.SLAB_MIN_CELLS
     assert routes(coarse, ["sweep_n"]) == ["resident"]
-    assert routes(coarse, ["sweep_n"], phase_kernel=True) == ["resident"]
     assert routes(coarse, ["sweep_n_cheby"]) == ["resident"]
     assert routes(coarse, ["sweep_n"], resident=False) == ["chain"]
     # the CUDA entries take bfloat16 coefficients with float32 vectors only
@@ -186,21 +187,59 @@ def test_vcycle_with_k10_equals_chain_and_jax(dtype, monkeypatch):
 
 def test_level_launches_per_vcycle():
     """Per linear iteration (two V-cycles) on the flagship's hierarchy:
-    the default Jacobi slices 22 -> 10 launches (K10 8, K8 2); the
-    Chebyshev slice, the K5 phases and their bf16 forms as before."""
-    def per_lin(smoother, phases, coef_dtype=None):
+    the Jacobi slices 10 launches (K10 8, K8 2) and their bf16 forms
+    alike, with B8's flag as without it (it changes no route,
+    ``test_b8_flag_routes_as_the_default``); the Chebyshev slice 22."""
+    def per_lin(smoother, coef_dtype=None):
         got = chip_smoke.level_launches_per_vcycle(
-            FLAGSHIP[0], smoother, phases, coef_dtype, props=H100)
+            FLAGSHIP[0], smoother, coef_dtype, props=H100)
         return {k: 2 * v for k, v in got.items() if v}
     K8, K9, K10 = (chip_smoke.K8, chip_smoke.K9, chip_smoke.K10)
-    assert per_lin("jacobi", False) == {K10: 8, K8: 2}
-    assert per_lin("jacobi", False, "bf16") == {K10 + "_bf16c": 8,
-                                                K8 + "_bf16c": 2}
-    assert per_lin("chebyshev", False) == {"scalar_chebyshev": 16,
-                                           "scalar_jacobi": 4, K9: 2}
-    assert per_lin("jacobi", True) == {"scalar_jacobi_phase": 8, K8: 2}
-    assert per_lin("jacobi", True, "bf16") == {
-        "scalar_jacobi_phase_bf16c": 8, K8 + "_bf16c": 2}
+    assert per_lin("jacobi") == {K10: 8, K8: 2}
+    assert per_lin("jacobi", "bf16") == {K10 + "_bf16c": 8,
+                                         K8 + "_bf16c": 2}
+    assert per_lin("chebyshev") == {"scalar_chebyshev": 16,
+                                    "scalar_jacobi": 4, K9: 2}
+    assert per_lin("chebyshev", "bf16") == {"scalar_chebyshev_bf16c": 16,
+                                            "scalar_jacobi_bf16c": 4,
+                                            K9 + "_bf16c": 2}
+
+
+HOOKS = ("presmooth_residual", "postsmooth", "sweep_n",
+         "presmooth_residual_cheby", "postsmooth_cheby", "sweep_n_cheby")
+
+
+@pytest.mark.parametrize("dtype,coef", [(F32, None), (F64, None),
+                                        (F32, BF16)])
+def test_b8_flag_routes_as_the_default(dtype, coef):
+    """On the flagship's three level shapes, under the H100's properties,
+    the levels a GMG with ``slab_double_buffer`` builds take the same route
+    for every hook as a GMG's without it — the pure ``level_route`` — and
+    none a route of its own: the fine and mid Jacobi hooks K10, the coarse
+    solve K8/K9."""
+    like = torch.empty(0, dtype=dtype)
+    want = {FLAGSHIP[0]: ["slab", "slab", "slab", "chain", "chain", "chain"],
+            FLAGSHIP[1]: ["slab", "slab", "slab", "chain", "chain", "chain"],
+            FLAGSHIP[2]: ["chain", "chain", "resident", "chain", "chain",
+                          "resident"]}
+    for L_ in FLAGSHIP:
+        nz, ny, nx = L_
+        A = tst.ScalarStencil(
+            L_, torch.ones(nz * ny * nx, dtype=dtype),
+            {0: torch.zeros(nz, ny, nx - 1, dtype=dtype),
+             1: torch.zeros(nz, ny - 1, nx, dtype=dtype),
+             2: torch.zeros(nz - 1, ny, nx, dtype=dtype)},
+            {0: torch.zeros(nz, ny, nx - 1, dtype=dtype),
+             1: torch.zeros(nz, ny - 1, nx, dtype=dtype),
+             2: torch.zeros(nz - 1, ny, nx, dtype=dtype)})
+        routes = []
+        for flag in (False, True):
+            g = tst.GMG(n_smooth=2, coef_dtype="bf16" if coef else None)
+            g.slab_double_buffer = flag
+            lv, = g.matvecs([A])
+            routes.append([lv.route(h, like) for h in HOOKS])
+        pure = [SK.level_route(L_, h, dtype, coef, H100) for h in HOOKS]
+        assert routes[0] == routes[1] == pure == want[L_], L_
 
 
 def test_slab_plan_tiles_fit():
