@@ -26,10 +26,15 @@ failure (nothing is caught, so any failure exits non-zero):
    the fine and mid levels (the launches of ``phase_chunks``, every hook at
    1-3 sweeps and sweep_n at 2 and 12) equal to the K2 chain bit for bit
    (float32, float64, bfloat16 coefficients) and timed per level and hook
-   beside the chain and K8's grid form — and again on B8's route
-   (``gmg.slab_double_buffer = True``), which must route every level and
-   hook as the default does (the reference runs B2, or B8, on the fine
-   level and B3 on the mid; the port runs both on K10); K6/K7 fused
+   beside the chain and K8's grid form — and checked again, untimed, on
+   B8's route (``gmg.slab_double_buffer = True``), which must route every
+   level and hook as the default does (the reference runs B2, or B8, on
+   the fine level and B3 on the mid; the port runs both on K10); K11 whole
+   Chebyshev phases on the same levels (presmooth+residual and postsmooth
+   at 1-3 steps: one launch up to the level's depth, the K4 chain beyond)
+   equal to the K4 chain and K2's residual bit for bit (float32, float64,
+   bfloat16 coefficients) and timed per level and hook beside the chain
+   and K9's grid form; K6/K7 fused
    BiCGStab body
    at the Schur system's 2,097,152 values, also against a second call,
    bitwise; K1 on the adjoint's
@@ -55,9 +60,10 @@ failure (nothing is caught, so any failure exits non-zero):
    float64 on the card; CNV and MB within 10x their tolerances;
 6. wells slice: the bench flagship with its 5 well models (1,048,576
    lattice + 5 wellbore cells, bordered stencil + Schur-eliminated wells)
-   with the Chebyshev GMG smoother, otherwise as phase 4; K1, K2 (the
-   residual after a Chebyshev presmooth), K3 (lattice and, for the
-   perforations, per axis), K4 and K9 (the coarse solve) must launch;
+   with the Chebyshev GMG smoother, otherwise as phase 4; K1, K3 (lattice
+   and, for the perforations, per axis), K11 (the fine and mid levels'
+   Chebyshev phases) and K9 (the coarse solve) must launch, K2 and K4
+   never;
 7. its f64 verify over all lattice and wellbore rows, as phase 5;
 8. wells-jacobi-fused slice: the same well flagship with the bench's
    default Jacobi smoother and both opt-ins of bench.py's BENCH_FUSED_BODY=1
@@ -77,8 +83,9 @@ failure (nothing is caught, so any failure exits non-zero):
    float32 level kernel), each with its f64
    verify; ``wells-jacobi-eager`` (the eager loop at a fixed Krylov rtol on
    the same kernels) beside them; two 2-step runs of the schedule path that
-   put the bfloat16 entries of K4 (Chebyshev smoother) and K10 under the
-   B8 flag (Jacobi phases) on a full-width path; then
+   put the bfloat16 entries of K11 and K9 (Chebyshev smoother, no K2 or
+   K4) and K10 under the B8 flag (Jacobi phases) on a full-width path;
+   then
    ``refine_solution`` on
    ``wells-product``'s last accepted ministep with the bench's settings
    (float64 polish, tol 1e-8), all on the card: the final max|r| must be
@@ -123,7 +130,11 @@ failure (nothing is caught, so any failure exits non-zero):
    8x8x6 likewise; the adjoint's gradients at 8x8x6 in float64 on the card
    against the CPU's on the same states, within 1e-9;
    the generic adjoint's there (λ at rtol 1e-14) against the CPU's and
-   against the stencil adjoint's, within 1e-9;
+   against the stencil adjoint's, within 1e-9; the wells cross-check's
+   card launches (its levels are under SLAB_MIN_CELLS: the K4 and K2
+   chains) and ``wells-small-bf16-cheby`` (the bf16 Chebyshev schedule path
+   at 10x10x6 in float32, where the chains' bf16 entries run) are where
+   K2 and K4 still launch;
 11. generic slice: the generic block-ELL engine,
    ``Simulator(use_stencil=False)``, on srcwells' case (1,048,576 cells,
    float32, 3 report steps, srcwells' Newton settings) with BASELINE.json's
@@ -314,8 +325,10 @@ KERNEL_INFO = {
         "launch"),
     "scalar_chebyshev": (
         "jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
-        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:716 (B7 "
-        "_kernel_slab_sweeps_cheby)"),
+        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:716 (one step of B7 "
+        "_kernel_slab_sweeps_cheby's and B6 :431's recurrence: the "
+        "per-step chain K9 and K11 are held to, which runs the Chebyshev "
+        "phases they do not take; B7's phase is scalar_chebyshev_slab)"),
     "fused_alpha_s": ("jutul/jl_tpu_torch/csrc/krylov_kernels.cu",
                       "jutul/jl_tpu/ops/pallas/krylov_kernels.py:98 (B10 "
                       "_kernel_alpha_s)"),
@@ -337,6 +350,11 @@ KERNEL_INFO = {
         ":602 (B8 _kernel_slab_sweeps_db, called by "
         "_scalar_slab_sweeps_db_call :648; both compute "
         "_slab_jacobi_compute :582)"),
+    "scalar_chebyshev_slab": (
+        "jutul/jl_tpu_torch/csrc/slab_kernels.cu",
+        "jutul/jl_tpu/ops/pallas/stencil_kernels.py:716 (B7 "
+        "_kernel_slab_sweeps_cheby, called by "
+        "_scalar_slab_sweeps_cheby_call :773)"),
 }
 _B9 = ("jutul/jl_tpu_torch/csrc/stencil_kernels.cu",
        "B9 (coef_dtype=bfloat16, jutul/jl_tpu/ops/pallas/stencil_kernels.py"
@@ -345,23 +363,27 @@ _LEVEL_CU = "jutul/jl_tpu_torch/csrc/level_kernels.cu"
 KERNEL_INFO.update({
     "stencil_matvec_bf16c": (_B9[0], _B9[1] + "B1 :83 _kernel"),
     "scalar_jacobi_bf16c": (_B9[0], _B9[1] + "B4 :252"),
-    "scalar_chebyshev_bf16c": (_B9[0], _B9[1] + "B7 :716"),
+    "scalar_chebyshev_bf16c": (_B9[0], _B9[1] + "B7 :716, one step a "
+                               "launch (the per-step chain)"),
     "scalar_sweeps_resident_bf16c": (_LEVEL_CU, _B9[1] + "B3 :389"),
     "scalar_chebyshev_resident_bf16c": (_LEVEL_CU, _B9[1] + "B6 :431"),
     "scalar_jacobi_slab_bf16c": ("jutul/jl_tpu_torch/csrc/slab_kernels.cu",
                                  _B9[1] + "B2 :555 and B8 :602"),
+    "scalar_chebyshev_slab_bf16c": (
+        "jutul/jl_tpu_torch/csrc/slab_kernels.cu", _B9[1] + "B7 :716"),
 })
 K8, K9 = "scalar_sweeps_resident", "scalar_chebyshev_resident"
-K10 = "scalar_jacobi_slab"
+K10, K11 = "scalar_jacobi_slab", "scalar_chebyshev_slab"
 SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
     # the well perforations; the lattice's three axes go through one launch;
     # K8/K9: the coarse GMG level's solve; K10: the fine and mid levels'
     # Jacobi phases, whatever slab_double_buffer says (the reference: B2 or
-    # B8 on the fine level, B3 on the mid); K2: the residual after a
-    # Chebyshev presmooth)
+    # B8 on the fine level, B3 on the mid); K11: their Chebyshev phases, the
+    # residual after a presmooth included (the reference: B7 on the fine
+    # level, B6 on the mid))
     "srcwells": ("stencil_matvec", K10, "darcy_flux_jacobian_lattice", K8),
-    "wells": ("stencil_matvec", "scalar_jacobi", "darcy_flux_jacobian",
-              "darcy_flux_jacobian_lattice", "scalar_chebyshev", K9),
+    "wells": ("stencil_matvec", "darcy_flux_jacobian",
+              "darcy_flux_jacobian_lattice", K11, K9),
     "wells-jacobi-fused": ("stencil_matvec", "darcy_flux_jacobian",
                            "darcy_flux_jacobian_lattice", K10,
                            "fused_alpha_s", "fused_omega_update", K8),
@@ -372,12 +394,16 @@ SLICE_KERNELS = {  # kernels each slice must launch (the per-axis K3:
     "wells-product-bf16": ("stencil_matvec", "stencil_matvec_bf16c",
                            K10 + "_bf16c", "darcy_flux_jacobian",
                            "darcy_flux_jacobian_lattice", K8 + "_bf16c"),
-    "wells-product-bf16-cheby": ("stencil_matvec_bf16c",
-                                 "scalar_jacobi_bf16c",
-                                 "scalar_chebyshev_bf16c", K9 + "_bf16c"),
+    "wells-product-bf16-cheby": ("stencil_matvec_bf16c", K11 + "_bf16c",
+                                 K9 + "_bf16c"),
     "wells-product-bf16-phases": ("stencil_matvec_bf16c", K10 + "_bf16c",
                                   K8 + "_bf16c"),
 }
+# the bf16 Chebyshev schedule path on the 10x10x6 well model, whose levels
+# are all under SLAB_MIN_CELLS: the K4 and K2 chains' bf16 entries run its
+# smoothing phases, K9's the coarse solve (``phase_small_chains``)
+SLICE_KERNELS["wells-small-bf16-cheby"] = (
+    "scalar_jacobi_bf16c", "scalar_chebyshev_bf16c", K9 + "_bf16c")
 SLICE_KERNELS["generic"] = ()  # the generic path has no kernel of its own
 SLICE_KERNELS["eager-options"] = SLICE_KERNELS["wells-jacobi-eager"]
 SLICE_KERNELS["generic-fused"] = ("fused_alpha_s", "fused_omega_update")
@@ -388,8 +414,10 @@ SLICE_KERNELS["multimodel-fused"] = SLICE_KERNELS["generic-fused"]
 SLICE_KERNELS["weno-transport"] = ()
 SLICE_KERNELS["nfvm-pressure"] = ()
 SLICE_KERNELS["weno-transport-fused"] = SLICE_KERNELS["generic-fused"]
-_F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", K8, K9, K10)
-# K1-K4, K8-K10 and every bf16 entry: the stencil engine's kernels
+_F32_LEVEL = ("scalar_jacobi", "scalar_chebyshev", K8, K9, K10, K11)
+# the chains K9, K10 and K11 replace on the flagship's levels
+_CHAINS = ("scalar_jacobi", "scalar_chebyshev")
+# K1-K4, K8-K11 and every bf16 entry: the stencil engine's kernels
 _STENCIL_KERNELS = tuple(k for k in KERNEL_INFO
                          if k not in ("fused_alpha_s", "fused_omega_update"))
 SLICE_FORBIDDEN = {  # kernels a slice must never launch
@@ -400,24 +428,32 @@ SLICE_FORBIDDEN = {  # kernels a slice must never launch
     "weno-transport": tuple(KERNEL_INFO),
     "nfvm-pressure": tuple(KERNEL_INFO),
     "weno-transport-fused": _STENCIL_KERNELS,
-    "wells-jacobi-fused": ("scalar_jacobi", "scalar_chebyshev", K9),
+    "wells": _CHAINS,
+    "wells-jacobi-fused": _CHAINS + (K9, K11),
     "wells-product": tuple(k for k in KERNEL_INFO if k.endswith("_bf16c")),
     "wells-product-bf16": _F32_LEVEL,
-    "wells-product-bf16-cheby": _F32_LEVEL,
+    "wells-product-bf16-cheby": _F32_LEVEL + tuple(
+        k + "_bf16c" for k in _CHAINS),
+    "wells-small-bf16-cheby": _F32_LEVEL + (K11 + "_bf16c",),
     "wells-product-bf16-phases": _F32_LEVEL + ("scalar_jacobi_bf16c",),
 }
 # the slice whose launches a kernel's JSON entry reports as ``launches``
+# (K2 and K4 now launch on the full-width slices nowhere: the levels they
+# still run, under SLAB_MIN_CELLS outside the coarse solve, are those of the
+# wells slice's float64 cross-check on the card and, for their bf16
+# entries, of the bf16 Chebyshev schedule path at 10x10x6)
 MAIN_SLICE = {"stencil_matvec": "wells-jacobi-fused",
-              "scalar_jacobi": "wells",
+              "scalar_jacobi": "wells-cross-check",
               "darcy_flux_jacobian": "wells-jacobi-fused",
               "darcy_flux_jacobian_lattice": "wells-jacobi-fused",
-              "scalar_chebyshev": "wells",
+              "scalar_chebyshev": "wells-cross-check",
               "fused_alpha_s": "wells-jacobi-fused",
               "fused_omega_update": "wells-jacobi-fused",
               K8: "srcwells", K9: "wells",
               "stencil_matvec_bf16c": "wells-product-bf16",
-              "scalar_jacobi_bf16c": "wells-product-bf16-cheby",
-              "scalar_chebyshev_bf16c": "wells-product-bf16-cheby",
+              "scalar_jacobi_bf16c": "wells-small-bf16-cheby",
+              "scalar_chebyshev_bf16c": "wells-small-bf16-cheby",
+              K11: "wells", K11 + "_bf16c": "wells-product-bf16-cheby",
               K8 + "_bf16c": "wells-product-bf16",
               K9 + "_bf16c": "wells-product-bf16-cheby",
               K10: "srcwells", K10 + "_bf16c": "wells-product-bf16"}
@@ -1661,28 +1697,33 @@ def kernel_checks_resident(case, records):
 
 
 SLAB_HOOKS = ("presmooth_residual", "postsmooth", "sweep_n")
+SLAB_CHEBY_HOOKS = ("presmooth_residual_cheby", "postsmooth_cheby",
+                    "sweep_n_cheby")
 
 
-def kernel_checks_slab(case, records):
-    """K10 on every level of the well flagship's Jacobi GMG hierarchy that
-    ``ScalarLevel`` routes to it (the fine (64, 64, 256) and mid
-    (32, 32, 128) levels: at least ``SLAB_MIN_CELLS`` cells), float32 and
-    float64 vectors and bfloat16 coefficients: every phase hook
-    (presmooth+residual and postsmooth at 1-3 sweeps, sweep_n at 2 and 12:
-    the latter in ``phase_chunks``' launches) through the routed level, the
-    launches ``phase_chunks`` gives, equal bit for bit to the K2 chain it
-    replaces (``ScalarLevel(resident=False, slab=False)``) and within
-    REL_TOL of the plain version. Then the V-cycle's two hooks at 2 sweeps
-    on each level timed in turns with the chain (K10, chain, chain, K10) as
-    CUDA-graph replays, beside K8's grid form where the level fits it,
-    eager ms (20 calls back to back) of K10 and the chain, the plain
-    version and the hook's bound (7 coefficient streams, b and u in where
-    given, u and r out where made, once, over 3.35 TB/s).
+def kernel_checks_slab(case, records, cheby=False):
+    """K10 (``cheby``: K11) on every level of the well flagship's Jacobi
+    (Chebyshev) GMG hierarchy that ``ScalarLevel`` routes to it (the fine
+    (64, 64, 256) and mid (32, 32, 128) levels: at least
+    ``SLAB_MIN_CELLS`` cells), float32 and float64 vectors and bfloat16
+    coefficients, every phase hook through the routed level: for K10
+    presmooth+residual and postsmooth at 1-3 sweeps and sweep_n at 2 and
+    12, in ``phase_chunks``' launches; for K11 presmooth+residual and
+    postsmooth at 1-3 steps, one launch up to the level's depth (2) and the
+    K4 chain beyond. Each equal bit for bit to the chain it replaces (K2's;
+    K4's and K2's residual: ``ScalarLevel(resident=False, slab=False)``)
+    and within REL_TOL of the plain version. Then the V-cycle's two hooks
+    at 2 sweeps on each level timed in turns with the chain (kernel, chain,
+    chain, kernel) as CUDA-graph replays, beside K8's (K9's) grid form
+    where the level fits it, eager ms (20 calls back to back) of the
+    kernel and the chain, the plain version and the hook's bound (7
+    coefficient streams, b and u in where given, u and r out where made,
+    once, over 3.35 TB/s).
 
-    All of it twice: through the default GMG (the reference's B2; rows
-    ``levels``) and through one with ``gmg.slab_double_buffer = True``
-    (B8's route; rows ``b8_levels``), whose every level and hook must
-    route as the default's."""
+    K10's checks run twice: through the default GMG (the reference's B2;
+    timed, rows ``levels``) and through one with ``gmg.slab_double_buffer
+    = True`` (B8's route, untimed), whose every level and hook must route
+    as the default's."""
     from jutul.jl_tpu_torch import compile_model, from_numpy
     from jutul.jl_tpu_torch.models.setup import merge_state
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
@@ -1691,8 +1732,9 @@ def kernel_checks_slab(case, records):
 
     model, state0, params, forces = case
     eng = BorderedStencilModel(compile_model(model), "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(10)
-    wrapper = SK.scalar_jacobi_slab
+    gen = torch.Generator(device="cuda").manual_seed(11 if cheby else 10)
+    kernel = K11 if cheby else K10
+    hooks = SLAB_CHEBY_HOOKS if cheby else SLAB_HOOKS
     for dtype in (torch.float32, torch.float64):
         full = merge_state(from_numpy(state0, "cuda", dtype),
                            from_numpy(params, "cuda", dtype))
@@ -1701,63 +1743,84 @@ def kernel_checks_slab(case, records):
         for cd in (None, "bf16"):
             if cd and dtype == torch.float64:
                 continue  # bfloat16 coefficients: float32 vectors only
-            name = K10 + ("_bf16c" if cd else "")
-            counter = "launches_bf16c" if cd else "launches"
+            name = kernel + ("_bf16c" if cd else "")
             rec = records[name]
             default_routes = None
-            for b8 in (False, True):
+            # K10 again on B8's route (the flag changes no route), untimed
+            for b8 in (False, True) if not cheby else (False,):
                 gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
-                          coef_dtype=cd)
+                          coef_dtype=cd,
+                          smoother="chebyshev" if cheby else "jacobi")
                 gmg.slab_double_buffer = b8
                 pst = StencilCPR(gmg=gmg).update(B.A)
-                routes = [[lv.route(h, like) for h in SLAB_HOOKS]
+                routes = [[lv.route(h, like) for h in hooks]
                           for lv in pst.mvs]
                 if b8 and routes != default_routes:
                     raise RuntimeError(f"{name}: B8's route {routes} differs "
                                        f"from the default's {default_routes}")
                 default_routes = routes
-                rows = rec.extra.setdefault(
-                    "b8_levels" if b8 else "levels", [])
-                route_tag = "B8 " if b8 else ""
-                _slab_levels(SK, pst, gmg, dtype, gen, rec, rows, wrapper,
-                             counter, f"{route_tag}{name}",
-                             timed_call=not b8)
+                _slab_levels(SK, pst, gmg, dtype, gen, rec,
+                             f"{'B8 ' if b8 else ''}{name}", cheby,
+                             timed=not b8)
                 del pst
         del B
         torch.cuda.empty_cache()
-    log("  K10 = the K2 chain on the card, bitwise, on the fine and mid "
-        "levels, every hook, on the default route and on B8's")
+    log(f"  {'K11 = the K4 chain' if cheby else 'K10 = the K2 chain'} on "
+        "the card, bitwise, on the fine and mid levels, every hook" +
+        ("" if cheby else ", on the default route and on B8's"))
 
 
-def _slab_levels(SK, pst, gmg, dtype, gen, rec, rows, wrapper, counter,
-                 name, timed_call):
-    """``kernel_checks_slab``'s checks and timings on the levels of ``pst``
-    that route to K10 (raises unless the fine and the mid level do), its
-    timed rows appended to ``rows``; ``timed_call``: the fine level's
-    presmooth+residual is ``rec``'s timed call."""
+def _slab_levels(SK, pst, gmg, dtype, gen, rec, name, cheby, timed):
+    """``kernel_checks_slab``'s checks and, ``timed``, timings on the
+    levels of ``pst`` that route to K10 (``cheby``: K11); raises unless the
+    fine and the mid level do. Timed rows go to ``rec.extra["levels"]``; the fine
+    level's presmooth+residual is ``rec``'s timed call."""
     om = gmg.omega
+    wrapper = SK.scalar_chebyshev_slab if cheby else SK.scalar_jacobi_slab
+    counter = "launches_bf16c" if gmg.coef_dtype == "bf16" else "launches"
+    suffix = "_cheby" if cheby else ""
     routed = 0
-    for op, lv in zip(pst.ops, pst.mvs):
+    tables = pst.cheb or [None] * len(pst.ops)
+    for op, lv, steps in zip(pst.ops, pst.mvs, tables):
         n = op.n
         b, u = (torch.randn(n, generator=gen, device="cuda", dtype=dtype)
                 for _ in range(2))
-        if lv.route("presmooth_residual", b) != "slab":
+        if lv.route("presmooth_residual" + suffix, b) != "slab":
             continue
         routed += 1
         chain = SK.ScalarLevel(op, coef_dtype=gmg.coef_torch_dtype(),
                                resident=False, slab=False)
-        hooks = [(f"presmooth_residual x{k}", None, k, True,
-                  lambda l_, k=k: l_.presmooth_residual(b, om, k))
-                 for k in (1, 2, 3)]
-        hooks += [(f"postsmooth x{k}", u, k, False,
-                   lambda l_, k=k: (l_.postsmooth(u, b, om, k), None))
-                  for k in (1, 2, 3)]
-        hooks += [(f"sweep_n x{k}", None, k, False,
-                   lambda l_, k=k: (l_.sweep_n(b, om, k), None))
-                  for k in (2, 12)]
+        if cheby:
+            hooks = [(f"presmooth_residual_cheby x{k}", None, k, True,
+                      lambda l_, k=k: l_.presmooth_residual_cheby(
+                          b, steps, k)) for k in (1, 2, 3)]
+            hooks += [(f"postsmooth_cheby x{k}", u, k, False,
+                       lambda l_, k=k: (l_.postsmooth_cheby(u, b, steps, k),
+                                        None)) for k in (1, 2, 3)]
+        else:
+            hooks = [(f"presmooth_residual x{k}", None, k, True,
+                      lambda l_, k=k: l_.presmooth_residual(b, om, k))
+                     for k in (1, 2, 3)]
+            hooks += [(f"postsmooth x{k}", u, k, False,
+                       lambda l_, k=k: (l_.postsmooth(u, b, om, k), None))
+                      for k in (1, 2, 3)]
+            hooks += [(f"sweep_n x{k}", None, k, False,
+                       lambda l_, k=k: (l_.sweep_n(b, om, k), None))
+                      for k in (2, 12)]
+
+        def plain(u0, k, res):
+            if cheby:
+                return SK.scalar_chebyshev_slab_plain(lv.coef, b, u0, steps,
+                                                      k, res, lv.L)
+            return SK.scalar_jacobi_slab_plain(lv.coef, b, u0, om, k, res,
+                                               lv.L)
+
         for what, u0, k, res, hook in hooks:
             tag = f"{name} {lv.L} {what}"
-            want = len(SK.phase_chunks(k, u0 is None, res, lv.depth))
+            if cheby:  # one launch up to the depth; d cannot cross launches
+                want = int(SK._phase_depth(u0, k, res) <= lv.depth)
+            else:
+                want = len(SK.phase_chunks(k, u0 is None, res, lv.depth))
             before = getattr(wrapper, counter)
             got = hook(lv)
             if getattr(wrapper, counter) != before + want:
@@ -1766,20 +1829,19 @@ def _slab_levels(SK, pst, gmg, dtype, gen, rec, rows, wrapper, counter,
                 if (g_ is None) != (w_ is None) or (
                         g_ is not None and not torch.equal(g_, w_)):
                     raise RuntimeError(f"{tag} [{dtype}]: differs from the "
-                                       "K2 chain")
-            ref = SK.scalar_jacobi_slab_plain(lv.coef, b, u0, om, k, res,
-                                              lv.L)
+                                       f"{'K4' if cheby else 'K2'} chain")
+            ref = plain(u0, k, res)
             rec.compare(dtype, tag, torch.stack(
                 [g_ for g_ in got if g_ is not None]),
                 torch.stack([r_ for r_ in ref if r_ is not None]))
-        if dtype != torch.float32:
+        if dtype != torch.float32 or not timed:
             continue
         csize = 2 if lv.coef.dtype == torch.bfloat16 else 4
         grid = SK.resident_plan(lv.L, dtype, lv.coef.dtype,
                                 SK.device_props(b.device, dtype,
                                                 lv.coef.dtype), "grid")
         for what, u0, k, res, hook in hooks:
-            if what not in ("presmooth_residual x2", "postsmooth x2"):
+            if k != 2 or what.startswith("sweep_n"):
                 continue  # the hooks the V-cycle calls here
             k_ms, c_ms, turns = _in_turns(lambda: hook(lv),
                                           lambda: hook(chain))
@@ -1789,34 +1851,36 @@ def _slab_levels(SK, pst, gmg, dtype, gen, rec, rows, wrapper, counter,
                    "hook": what,
                    "plan": list(SK.slab_plan(
                        lv.L, dtype, lv.coef.dtype,
-                       SK._phase_depth(u0, k, res), from_u)),
+                       SK._phase_depth(u0, k, res), from_u, cheby=cheby)),
                    "graph_ms": k_ms, "chain_graph_ms": c_ms,
                    "graph_ms_turns_k_chain_chain_k": turns,
                    "eager_ms": cuda_ms(lambda: hook(lv)),
                    "chain_eager_ms": cuda_ms(lambda: hook(chain)),
-                   "plain_ms": cuda_ms(
-                       lambda: SK.scalar_jacobi_slab_plain(
-                           lv.coef, b, u0, om, k, res, lv.L), reps=5),
+                   "plain_ms": cuda_ms(lambda: plain(u0, k, res), reps=5),
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                    "bound_bytes": nbytes}
             if grid is not None:
-                row["k8_grid_graph_ms"] = graph_ms(
-                    lambda: SK.scalar_sweeps_resident(
-                        lv.coef, b, u0, om, k, res, lv.L, "grid"))
+                row["k9_grid_graph_ms" if cheby else "k8_grid_graph_ms"] = \
+                    graph_ms(lambda: (SK.scalar_chebyshev_resident(
+                        lv.coef, b, u0, steps, k, res, lv.L, "grid")
+                        if cheby else SK.scalar_sweeps_resident(
+                            lv.coef, b, u0, om, k, res, lv.L, "grid")))
             row["share_of_bound"] = row["bound_ms"] / k_ms
             log(f"  {name} {lv.L} {what}: " + json.dumps(row))
-            rows.append(row)
-            if timed_call and op is pst.ops[0] and res:
+            rec.extra.setdefault("levels", []).append(row)
+            if op is pst.ops[0] and res:
                 # the record's timed call: the fine level's
-                # presmooth+residual; ~17 flops a cell and application
+                # presmooth+residual; ~17 flops a cell and application for
+                # a Jacobi sweep, ~20 for a Chebyshev step
                 rec.ms, rec.graph_ms = row["eager_ms"], k_ms
                 rec.plain_ms = row["plain_ms"]
                 rec.extra["chain_graph_ms"] = c_ms
                 rec.extra["timed"] = f"{what}, level {lv.L}"
-                rec.bytes, rec.ops = nbytes, 17 * 2 * n
+                rec.bytes, rec.ops = nbytes, (20 if cheby else 17) * 2 * n
     if routed != 2:
-        raise RuntimeError(f"{name}: {routed} levels route to K10, the "
-                           "flagship's fine and mid expected")
+        raise RuntimeError(f"{name}: {routed} levels route to "
+                           f"{'K11' if cheby else 'K10'}, the flagship's fine "
+                           "and mid expected")
 
 
 def kernel_checks_transpose(case, records):
@@ -1963,7 +2027,7 @@ def warm_up_multimodel():
     torch.cuda.synchronize()
 
 
-GMG_LEVEL_KERNELS = ("scalar_jacobi", "scalar_chebyshev", K8, K9, K10)
+GMG_LEVEL_KERNELS = ("scalar_jacobi", "scalar_chebyshev", K8, K9, K10, K11)
 
 
 def level_launches_per_vcycle(L, smoother, coef_dtype=None, n_smooth=2,
@@ -1972,8 +2036,9 @@ def level_launches_per_vcycle(L, smoother, coef_dtype=None, n_smooth=2,
     pressure hierarchy on ``L`` (nz, ny, nx), as ``ScalarLevel`` routes it
     (``level_route``) on a card with ``props`` (None: this card's): a
     "resident" hook is one K8/K9 launch, a "slab" hook the K10 launches of
-    ``phase_chunks``, a "chain" K2 one pass per sweep and residual, or K4
-    one step per launch and K2's residual after a Chebyshev presmooth.
+    ``phase_chunks`` or one K11 launch (a V-cycle phase never exceeds the
+    level's depth), a "chain" K2 one pass per sweep and residual, or K4 one
+    step per launch and K2's residual after a Chebyshev presmooth.
     ``GMG.slab_double_buffer`` changes no route. Keys as
     ``launch_counts``."""
     from jutul.jl_tpu_torch.ops.cuda import stencil_kernels as SK
@@ -2000,6 +2065,8 @@ def level_launches_per_vcycle(L, smoother, coef_dtype=None, n_smooth=2,
                                    depth=depth)
             if route == "resident":
                 out[(K9 if cheby else K8) + sfx] += 1
+            elif route == "slab" and cheby:
+                out[K11 + sfx] += 1
             elif cheby:
                 out["scalar_chebyshev" + sfx] += n_sweep
                 out["scalar_jacobi" + sfx] += res
@@ -2373,6 +2440,7 @@ def phase_cross_check(build, dims, smoother, name, phases=False,
     only and stays off). ``product``: through the schedule path with
     Eisenstat-Walker forcing (``simulate_jit``; its final state)."""
     from jutul.jl_tpu_torch import Simulator
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     model, state0, params, forces = build(*dims)
     runs = {}
@@ -2382,7 +2450,10 @@ def phase_cross_check(build, dims, smoother, name, phases=False,
         cfg = sim_config(64, smoother, product=product)
         cfg["linear_solver"].preconditioner.gmg.slab_double_buffer = phases
         run = sim.simulate_jit if product else sim.simulate
+        reset_launch_counts()
         res = run([DT] * 2, forces=rate_schedule(forces, 2), **cfg)
+        if dev == "cuda":
+            launches = launch_counts()
         minis = [m for r in res.reports for m in r["ministeps"]]
         runs[dev] = (res, [(m["iterations"], m["linear_iterations"],
                             m["success"]) for m in minis])
@@ -2399,8 +2470,49 @@ def phase_cross_check(build, dims, smoother, name, phases=False,
            "max_rel_dev_pressure": dev_p, "max_abs_dev_saturations": dev_s}
     log(f"# {name} cross-check card vs CPU ({'x'.join(map(str, dims))}, "
         f"f64, {smoother}): " + json.dumps(out))
+    # the card run's kernel launches (every level here is under
+    # SLAB_MIN_CELLS: the K2/K4 chains run it)
+    out["launches"] = launches
     if not (dev_p <= 1e-9 and dev_s <= 1e-9):
         raise RuntimeError(f"{name} cross-check: states differ: {out}")
+    return out
+
+
+def phase_small_chains(dims=WELL_SMALL, n_step=2):
+    """``wells-small-bf16-cheby``: wells-product-bf16-cheby's settings (the
+    schedule path, bfloat16 level coefficients, the Chebyshev smoother) on
+    the well model at ``dims`` in float32 on the card, ``n_step`` report
+    steps, GMG down to 64 cells. Every level is under SLAB_MIN_CELLS, so
+    the bfloat16 entries of the K4 and K2 chains run the smoothing phases
+    and K9's the coarse solve (``SLICE_KERNELS``); every report step must
+    succeed with a finite state."""
+    from jutul.jl_tpu_torch import Simulator, report_stats
+    from jutul.jl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    name = "wells-small-bf16-cheby"
+    model, state0, params, forces = build_well_flagship(*dims)
+    sim = Simulator(model, state0, params, use_stencil=True)  # the card
+    cfg = sim_config(64, "chebyshev", coef_dtype="bf16", product=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.simulate_jit([DT] * n_step, forces=rate_schedule(forces, n_step),
+                           **cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if not all(r["success"] for r in res.reports) or \
+            len(res.reports) != n_step or not all(
+                np.all(np.isfinite(v)) for v in res.states[-1].values()):
+        raise RuntimeError(f"{name}: a report step failed or a final state "
+                           "is not finite")
+    _check_launches(name, name, launches)
+    stats = report_stats(res.reports)
+    out = {"cells": int(np.prod(dims)), "report_steps": n_step,
+           "ministeps": stats["ministeps"], "newtons": stats["newtons"],
+           "linear_iterations": stats["linear_iterations"], "wall_s": wall,
+           "launches": launches}
+    log(f"# {name} ({'x'.join(map(str, dims))}, f32, bf16 coefficients): "
+        + json.dumps(out))
     return out
 
 
@@ -3040,7 +3152,7 @@ def phase_multimodel_cross_check(dims=WELL_SMALL_EW):
 ADJ_DT = 1.5 * 3600.0  # bench.py run_adjoint's report step (BENCH_ADJ_DT)
 # kernels the adjoint's sweep must never launch: the opt-in smoothers and
 # Krylov bodies, and every bfloat16 entry
-ADJOINT_FORBIDDEN = ("scalar_jacobi", "scalar_chebyshev", K9,
+ADJOINT_FORBIDDEN = ("scalar_jacobi", "scalar_chebyshev", K9, K11,
                      "fused_alpha_s", "fused_omega_update") + tuple(
     k for k in KERNEL_INFO if k.endswith("_bf16c"))
 
@@ -6270,6 +6382,7 @@ def main():
     kernel_checks_bf16(case_w, records)
     kernel_checks_resident(case_w, records)
     kernel_checks_slab(case_w, records)
+    kernel_checks_slab(case_w, records, cheby=True)
     kernel_checks_transpose(case_w, records)
     log(f"# kernel phases: {time.perf_counter() - t0:.1f} s")
     phase_warm_up()
@@ -6345,7 +6458,9 @@ def main():
     eager = phase_eager_options(case_ab, n_step=2)
     log(f"# eager-options: {time.perf_counter() - t0:.1f} s")
     phase_cross_check(build_flagship, SMALL, "jacobi", "srcwells")
-    phase_cross_check(build_well_flagship, WELL_SMALL, "chebyshev", "wells")
+    slices["wells-cross-check"] = phase_cross_check(
+        build_well_flagship, WELL_SMALL, "chebyshev", "wells")
+    slices["wells-small-bf16-cheby"] = phase_small_chains()
     phase_cross_check(build_well_flagship, WELL_SMALL, "jacobi",
                       "wells-jacobi-phases", phases=True)
     phase_cross_check(build_well_flagship, WELL_SMALL_EW, "jacobi",

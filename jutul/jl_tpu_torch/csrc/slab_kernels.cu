@@ -1,8 +1,9 @@
-// K10 scalar_jacobi_slab for Hopper (sm_90a): a whole weighted-Jacobi
-// smoothing phase of a large GMG level in one launch. Built by nvcc beside
+// K10 scalar_jacobi_slab and K11 scalar_chebyshev_slab for Hopper (sm_90a):
+// a whole weighted-Jacobi (K10) or Chebyshev (K11) smoothing phase of a
+// large GMG level in one launch, on one kernel template. Built by nvcc beside
 // the other sources into one shared library with a plain C interface
 // (ops/cuda/_build.py) and bound with ctypes (ops/cuda/stencil_kernels.py,
-// which also holds the plain PyTorch version, the launch planner
+// which also holds the plain PyTorch versions, the launch planner
 // slab_plan and the routing of GMG levels).
 //
 // K10 replaces jutul/jl_tpu/ops/pallas/stencil_kernels.py:_kernel_slab_sweeps
@@ -19,23 +20,40 @@
 // first sweep is omega*b*dinv) or from u0, then the sweeps, then optionally
 // the residual b - A u, in ONE launch.
 //
-// Values: each cell keeps K2's arithmetic (csrc/stencil_kernels.cu
-// scalar_jacobi_kernel): dinv = d != 0 ? 1/d : 0 from the widened diagonal,
-// acc = 0 then one fused multiply-add per term t = 0..6 (diag, +x, -x, +y,
-// -y, +z, -z) with the terms whose neighbour lies outside the lattice left
-// out, res = b - acc, u + omega*res*dinv written as K2 writes it so that nvcc
-// contracts it alike. So K10 equals the chain of K2 launches bit for bit,
-// as K8 does. A bfloat16 coefficient is widened where it is read.
+// K11 replaces _kernel_slab_sweeps_cheby (B7, :716; called by
+// _scalar_slab_sweeps_cheby_call :773, pallas_call :789), the same slab
+// level's Chebyshev phase: from zero (the first step is elementwise) or
+// from u0, n_sweep steps of the three-term recurrence, then optionally the
+// residual, in ONE launch. The direction d is elementwise in the
+// recurrence, so the halo math is the Jacobi phase's: d never needs a
+// neighbour and lives in the thread's registers beside its u values, one
+// plane per step in flight; it is never loaded or stored. The per-step
+// scalars (theta, then (c1, c2) of each step: linsolve/cheby.py
+// chebyshev_steps, on the device) are read once per CTA into shared memory.
 //
-// What bounds it on this card: the bytes its CTAs load (halos included)
-// and the z-march's serial steps. A phase must read 7 coefficient streams
-// and b (and u0) once and write u (and r): ~10 values a cell, 41.9 MB at
-// float32 on the flagship's 1,048,576-cell fine level (12.5 us at
-// 3.35 TB/s). The K2 chain reads the coefficients once per application;
-// a z-march with one thread per cell (the port's first B8 kernel, retired)
-// read them once per phase but was bound by instructions: 32x16 tiles with
-// a 2-deep xy halo, each thread issuing nine 4-byte copies per plane. K10
-// instead:
+// Values: each cell keeps the chain's arithmetic. K10 keeps K2's
+// (csrc/stencil_kernels.cu scalar_jacobi_kernel): dinv = d != 0 ? 1/d : 0
+// from the widened diagonal, acc = 0 then one fused multiply-add per term
+// t = 0..6 (diag, +x, -x, +y, -y, +z, -z) with the terms whose neighbour
+// lies outside the lattice left out, res = b - acc, u + omega*res*dinv
+// written as K2 writes it so that nvcc contracts it alike. K11 keeps K4's
+// (scalar_chebyshev_kernel) on the same acc: from zero d = (dinv*b)/theta;
+// r = dinv*(b - acc); the first step from u d = r/theta, step k
+// d = fma(c1, d, c2*r) (K4's c1*d + c2*r as nvcc contracts it there, as K9
+// pins it); u' = u + d. The residual is K2's b - acc. So K10 equals the
+// chain of K2 launches and K11 the chain of K4 steps (and K2's residual)
+// bit for bit, as K8 and K9 do. A bfloat16 coefficient is widened where it
+// is read.
+//
+// What bounds them on this card: the bytes their CTAs load (halos
+// included) and the z-march's serial steps. A phase must read 7
+// coefficient streams and b (and u0) once and write u (and r): ~10 values a
+// cell, 41.9 MB at float32 on the flagship's 1,048,576-cell fine level
+// (12.5 us at 3.35 TB/s). The K2 and K4 chains read the coefficients once
+// per application (K4 also d in and out); a z-march with one thread per
+// cell (the port's first B8 kernel, retired) read them once per phase but
+// was bound by instructions: 32x16 tiles with a 2-deep xy halo, each thread
+// issuing nine 4-byte copies per plane. This kernel instead:
 // - gives a thread V consecutive cells of a lattice row (4 at float32
 //   vectors and at bfloat16 coefficients, 2 at float64): one 16-byte copy
 //   per stream (8 for bfloat16), one 16-byte shared load per term and
@@ -94,14 +112,20 @@ __host__ __device__ constexpr long long align16(long long v) {
 // ring of NAPP + kSlabPrefetch + 1 stages [7][cells] of CT (a plane's
 // coefficients are read by each of its sweeps); the vector ring of
 // kSlabPrefetch + 1 stages of b [cells] and, from u, u0 [cells] of T (read
-// when the plane arrives).
+// when the plane arrives); K11's step scalars, (theta, 0) and (c1, c2) of
+// at most kSlabMaxDepth + 1 steps.
+__host__ __device__ constexpr long long slab_steps_bytes(int tsize) {
+  return align16(2LL * (kSlabMaxDepth + 1) * tsize);
+}
 __host__ __device__ constexpr long long slab_smem_bytes(long long cells,
                                                         int napp, int csize,
                                                         int tsize,
-                                                        int from_u) {
+                                                        int from_u,
+                                                        bool cheby) {
   return align16(2LL * (napp > 0 ? napp : 1) * cells * tsize) +
          (napp + kSlabPrefetch + 1) * align16(7 * cells * csize) +
-         (kSlabPrefetch + 1) * (from_u ? 2 : 1) * align16(cells * tsize);
+         (kSlabPrefetch + 1) * (from_u ? 2 : 1) * align16(cells * tsize) +
+         (cheby ? slab_steps_bytes(tsize) : 0);
 }
 
 __device__ __forceinline__ float fmadd(float a, float b, float c) {
@@ -196,19 +220,21 @@ struct SlabArgs {
   const CT* coef;  // (7, n): diag, +x, -x, +y, -y, +z, -z
   const T* b;
   const T* u0;     // the start vector (from u), else unused
+  const T* steps;  // K11: (n_sweep, 2) step scalars, else unused
   T* u_out;
   T* r_out;        // the residual, or null
-  T omega;
-  int init_zero, nz, ny, nx;
+  T omega;         // K10's weight, else unused
+  int n_sweep, init_zero, nz, ny, nx;
   int ox, hx, tiles_x;  // a tile's own columns, its halo columns on each
                         // side (a multiple of V), tiles along x
   int oy, hy;           // a tile's own rows and its halo rows on each side
   int tz;               // a chunk's own planes
 };
 
-template <typename T, typename CT, int V, int NAPP>
+// CHEB: K11's per-cell update (K4's), else K10's (K2's).
+template <bool CHEB, typename T, typename CT, int V, int NAPP>
 __global__ void __launch_bounds__(kSlabThreads, 1)
-    scalar_jacobi_slab_kernel(const SlabArgs<T, CT> p) {
+    scalar_slab_kernel(const SlabArgs<T, CT> p) {
   constexpr int NS = NAPP > 0 ? NAPP : 1;
   // register rings of period P, indexed by plane: bv/dv hold planes
   // s - NAPP .. s, hist[j] sweep j's values on the same slots; the step
@@ -267,6 +293,24 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
   const long long vbytes = align16(static_cast<long long>(cells) * sizeof(T));
   const long long vstage = (from_u ? 2 : 1) * vbytes;
   unsigned char* vring = cring + RC * cstage;
+  // K11: theta, and the (c1, c2) of application k (1..NAPP) where it is a
+  // step (from zero, step k; from u, step k - 1, step 0 being r / theta)
+  T theta = T(0), c1[NS + 1], c2[NS + 1];
+  if constexpr (CHEB) {
+    T* sc = reinterpret_cast<T*>(vring + RV * vstage);
+    const int nt = static_cast<int>(blockDim.x * blockDim.y);
+    for (int i = ty * static_cast<int>(blockDim.x) + tx; i < 2 * p.n_sweep;
+         i += nt)
+      sc[i] = p.steps[i];
+    __syncthreads();
+    theta = sc[0];
+#pragma unroll
+    for (int k = 0; k <= NS; ++k) {
+      const int st = from_u ? k - 1 : k;
+      c1[k] = k >= 1 && st >= 1 && st < p.n_sweep ? sc[2 * st] : T(0);
+      c2[k] = k >= 1 && st >= 1 && st < p.n_sweep ? sc[2 * st + 1] : T(0);
+    }
+  }
   // the thread's coefficient t and vector i (b, u0) in ring slot c / v
   auto coef_at = [&](int c, int t) {
     return reinterpret_cast<CT*>(cring + c * cstage) + t * cells + lc;
@@ -307,14 +351,15 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
     cp_async_commit();
   };
 
-  T bv[P][V], dv[P][V], hist[NS][P][V];
+  // dh[j]: K11's direction after sweep j, on the same slots as hist
+  T bv[P][V], dv[P][V], hist[NS][P][V], dh[NS][P][V];
 #pragma unroll
   for (int m = 0; m < P; ++m) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       bv[m][v] = dv[m][v] = T(0);
 #pragma unroll
-      for (int j = 0; j < NS; ++j) hist[j][m][v] = T(0);
+      for (int j = 0; j < NS; ++j) hist[j][m][v] = dh[j][m][v] = T(0);
     }
   }
   for (int j = 0; j <= kSlabPrefetch; ++j) fetch(j, j % RC, j % RV);
@@ -347,12 +392,16 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
             const T d = widen(dr[v], T());
             dv[r][v] = d != T(0) ? T(1) / d : T(0);
             bv[r][v] = bb[v];
-            v0[v] = from_u ? uu[v] : p.omega * bb[v] * dv[r][v];
+            // from zero: K2 mode 0, or K4 mode 0 (d = u)
+            if constexpr (CHEB)
+              v0[v] = from_u ? uu[v] : (dv[r][v] * bb[v]) / theta;
+            else
+              v0[v] = from_u ? uu[v] : p.omega * bb[v] * dv[r][v];
           }
         }
       }
 #pragma unroll
-      for (int v = 0; v < V; ++v) hist[0][r][v] = v0[v];
+      for (int v = 0; v < V; ++v) hist[0][r][v] = dh[0][r][v] = v0[v];
       if (NAPP == 0 && owner && j < nsteps && s >= z0 && s < z1)
         store_words<TB>(p.u_out + s * plane + col, v0);
 #pragma unroll
@@ -361,9 +410,9 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
         const int m = (r - k + 2 * P) % P;     // its slot (a constant)
         const int mp = (m + 1) % P, mm = (m + P - 1) % P;  // +z, -z
         const int pl = zs + jk;  // sweep k's plane
-        T val[V];
+        T val[V], dk[V];  // sweep k's values and, K11, its direction
 #pragma unroll
-        for (int v = 0; v < V; ++v) val[v] = T(0);
+        for (int v = 0; v < V; ++v) val[v] = dk[v] = T(0);
         if (in_lat && jk >= 0 && jk < nsteps && dxy + dz(pl) <= NAPP - k) {
           // the in-plane neighbours of sweep k - 1, read unconditionally
           // (every index lies in the tile) so that the skips below select
@@ -395,8 +444,17 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
               acc = ok[t] ? f : acc;
             }
             const T res = bv[m][v] - acc;
-            val[v] = (residual && k == NAPP) ? res
-                                             : c + p.omega * res * dv[m][v];
+            if (residual && k == NAPP) {
+              val[v] = res;  // K2 mode 1
+            } else if constexpr (CHEB) {  // K4 modes 1 and 2
+              const T pr = dv[m][v] * res;  // K4's r
+              dk[v] = (from_u && k == 1) ? pr / theta
+                                         : fmadd(c1[k], dh[k - 1][m][v],
+                                                 c2[k] * pr);
+              val[v] = c + dk[v];
+            } else {  // K2 mode 2
+              val[v] = c + p.omega * res * dv[m][v];
+            }
           }
           if (k == NAPP && owner && pl >= z0 && pl < z1) {
             const long long i = pl * plane + col;
@@ -410,7 +468,10 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
         }
         if (k < NAPP) {
 #pragma unroll
-          for (int v = 0; v < V; ++v) hist[k][m][v] = val[v];
+          for (int v = 0; v < V; ++v) {
+            hist[k][m][v] = val[v];
+            dh[k][m][v] = dk[v];
+          }
         }
       }
       // publish sweeps 0..NAPP-1 (steps j .. j - NAPP + 1) for the next
@@ -435,10 +496,10 @@ inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T, typename CT, int V, int NAPP>
+template <bool CHEB, typename T, typename CT, int V, int NAPP>
 int launch_slab_depth(const SlabArgs<T, CT>& a, int tiles, int chunks,
                       int tx, int ty, long long smem, cudaStream_t st) {
-  auto kern = scalar_jacobi_slab_kernel<T, CT, V, NAPP>;
+  auto kern = scalar_slab_kernel<CHEB, T, CT, V, NAPP>;
   static long long raised = 48 * 1024;  // the dynamic limit set so far
   if (smem > raised) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -451,16 +512,16 @@ int launch_slab_depth(const SlabArgs<T, CT>& a, int tiles, int chunks,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename CT, int V>
+template <bool CHEB, typename T, typename CT, int V>
 int launch_slab_vec(const SlabArgs<T, CT>& a, int napp, int tiles,
                     int chunks, int tx, int ty, long long smem,
                     cudaStream_t st) {
   switch (napp) {
-    case 0: return launch_slab_depth<T, CT, V, 0>(a, tiles, chunks, tx, ty, smem, st);
-    case 1: return launch_slab_depth<T, CT, V, 1>(a, tiles, chunks, tx, ty, smem, st);
-    case 2: return launch_slab_depth<T, CT, V, 2>(a, tiles, chunks, tx, ty, smem, st);
-    case 3: return launch_slab_depth<T, CT, V, 3>(a, tiles, chunks, tx, ty, smem, st);
-    case 4: return launch_slab_depth<T, CT, V, 4>(a, tiles, chunks, tx, ty, smem, st);
+    case 0: return launch_slab_depth<CHEB, T, CT, V, 0>(a, tiles, chunks, tx, ty, smem, st);
+    case 1: return launch_slab_depth<CHEB, T, CT, V, 1>(a, tiles, chunks, tx, ty, smem, st);
+    case 2: return launch_slab_depth<CHEB, T, CT, V, 2>(a, tiles, chunks, tx, ty, smem, st);
+    case 3: return launch_slab_depth<CHEB, T, CT, V, 3>(a, tiles, chunks, tx, ty, smem, st);
+    case 4: return launch_slab_depth<CHEB, T, CT, V, 4>(a, tiles, chunks, tx, ty, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -472,15 +533,17 @@ int launch_slab_vec(const SlabArgs<T, CT>& a, int napp, int tiles,
 // that every copy stays aligned). Refuses (cudaErrorInvalidValue) a plan
 // the kernel cannot run: a tile over the block's threads or the
 // shared-memory limit, a misaligned stream, more than kSlabMaxDepth
-// applications.
-template <typename T, typename CT>
-int launch_slab(const CT* coef, const T* b, const T* u0, T* u_out, T* r_out,
-                double omega, int n_sweep, int init_zero, int nz, int ny,
-                int nx, int vec, int ox, int oy, int tz, void* stream) {
+// applications; for K11 (CHEB) no step or no step table.
+template <bool CHEB, typename T, typename CT>
+int launch_slab(const CT* coef, const T* b, const T* u0, const T* steps,
+                T* u_out, T* r_out, double omega, int n_sweep, int init_zero,
+                int nz, int ny, int nx, int vec, int ox, int oy, int tz,
+                void* stream) {
   constexpr int VMAX = sizeof(T) == 8 ? 2 : 4;
   const int napp = (init_zero ? n_sweep - 1 : n_sweep) + (r_out ? 1 : 0);
   const long long n = static_cast<long long>(nz) * ny * nx;
-  if (napp < 0 || napp > kSlabMaxDepth || (init_zero && n_sweep < 1))
+  if (napp < 0 || napp > kSlabMaxDepth || (init_zero && n_sweep < 1) ||
+      (CHEB && (n_sweep < 1 || steps == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   if ((vec != 1 && vec != VMAX) || nx % vec || ox < 1 || ox % vec ||
@@ -495,7 +558,7 @@ int launch_slab(const CT* coef, const T* b, const T* u0, T* u_out, T* r_out,
   const int ty = (bands > 1 ? oy : ny) + 2 * hy;
   const long long cells = static_cast<long long>(ty) * tx;
   const long long smem = slab_smem_bytes(cells, napp, sizeof(CT), sizeof(T),
-                                         !init_zero);
+                                         !init_zero, CHEB);
   const long long tiles = static_cast<long long>(tiles_x) * bands;
   if (cells / vec > kSlabThreads || smem > kSlabMaxSmem || chunks > 65535 ||
       tiles > INT32_MAX)
@@ -508,9 +571,11 @@ int launch_slab(const CT* coef, const T* b, const T* u0, T* u_out, T* r_out,
   a.coef = coef;
   a.b = b;
   a.u0 = u0;
+  a.steps = steps;
   a.u_out = u_out;
   a.r_out = r_out;
   a.omega = static_cast<T>(omega);
+  a.n_sweep = n_sweep;
   a.init_zero = init_zero;
   a.nz = nz;
   a.ny = ny;
@@ -524,8 +589,10 @@ int launch_slab(const CT* coef, const T* b, const T* u0, T* u_out, T* r_out,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt = static_cast<int>(tiles);
   if (vec == 1)
-    return launch_slab_vec<T, CT, 1>(a, napp, nt, chunks, tx, ty, smem, st);
-  return launch_slab_vec<T, CT, VMAX>(a, napp, nt, chunks, tx, ty, smem, st);
+    return launch_slab_vec<CHEB, T, CT, 1>(a, napp, nt, chunks, tx, ty, smem,
+                                           st);
+  return launch_slab_vec<CHEB, T, CT, VMAX>(a, napp, nt, chunks, tx, ty,
+                                            smem, st);
 }
 
 }  // namespace
@@ -537,9 +604,9 @@ int jt_scalar_jacobi_slab_f32(const float* coef, const float* b,
                               double omega, int n_sweep, int init_zero,
                               int nz, int ny, int nx, int vec, int ox, int oy,
                               int tz, void* stream) {
-  return launch_slab<float, float>(coef, b, u0, u_out, r_out, omega, n_sweep,
-                                   init_zero, nz, ny, nx, vec, ox, oy, tz,
-                                   stream);
+  return launch_slab<false, float, float>(coef, b, u0, nullptr, u_out, r_out,
+                                          omega, n_sweep, init_zero, nz, ny,
+                                          nx, vec, ox, oy, tz, stream);
 }
 
 int jt_scalar_jacobi_slab_f64(const double* coef, const double* b,
@@ -547,9 +614,10 @@ int jt_scalar_jacobi_slab_f64(const double* coef, const double* b,
                               double omega, int n_sweep, int init_zero,
                               int nz, int ny, int nx, int vec, int ox, int oy,
                               int tz, void* stream) {
-  return launch_slab<double, double>(coef, b, u0, u_out, r_out, omega,
-                                     n_sweep, init_zero, nz, ny, nx, vec, ox,
-                                     oy, tz, stream);
+  return launch_slab<false, double, double>(coef, b, u0, nullptr, u_out,
+                                            r_out, omega, n_sweep, init_zero,
+                                            nz, ny, nx, vec, ox, oy, tz,
+                                            stream);
 }
 
 // bfloat16 coefficients, float32 vectors (B9 via B2).
@@ -559,9 +627,45 @@ int jt_scalar_jacobi_slab_bf16c_f32(const __nv_bfloat16* coef, const float* b,
                                     int init_zero, int nz, int ny, int nx,
                                     int vec, int ox, int oy, int tz,
                                     void* stream) {
-  return launch_slab<float, __nv_bfloat16>(coef, b, u0, u_out, r_out, omega,
-                                           n_sweep, init_zero, nz, ny, nx,
-                                           vec, ox, oy, tz, stream);
+  return launch_slab<false, float, __nv_bfloat16>(
+      coef, b, u0, nullptr, u_out, r_out, omega, n_sweep, init_zero, nz, ny,
+      nx, vec, ox, oy, tz, stream);
+}
+
+// K11: steps holds at least n_sweep rows (theta, 0), (c1, c2), ...
+int jt_scalar_chebyshev_slab_f32(const float* coef, const float* b,
+                                 const float* u0, const float* steps,
+                                 float* u_out, float* r_out, int n_sweep,
+                                 int init_zero, int nz, int ny, int nx,
+                                 int vec, int ox, int oy, int tz,
+                                 void* stream) {
+  return launch_slab<true, float, float>(coef, b, u0, steps, u_out, r_out,
+                                         0.0, n_sweep, init_zero, nz, ny, nx,
+                                         vec, ox, oy, tz, stream);
+}
+
+int jt_scalar_chebyshev_slab_f64(const double* coef, const double* b,
+                                 const double* u0, const double* steps,
+                                 double* u_out, double* r_out, int n_sweep,
+                                 int init_zero, int nz, int ny, int nx,
+                                 int vec, int ox, int oy, int tz,
+                                 void* stream) {
+  return launch_slab<true, double, double>(coef, b, u0, steps, u_out, r_out,
+                                           0.0, n_sweep, init_zero, nz, ny,
+                                           nx, vec, ox, oy, tz, stream);
+}
+
+// bfloat16 coefficients, float32 vectors (B9 via B7).
+int jt_scalar_chebyshev_slab_bf16c_f32(const __nv_bfloat16* coef,
+                                       const float* b, const float* u0,
+                                       const float* steps, float* u_out,
+                                       float* r_out, int n_sweep,
+                                       int init_zero, int nz, int ny, int nx,
+                                       int vec, int ox, int oy, int tz,
+                                       void* stream) {
+  return launch_slab<true, float, __nv_bfloat16>(
+      coef, b, u0, steps, u_out, r_out, 0.0, n_sweep, init_zero, nz, ny, nx,
+      vec, ox, oy, tz, stream);
 }
 
 }  // extern "C"

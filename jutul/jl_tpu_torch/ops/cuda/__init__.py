@@ -14,6 +14,7 @@ from .stencil_kernels import (  # noqa: F401
     StencilMatvec,
     scalar_chebyshev,
     scalar_chebyshev_resident,
+    scalar_chebyshev_slab,
     scalar_jacobi,
     scalar_jacobi_slab,
     scalar_sweeps_resident,
@@ -31,8 +32,9 @@ KERNELS = {
     "scalar_sweeps_resident": scalar_sweeps_resident,
     "scalar_chebyshev_resident": scalar_chebyshev_resident,
     "scalar_jacobi_slab": scalar_jacobi_slab,
+    "scalar_chebyshev_slab": scalar_chebyshev_slab,
 }
-# the bfloat16-coefficient entries of K1, K2, K4, K8, K9 and K10 count apart
+# the bfloat16-coefficient entries of K1, K2, K4 and K8-K11 count apart
 KERNELS_BF16C = {
     "stencil_matvec_bf16c": stencil_matvec,
     "scalar_jacobi_bf16c": scalar_jacobi,
@@ -40,6 +42,7 @@ KERNELS_BF16C = {
     "scalar_sweeps_resident_bf16c": scalar_sweeps_resident,
     "scalar_chebyshev_resident_bf16c": scalar_chebyshev_resident,
     "scalar_jacobi_slab_bf16c": scalar_jacobi_slab,
+    "scalar_chebyshev_slab_bf16c": scalar_chebyshev_slab,
 }
 
 

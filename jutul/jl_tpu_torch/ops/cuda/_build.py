@@ -47,13 +47,15 @@ _SIGNATURES = {
     "jt_scalar_chebyshev_resident": [_P] * 8 + [_I] * 9 + [_P],
     "jt_level_resident_props": [_P],
     "jt_scalar_jacobi_slab": [_P] * 5 + [_D] + [_I] * 9 + [_P],
+    "jt_scalar_chebyshev_slab": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 
 # entries that also exist with bfloat16 coefficients and float32 vectors
 _BF16C = ("jt_stencil_matvec", "jt_scalar_jacobi", "jt_scalar_chebyshev",
           "jt_scalar_sweeps_resident", "jt_scalar_chebyshev_resident",
-          "jt_level_resident_props", "jt_scalar_jacobi_slab")
+          "jt_level_resident_props", "jt_scalar_jacobi_slab",
+          "jt_scalar_chebyshev_slab")
 
 
 @dataclass

@@ -1,7 +1,7 @@
 """Stencil kernels K1 (block-stencil SpMV), K2 (scalar Jacobi pass), K4
 (scalar Chebyshev step), K8/K9 (a whole GMG level's Jacobi / Chebyshev
-phase held on chip) and K10 (a whole Jacobi phase of a large level, tiled
-and marched in z).
+phase held on chip) and K10/K11 (a whole Jacobi / Chebyshev phase of a
+large level, tiled and marched in z).
 
 Wrappers around ``csrc/stencil_kernels.cu``, ``csrc/level_kernels.cu`` and
 ``csrc/slab_kernels.cu``,
@@ -26,10 +26,13 @@ fallback.
   ``ScalarLevel(resident=False, slab=False)``). Bound by HBM bytes (7
   coefficient streams + 2–3 vectors per pass); a phase is a loop of
   launches, so the coefficients stream once per sweep.
-- K4 ``scalar_chebyshev`` replaces ``_kernel_slab_sweeps_cheby`` (B7): one
-  step of the Chebyshev recurrence on a scalar stencil, per-step scalars
-  read from a small device table. Bound by HBM bytes as K2 (plus the
-  direction vector d in and out); one launch per step.
+- K4 ``scalar_chebyshev``: one step of the Chebyshev recurrence on a
+  scalar stencil, per-step scalars read from a small device table. Bound
+  by HBM bytes as K2 (plus the direction vector d in and out); one launch
+  per step. Chains of it (and K2's residual) run the Chebyshev phases no
+  other kernel takes (levels under ``SLAB_MIN_CELLS`` outside the coarse
+  solve, ``sweep_n_cheby`` on a large level, ``ScalarLevel(resident=False,
+  slab=False)``); K9 and K11 are held to them.
 - K8 ``scalar_sweeps_resident`` replaces ``_kernel_sweeps`` (B3) and K9
   ``scalar_chebyshev_resident`` replaces ``_kernel_sweeps_cheby`` (B6): a
   whole level's Jacobi (K2's arithmetic) or Chebyshev (K4's) phase, with
@@ -56,6 +59,15 @@ fallback.
   first sweep's inputs (``slab_plan`` picks the tile per level). Its plain
   version is K2's plain loop (``scalar_jacobi_phase_plain``); it keeps
   K2's per-cell arithmetic, so it equals the K2 chain bit for bit.
+- K11 ``scalar_chebyshev_slab`` replaces ``_kernel_slab_sweeps_cheby``
+  (B7): a whole Chebyshev phase (from zero or from u, at most
+  ``SLAB_MAX_DEPTH`` applications, the residual if asked) in one launch on
+  K10's kernel template, tiles and planner. The direction d is elementwise
+  in the recurrence, so it stays in registers beside u and never touches
+  HBM; the step scalars are read once per CTA from the level's device
+  table. It keeps K4's per-cell arithmetic (and K2's residual), so it
+  equals the K4 chain bit for bit; its plain version is K4's plain loop
+  (``scalar_chebyshev_phase_plain``).
 
 Coefficient dtype (replaces the ``coef_dtype=bfloat16`` form of B1-B4 and
 B6-B8, jutul/jl_tpu/ops/pallas/stencil_kernels.py:177-231, :323, :819,
@@ -434,6 +446,21 @@ def scalar_chebyshev(coef, b, u, d, steps, step: int, mode: int, L):
 scalar_chebyshev.launches = scalar_chebyshev.launches_bf16c = 0
 
 
+def scalar_chebyshev_phase_plain(coef, b, u, steps, n_sweep: int,
+                                 emit_residual: bool, L):
+    """A Chebyshev phase as K4's plain loop — step 0 from zero (mode 0) or
+    from ``u`` (mode 1), then steps 1..n_sweep-1 (mode 2) with the scalars
+    of ``steps`` — and K2's plain residual if asked. Returns
+    (u, r or None)."""
+    mode = CHEB_ZERO if u is None else CHEB_FIRST
+    u, d = scalar_chebyshev_plain(coef, b, u, None, steps, 0, mode, L)
+    for k in range(1, n_sweep):
+        u, d = scalar_chebyshev_plain(coef, b, u, d, steps, k, CHEB_STEP, L)
+    r = scalar_jacobi_plain(coef, b, u, 0.0, MODE_RESIDUAL, L) \
+        if emit_residual else None
+    return u, r
+
+
 # ---------------------------------------------------------------------------
 # K8 / K9: a whole level's smoothing phase held on chip, one launch
 # ---------------------------------------------------------------------------
@@ -570,19 +597,8 @@ def device_props(device, dtype=torch.float32, coef_dtype=None) -> dict:
 scalar_sweeps_resident_plain = scalar_jacobi_phase_plain
 
 
-def scalar_chebyshev_resident_plain(coef, b, u, steps, n_sweep: int,
-                                    emit_residual: bool, L):
-    """Plain version of K9: K4's plain loop — step 0 from zero (mode 0) or
-    from ``u`` (mode 1), then steps 1..n_sweep-1 (mode 2) with the scalars
-    of ``steps`` — and K2's plain residual if asked. Returns
-    (u, r or None)."""
-    mode = CHEB_ZERO if u is None else CHEB_FIRST
-    u, d = scalar_chebyshev_plain(coef, b, u, None, steps, 0, mode, L)
-    for k in range(1, n_sweep):
-        u, d = scalar_chebyshev_plain(coef, b, u, d, steps, k, CHEB_STEP, L)
-    r = scalar_jacobi_plain(coef, b, u, 0.0, MODE_RESIDUAL, L) \
-        if emit_residual else None
-    return u, r
+# Plain version of K9: K4's plain loop and K2's residual -> (u, r or None)
+scalar_chebyshev_resident_plain = scalar_chebyshev_phase_plain
 
 
 def scalar_sweeps_resident(coef, b, u, omega: float, n_sweep: int,
@@ -674,7 +690,8 @@ scalar_chebyshev_resident.launches = \
 
 
 # ---------------------------------------------------------------------------
-# K10: a whole weighted-Jacobi phase of a large level, tiles marched in z
+# K10 / K11: a whole Jacobi / Chebyshev phase of a large level, tiles
+# marched in z (one kernel template, csrc/slab_kernels.cu)
 # ---------------------------------------------------------------------------
 SLAB_MAX_DEPTH = 4  # stencil applications per launch (csrc kSlabMaxDepth)
 SLAB_THREADS = 512  # threads per CTA at most (kSlabThreads)
@@ -682,9 +699,9 @@ SLAB_MAX_SMEM = 227 * 1024  # dynamic shared memory per CTA (kSlabMaxSmem)
 SLAB_SM_SMEM = 228 * 1024  # shared memory of one SM
 SLAB_PREFETCH = 1  # planes copied ahead (csrc kSlabPrefetch)
 # The JAX package's slab threshold (``scalar_level_ops``' ``min_cells``; it
-# takes B2, or B8, only where a level's streams also miss VMEM: the
+# takes B2, or B8, or B7, only where a level's streams also miss VMEM: the
 # flagship's fine level). ScalarLevel routes every level of at least this
-# many cells to K10: the fine and the mid level.
+# many cells to K10 and K11: the fine and the mid level.
 SLAB_MIN_CELLS = 65536
 # The planner's cost model (``slab_plan``), fitted to K10's times over a
 # grid of tiles on both flagship levels (scripts/slab_sweeps_probe.py,
@@ -702,18 +719,20 @@ def _a16(v: int) -> int:
 
 
 def slab_smem(cells: int, napp: int, csize: int, tsize: int,
-              from_u: bool) -> int:
-    """Dynamic shared memory of a K10 CTA whose tile holds ``cells`` cells of
-    a plane (csrc ``slab_smem_bytes``): the published sweeps, a ring of
-    ``napp + SLAB_PREFETCH + 1`` stages of the 7 coefficient streams and one
-    of ``SLAB_PREFETCH + 1`` stages of b (and u0)."""
+              from_u: bool, cheby: bool = False) -> int:
+    """Dynamic shared memory of a K10 (or, ``cheby``, K11) CTA whose tile
+    holds ``cells`` cells of a plane (csrc ``slab_smem_bytes``): the
+    published sweeps, a ring of ``napp + SLAB_PREFETCH + 1`` stages of the
+    7 coefficient streams and one of ``SLAB_PREFETCH + 1`` stages of b (and
+    u0); K11 adds its step scalars (its direction d lives in registers)."""
     return _a16(2 * max(napp, 1) * cells * tsize) + \
         (napp + SLAB_PREFETCH + 1) * _a16(7 * cells * csize) + \
-        (SLAB_PREFETCH + 1) * (2 if from_u else 1) * _a16(cells * tsize)
+        (SLAB_PREFETCH + 1) * (2 if from_u else 1) * _a16(cells * tsize) + \
+        (_a16(2 * (SLAB_MAX_DEPTH + 1) * tsize) if cheby else 0)
 
 
 def slab_tile(L, napp: int, vec: int, ox: int, oy: int):
-    """K10's tile for own columns ``ox`` and rows ``oy`` (csrc
+    """K10's and K11's tile for own columns ``ox`` and rows ``oy`` (csrc
     ``launch_slab``): ``(tiles along x, along y, tile columns, tile rows)``.
     A tile that does not cover its axis carries a halo on each side:
     ``napp`` rows, and ``napp`` columns rounded up to ``vec``."""
@@ -760,8 +779,9 @@ def _slab_bytes(hx, hy, hz, napp, full, thin):
 
 
 def slab_vec(nx: int, dtype) -> int:
-    """K10's cells per thread: one 16-byte copy of a float32 or float64
-    stream (4 or 2 cells) where ``nx`` is a multiple of it, else 1."""
+    """K10's and K11's cells per thread: one 16-byte copy of a float32 or
+    float64 stream (4 or 2 cells) where ``nx`` is a multiple of it, else
+    1."""
     v = 2 if dtype == torch.float64 else 4
     return v if nx % v == 0 else 1
 
@@ -770,14 +790,16 @@ _SLAB_PLANS = {}
 
 
 def slab_plan(L, dtype, coef_dtype, napp: int, from_u: bool,
-              props=None, vec=None):
-    """K10's launch for a phase of ``napp`` stencil applications on ``L``
-    (nz, ny, nx): ``(vec, ox, oy, tz)`` — cells a thread, a tile's own
-    columns and rows, a chunk's own planes — or None
+              props=None, vec=None, cheby: bool = False):
+    """K10's (``cheby``: K11's) launch for a phase of ``napp`` stencil
+    applications on ``L`` (nz, ny, nx): ``(vec, ox, oy, tz)`` — cells a
+    thread, a tile's own columns and rows, a chunk's own planes — or None
     where no tile fits (threads or shared memory, ``slab_tile``) or for
     more than ``SLAB_MAX_DEPTH`` applications. A pure function of its
     arguments (``props``: ``H100_PROPS``' keys, None for them). ``vec``
-    pins the cells a thread (1 for misaligned streams).
+    pins the cells a thread (1 for misaligned streams). Both kernels are
+    capped at 128 registers a thread (``__launch_bounds__(512, 1)``), which
+    the occupancy term assumes; K11's d adds registers, not bytes.
 
     Among the tiles that fit, the least of the cost model's largest term:
     the busiest SM's z-steps (waves x the longest chunk's loaded planes
@@ -792,7 +814,8 @@ def slab_plan(L, dtype, coef_dtype, napp: int, from_u: bool,
         return None
     nz, ny, nx = (int(v) for v in L)
     sms = int((props or H100_PROPS)["sms"])
-    key = (nz, ny, nx, dtype, coef_dtype, napp, bool(from_u), sms, vec)
+    key = (nz, ny, nx, dtype, coef_dtype, napp, bool(from_u), sms, vec,
+           bool(cheby))
     if key in _SLAB_PLANS:
         return _SLAB_PLANS[key]
     tsize = torch.empty(0, dtype=dtype).element_size()
@@ -814,7 +837,8 @@ def slab_plan(L, dtype, coef_dtype, napp: int, from_u: bool,
                 threads = tx // vec * ty
                 if threads > SLAB_THREADS:
                     continue
-                smem = slab_smem(tx * ty, napp, csize, tsize, from_u)
+                smem = slab_smem(tx * ty, napp, csize, tsize, from_u,
+                                 cheby)
                 if smem > SLAB_MAX_SMEM:
                     continue
                 per_sm = max(1, min(SLAB_SM_SMEM // (smem + 1024),
@@ -843,6 +867,8 @@ def slab_plan(L, dtype, coef_dtype, napp: int, from_u: bool,
 # Plain version of K10: K2's plain loop, ``n_sweep`` weighted-Jacobi sweeps
 # from ``u`` (None: from zero) and the residual if asked -> (u, r or None).
 scalar_jacobi_slab_plain = scalar_jacobi_phase_plain
+# Plain version of K11: K4's plain steps and K2's residual -> (u, r or None).
+scalar_chebyshev_slab_plain = scalar_chebyshev_phase_plain
 
 
 def scalar_jacobi_slab(coef, b, u, omega: float, n_sweep: int,
@@ -854,26 +880,66 @@ def scalar_jacobi_slab(coef, b, u, omega: float, n_sweep: int,
     if _is_cpu(b):
         return scalar_jacobi_slab_plain(coef, b, u, omega, n_sweep,
                                         emit_residual, L)
-    nz, ny, nx = L
-    n = nz * ny * nx
+    return _launch_slab(scalar_jacobi_slab, coef, b, u, None, omega,
+                        n_sweep, emit_residual, L, plan)
+
+
+def scalar_chebyshev_slab(coef, b, u, steps, n_sweep: int,
+                          emit_residual: bool, L, plan=None):
+    """K11 wrapper: ``n_sweep`` Chebyshev steps from ``u`` (None: from
+    zero) and the residual if asked (see ``scalar_chebyshev_slab_plain``;
+    ``steps`` holds at least ``n_sweep`` rows), at most ``SLAB_MAX_DEPTH``
+    stencil applications in one launch, tiled as ``slab_plan`` chooses
+    (``plan`` pins it). A deeper phase raises on every device (no launch
+    can carry d to the next), a lattice no tile fits on the card. Returns
+    (u, r or None)."""
+    _slab_napp("scalar_chebyshev_slab", u, n_sweep, emit_residual, True)
+    if _is_cpu(b):
+        return scalar_chebyshev_slab_plain(coef, b, u, steps, n_sweep,
+                                           emit_residual, L)
+    return _launch_slab(scalar_chebyshev_slab, coef, b, u, steps, 0.0,
+                        n_sweep, emit_residual, L, plan)
+
+
+def _slab_napp(name, u, n_sweep, emit_residual, cheby) -> int:
+    """The stencil applications of a K10 or (``cheby``) K11 launch; raises
+    beyond ``SLAB_MAX_DEPTH`` or for no sweep where one is needed (from
+    zero, or any Chebyshev phase)."""
     napp = _phase_depth(u, n_sweep, emit_residual)
-    if not 0 <= napp <= SLAB_MAX_DEPTH or (u is None and n_sweep < 1):
-        raise ValueError(f"scalar_jacobi_slab: {napp} stencil applications "
+    if not 0 <= napp <= SLAB_MAX_DEPTH or (u is None or cheby) and \
+            n_sweep < 1:
+        raise ValueError(f"{name}: {napp} stencil applications "
                          f"(n_sweep={n_sweep}, residual={emit_residual}); "
                          f"one launch takes 0..{SLAB_MAX_DEPTH}")
+    return napp
+
+
+def _launch_slab(wrapper, coef, b, u, steps, omega, n_sweep, emit_residual,
+                 L, plan):
+    """K10's (``steps`` None) or K11's launch on CUDA tensors."""
+    name = wrapper.__name__
+    cheby = steps is not None
+    nz, ny, nx = L
+    n = nz * ny * nx
+    napp = _slab_napp(name, u, n_sweep, emit_residual, cheby)
     b = b.contiguous()
-    entry, narrow = _coef_entry(coef, b, "scalar_jacobi_slab coef")
+    entry, narrow = _coef_entry(coef, b, f"{name} coef")
     if b.shape != (n,) or coef.shape != (TERMS, 1, n):
-        raise ValueError(f"scalar_jacobi_slab: bad shapes b {tuple(b.shape)},"
+        raise ValueError(f"{name}: bad shapes b {tuple(b.shape)},"
                          f" coef {tuple(coef.shape)} for L={L}")
     u_ptr = None
     if u is not None:
         u = u.contiguous()
-        _require(u, b, "scalar_jacobi_slab u")
+        _require(u, b, f"{name} u")
         if u.shape != (n,):
-            raise ValueError(f"scalar_jacobi_slab: bad shape u "
-                             f"{tuple(u.shape)}")
+            raise ValueError(f"{name}: bad shape u {tuple(u.shape)}")
         u_ptr = u.data_ptr()
+    if cheby:
+        _require(steps, b, f"{name} steps")
+        if steps.ndim != 2 or steps.shape[1] != 2 or \
+                steps.shape[0] < n_sweep:
+            raise ValueError(f"{name}: steps {tuple(steps.shape)} for "
+                             f"{n_sweep} steps")
     u_out = torch.empty_like(b)
     r_out = torch.empty_like(b) if emit_residual else None
     if plan is None:
@@ -885,33 +951,38 @@ def scalar_jacobi_slab(coef, b, u, omega: float, n_sweep: int,
         aligned = ptrs % 16 == 0 and coef.data_ptr() % (
             16 // b.element_size() * coef.element_size()) == 0
         plan = _slab_launch_plan(tuple(L), b.dtype, coef.dtype, napp,
-                                 u is not None, aligned, b.device)
+                                 u is not None, aligned, b.device, cheby)
     vec, ox, oy, tz = plan
-    check(load_library().fn("jt_scalar_jacobi_slab", entry)(
-        coef.data_ptr(), b.data_ptr(), u_ptr, u_out.data_ptr(),
-        None if r_out is None else r_out.data_ptr(), float(omega),
-        int(n_sweep), int(u is None), nz, ny, nx, vec, ox, oy, tz,
-        stream_handle()), "scalar_jacobi_slab")
-    _count(scalar_jacobi_slab, narrow)
+    head = [coef.data_ptr(), b.data_ptr(), u_ptr]
+    outs = [u_out.data_ptr(), None if r_out is None else r_out.data_ptr()]
+    args = head + [steps.data_ptr()] + outs if cheby else \
+        head + outs + [float(omega)]
+    check(load_library().fn(f"jt_{name}", entry)(
+        *args, int(n_sweep), int(u is None), nz, ny, nx, vec, ox, oy, tz,
+        stream_handle()), name)
+    _count(wrapper, narrow)
     return u_out, r_out
 
 
 @functools.cache
-def _slab_launch_plan(L, dtype, coef_dtype, napp, from_u, aligned, device):
+def _slab_launch_plan(L, dtype, coef_dtype, napp, from_u, aligned, device,
+                      cheby):
     """``slab_plan`` on ``device`` for a launch whose streams are ``aligned``
     for the type's V cells a thread (else V = 1); raises where no tile
     fits. Cached: the eager main path asks for the same few again and
     again."""
     vec = slab_vec(L[2], dtype) if aligned else 1
     plan = slab_plan(L, dtype, coef_dtype, napp, from_u,
-                     device_props(device, dtype, coef_dtype), vec)
+                     device_props(device, dtype, coef_dtype), vec, cheby)
     if plan is None:
-        raise ValueError(f"scalar_jacobi_slab: no tile of L={L} ({dtype}, "
-                         f"{napp} applications) fits a CTA")
+        raise ValueError(f"scalar_{'chebyshev' if cheby else 'jacobi'}_slab"
+                         f": no tile of L={L} ({dtype}, {napp} applications)"
+                         " fits a CTA")
     return plan
 
 
 scalar_jacobi_slab.launches = scalar_jacobi_slab.launches_bf16c = 0
+scalar_chebyshev_slab.launches = scalar_chebyshev_slab.launches_bf16c = 0
 
 
 @functools.cache
@@ -942,27 +1013,41 @@ def level_route(L, hook: str, dtype, coef_dtype, props,
     """Where ``ScalarLevel`` runs ``hook`` on a level of lattice ``L`` with
     vectors of ``dtype`` and coefficients of ``coef_dtype`` on a card with
     ``props``: "resident" (one K8/K9 launch: ``resident_plan`` holds the
-    level and ``RESIDENT_HOOKS`` marks the hook), else for the Jacobi hooks
-    "slab" (K10 launches: at least ``SLAB_MIN_CELLS`` cells and a tile of
+    level and ``RESIDENT_HOOKS`` marks the hook), else "slab" (K10 launches
+    of a Jacobi hook, one K11 launch of ``presmooth_residual_cheby`` or
+    ``postsmooth_cheby``: at least ``SLAB_MIN_CELLS`` cells and a tile of
     ``depth`` applications from u that fits), else "chain" (single K2 / K4
     passes). A pure function of its arguments; ``resident=False`` and
-    ``slab=False`` keep the chains."""
+    ``slab=False`` keep the chains.
+
+    ``sweep_n_cheby`` has no slab route: its d would have to cross
+    launches, and the reference's slab level has no such hook either (it
+    leaves a long Chebyshev solve on a large level to the per-step chain).
+    The fine and mid levels' V-cycle Chebyshev hooks take K11 on eager ms
+    measured beside the K4 chain in one call of chip_smoke.py (NVIDIA H100
+    80GB HBM3, 700 W; presmooth+residual / postsmooth at 2 steps, f32):
+    fine 0.0265 / 0.0335 against the chain's 0.0595 / 0.0471, mid
+    0.0420 / 0.0356 against 0.0956 / 0.0678. On the device alone the mid
+    level's chain is the faster (graph ms 0.0073 / 0.0057 against K11's
+    0.0079 / 0.0078), but each of its 2-3 launches costs more host time
+    than that (PERF.md §6)."""
     plan = resident_plan(L, dtype, coef_dtype, props) if resident else None
     if plan is not None and RESIDENT_HOOKS[plan[0]][hook]:
         return "resident"
-    if hook.endswith("_cheby"):
+    if hook == "sweep_n_cheby":
         return "chain"
     if slab and int(np.prod(L)) >= SLAB_MIN_CELLS and slab_plan(
-            L, dtype, coef_dtype, depth, True, props) is not None:
+            L, dtype, coef_dtype, depth, True, props,
+            cheby=hook.endswith("_cheby")) is not None:
         return "slab"
     return "chain"
 
 
 class ScalarLevel:
-    """GMG level ops for a ScalarStencil through K8/K9, K10, K2 and K4 — the
-    JAX package's level interface (``smooth0``/``smooth``/``residual``, the
-    fused Jacobi phase hooks ``presmooth_residual``/``postsmooth``/
-    ``sweep_n`` and their Chebyshev variants ``*_cheby``).
+    """GMG level ops for a ScalarStencil through K8/K9, K10/K11, K2 and
+    K4 — the JAX package's level interface (``smooth0``/``smooth``/
+    ``residual``, the fused Jacobi phase hooks ``presmooth_residual``/
+    ``postsmooth``/``sweep_n`` and their Chebyshev variants ``*_cheby``).
 
     Each hook runs where ``level_route`` sends it, as the JAX package's
     ``scalar_level_ops`` picks a level's kernels: a level that K8/K9 can
@@ -974,16 +1059,19 @@ class ScalarLevel:
     gives B2, or B8 under ``GMG.slab_double_buffer``, and its mid level,
     which the reference gives B3) run as K10 launches of whole phases,
     chunked to ``depth`` stencil applications as the JAX slab level chunks
-    ``sweep_n`` to its halo depth. The rest keep the chains: the Jacobi
-    hooks as a loop of single-pass K2 launches, the Chebyshev hooks as one
-    K4 launch per step and the residual after a Chebyshev presmooth as K2's
-    residual pass. Every route gives the same values: K8 and K10 keep K2's
-    arithmetic, K9 K4's. ``resident=False, slab=False`` runs every hook on
-    its chain (the card tests hold K8/K9 and K10 to it).
+    ``sweep_n`` to its halo depth, and its ``presmooth_residual_cheby`` and
+    ``postsmooth_cheby`` phases of at most ``depth`` applications as one
+    K11 launch each (the reference gives the fine level B7 and the mid
+    level B6). The rest keep the chains: the Jacobi hooks as a loop of
+    single-pass K2 launches, the Chebyshev hooks as one K4 launch per step
+    and the residual after a Chebyshev presmooth as K2's residual pass.
+    Every route gives the same values: K8 and K10 keep K2's arithmetic, K9
+    and K11 K4's. ``resident=False, slab=False`` runs every hook on its
+    chain (the card tests hold K8/K9 and K10/K11 to it).
 
-    ``depth``: K10's applications per launch, ``max(n_smooth, 2)`` as the
-    reference sizes its slab halo (``GMG.matvecs`` passes it), at most
-    ``SLAB_MAX_DEPTH``.
+    ``depth``: K10's and K11's applications per launch, ``max(n_smooth,
+    2)`` as the reference sizes its slab halo (``GMG.matvecs`` passes it),
+    at most ``SLAB_MAX_DEPTH``.
 
     The Chebyshev hooks take the level's per-step scalar table
     (``linsolve.cheby.chebyshev_steps``, built once per CPR update) where
@@ -1096,12 +1184,18 @@ class ScalarLevel:
         return u
 
     def _cheby_hook(self, hook, b, u, steps, n_sweep, emit_residual):
-        """A Chebyshev hook on its route: one K9 launch, or K4 steps (and
-        K2's residual). Returns (u, r or None)."""
-        if n_sweep >= 1 and self.route(hook, b) == "resident":
+        """A Chebyshev hook on its route: one K9 or K11 launch, or K4 steps
+        (and K2's residual) — also for a slab-routed phase deeper than
+        ``depth``, since d cannot cross launches. Returns (u, r or None)."""
+        route = self.route(hook, b) if n_sweep >= 1 else "chain"
+        if route == "resident":
             return scalar_chebyshev_resident(self.coef, b, u, steps, n_sweep,
                                              emit_residual, self.L,
                                              self.plan(b)[0])
+        if route == "slab" and \
+                _phase_depth(u, n_sweep, emit_residual) <= self.depth:
+            return scalar_chebyshev_slab(self.coef, b, u, steps, n_sweep,
+                                         emit_residual, self.L)
         u = self._cheby(b, u, steps, n_sweep)
         return u, self.residual(u, b) if emit_residual else None
 

@@ -10,7 +10,8 @@ Counterpart of the reference's hard-coded TPFA assembly path
 
 The hot operations run through the CUDA kernels of ``ops/cuda``: the
 face flux + Jacobian blocks (K3), the block-stencil SpMV (K1), the GMG
-level passes (K2 Jacobi/residual, K4 Chebyshev, K8/K9/K10 whole phases)
+level passes (K2 Jacobi/residual and K4 Chebyshev steps, K8–K11 whole
+phases)
 and, opted in, the fused BiCGStab body (K6/K7). On CPU tensors those
 wrappers run their plain PyTorch versions. Well models ride this engine
 through ``ops/stencil_wells.py`` (bordered matrix, Schur-eliminated
@@ -517,7 +518,7 @@ def _cheby_setup(A: ScalarStencil):
 def _cheby_smooth(lv, dinv, lmax, u, b, n_sweep, lower=0.25):
     """Chebyshev smoothing of the level via the shared recurrence
     (linsolve/cheby.py) with the level's residual op — the reference
-    the fused ``*_cheby`` level hooks (K4) are held to."""
+    the fused ``*_cheby`` level hooks (K4, K9, K11) are held to."""
     from ..linsolve.cheby import chebyshev_recurrence
 
     return chebyshev_recurrence(
@@ -536,7 +537,7 @@ class GMG:
     factor 2 only).
 
     ``coef_dtype``: None/"f32" keep the level coefficients as assembled;
-    "bf16" stores what the level kernels (K2, K4, K8, K9, K10) and CPR's
+    "bf16" stores what the level kernels (K2, K4, K8–K11) and CPR's
     stage-2 matvec (K1, K=1) read in bfloat16, at half the bytes, widened
     on load with the arithmetic in the vectors' dtype. The hierarchy's Galerkin
     coarsening and the Chebyshev bound stay in full precision. GMG is a
@@ -545,12 +546,13 @@ class GMG:
 
     ``smoother``: "jacobi" (weighted Jacobi through the K2 level kernel)
     or "chebyshev" (polynomial smoothing on [cheby_lower*lmax, lmax]
-    through K4; no dot products). On the levels K8/K9 hold
+    through K4's steps; no dot products). On the levels K8/K9 hold
     (``ScalarLevel``), the hooks ``RESIDENT_HOOKS`` marks — the coarse
     solve — run as one launch of K8 (Jacobi) or K9 (Chebyshev); the
-    Jacobi phases of levels of at least ``SLAB_MIN_CELLS`` cells (the fine
-    and mid levels) as one K10 launch each, ``max(n_smooth, 2)``
-    applications deep, as the reference's slab level.
+    smoothing phases of levels of at least ``SLAB_MIN_CELLS`` cells (the
+    fine and mid levels) as one K10 (Jacobi) or K11 (Chebyshev) launch
+    each, ``max(n_smooth, 2)`` applications deep, as the reference's slab
+    level.
 
     ``slab_double_buffer`` (an attribute, default False, set after
     construction as in the JAX package, where it selects the pipelined
@@ -667,12 +669,12 @@ class StencilCPRState:
     w: torch.Tensor  # (neq, n) quasi-IMPES row weights
     dinv: torch.Tensor  # (n, ndof, neq) inverse diagonal blocks
     ops: list  # GMG hierarchy of the pressure stencil
-    mvs: list  # per-level ScalarLevel ops (K2/K4/K8/K9/K10)
+    mvs: list  # per-level ScalarLevel ops (K2/K4/K8–K11)
     mv_A: StencilMatvec  # K1 matvec of the full block matrix
     mv_Ap: StencilMatvec  # K1 pressure-COLUMN matvec (K=1): stage 2
     # applies A to a vector that is nonzero only in the pressure dof, so
     # only the p-column coefficient streams need reading
-    cheb: list | None = None  # per-level Chebyshev step tables (K4)
+    cheb: list | None = None  # per-level Chebyshev step tables (K4/K9/K11)
 
 
 class StencilCPR:

@@ -6,6 +6,7 @@ data behind ``slab_plan``'s constants).
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 scripts/slab_sweeps_probe.py [--check-only] [--no-plans]
+                                         [--plans-only]
 
 1. builds the kernel library and prints ptxas's report for slab_kernels.cu
    (registers, spills, shared memory) on stderr;
@@ -24,9 +25,11 @@ Run from the repository root on a machine with a CUDA card and nvcc:
    back to back) of K10 and the chain, and the bound (7 coefficient
    streams, b and u in where given, u and r out where made, once, over
    3.35 TB/s);
-4. (unless --no-plans) graph ms of K10 over a grid of tiles (own columns
-   ox and rows oy, chunk planes tz) on both levels
-   and hooks, float32.
+4. (unless --no-plans) graph ms of K10, and of K11
+   ``scalar_chebyshev_slab`` (the same kernel template with the Chebyshev
+   update), over a grid of tiles (own columns ox and rows oy, chunk
+   planes tz) on both levels and the V-cycle's hooks, float32;
+   ``--plans-only`` runs this step alone.
 One JSON line per result; the card's name and power limit first.
 """
 
@@ -64,7 +67,8 @@ CHECK_L = [MID, FINE, (9, 13, 37), (5, 1, 16), (1, 8, 32), (3, 40, 20),
 TRACE = "--trace" in sys.argv
 
 
-def feasible(L, dtype, coef_dtype, napp, from_u, vec, ox, oy):
+def feasible(L, dtype, coef_dtype, napp, from_u, vec, ox, oy,
+             cheby=False):
     """Does the tile (vec, ox, oy) fit a CTA (threads, shared memory)?"""
     if L[2] % vec or ox % vec:
         return False
@@ -72,7 +76,7 @@ def feasible(L, dtype, coef_dtype, napp, from_u, vec, ox, oy):
     tsize = torch.empty(0, dtype=dtype).element_size()
     csize = 2 if coef_dtype == torch.bfloat16 else tsize
     return tx // vec * ty <= SK.SLAB_THREADS and SK.slab_smem(
-        tx * ty, napp, csize, tsize, from_u) <= SK.SLAB_MAX_SMEM
+        tx * ty, napp, csize, tsize, from_u, cheby) <= SK.SLAB_MAX_SMEM
 
 
 def pinned_plans(L, dtype, coef_dtype, napp, from_u):
@@ -196,7 +200,10 @@ def timings():
 
 
 def plan_grid():
-    """Graph ms of K10 over tiles: the data behind the planner's model."""
+    """Graph ms of K10 and K11 over tiles: the data behind the planner's
+    model."""
+    from jutul.jl_tpu_torch.linsolve.cheby import chebyshev_steps
+
     for L in (FINE, MID):
         nz, ny, nx = L
         A = cast(stencil(L, seed=1), torch.float32)
@@ -204,25 +211,33 @@ def plan_grid():
         b, u = (torch.randn(A.n, generator=g, device="cuda")
                 for _ in range(2))
         coef = SK.embed(A)[2]
-        for what, has_u, has_r, _ in _hooks(b, u):
-            u0 = u if has_u else None
-            rows = []
-            for ox in sorted({nx, nx // 2, nx // 4, 32}):
-                for oy in sorted({ny // 2, ny // 4, 16, 8, 4}):
-                    for tz in (1, 2, 4, 8, 12, 16):
-                        if tz > nz or ox > nx or oy > ny or not feasible(
-                                L, torch.float32, coef.dtype, 2, has_u, 4,
-                                ox, oy):
-                            continue
-                        plan = (4, ox, oy, tz)
-                        ms = graph_ms(lambda: SK.scalar_jacobi_slab(
-                            coef, b, u0, OMEGA, 2, has_r, L, plan))
-                        rows.append([ox, oy, tz, round(ms, 5)])
-            rows.sort(key=lambda r: r[-1])
-            print(json.dumps({"L": list(L), "hook": what,
-                              "planned": list(SK.slab_plan(
-                                  L, torch.float32, coef.dtype, 2, has_u)),
-                              "ox_oy_tz_ms": rows}), flush=True)
+        steps = chebyshev_steps(torch.tensor(2.5, device="cuda"), 0.25, 2)
+        for cheby in (False, True):
+            for what, has_u, has_r, _ in _hooks(b, u):
+                u0 = u if has_u else None
+                rows = []
+                for ox in sorted({nx, nx // 2, nx // 4, 32}):
+                    for oy in sorted({ny // 2, ny // 4, 16, 8, 4}):
+                        for tz in (1, 2, 4, 8, 12, 16):
+                            if tz > nz or ox > nx or oy > ny or \
+                                    not feasible(L, torch.float32,
+                                                 coef.dtype, 2, has_u, 4,
+                                                 ox, oy, cheby):
+                                continue
+                            plan = (4, ox, oy, tz)
+                            ms = graph_ms(
+                                lambda: SK.scalar_chebyshev_slab(
+                                    coef, b, u0, steps, 2, has_r, L, plan)
+                                if cheby else SK.scalar_jacobi_slab(
+                                    coef, b, u0, OMEGA, 2, has_r, L, plan))
+                            rows.append([ox, oy, tz, round(ms, 5)])
+                rows.sort(key=lambda r: r[-1])
+                print(json.dumps({"kernel": "K11" if cheby else "K10",
+                                  "L": list(L), "hook": what,
+                                  "planned": list(SK.slab_plan(
+                                      L, torch.float32, coef.dtype, 2,
+                                      has_u, cheby=cheby)),
+                                  "ox_oy_tz_ms": rows}), flush=True)
 
 
 def main():
@@ -240,6 +255,9 @@ def main():
     print(part[:end if end > 0 else 20000][:20000], file=sys.stderr,
           flush=True)
     print(json.dumps({"build_s": lib.build_seconds}), flush=True)
+    if "--plans-only" in sys.argv:
+        plan_grid()
+        return
     check()
     if "--check-only" not in sys.argv:
         timings()

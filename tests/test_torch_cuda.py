@@ -317,7 +317,8 @@ def test_launch_counters_reset(dev):
         "stencil_matvec_bf16c": 0, "scalar_jacobi_bf16c": 0,
         "scalar_chebyshev_bf16c": 0, "scalar_sweeps_resident_bf16c": 0,
         "scalar_chebyshev_resident_bf16c": 0,
-        "scalar_jacobi_slab": 0, "scalar_jacobi_slab_bf16c": 0}
+        "scalar_jacobi_slab": 0, "scalar_jacobi_slab_bf16c": 0,
+        "scalar_chebyshev_slab": 0, "scalar_chebyshev_slab_bf16c": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -1087,10 +1088,11 @@ SLAB_L = [(64, 64, 256), (32, 32, 128), (9, 13, 37), (5, 1, 16),
           (1, 8, 32), (3, 40, 20)]
 
 
-def _slab_tiles(L_, dtype, coef_dtype, napp, from_u):
+def _slab_tiles(L_, dtype, coef_dtype, napp, from_u, cheby=False):
     """The planner's tile (None) and pinned ones of several tiles along x
     and y and z-chunks of 1 and 2 planes (halos on every side), each at
-    the type's V and at V = 1, where they fit."""
+    the type's V and at V = 1, where they fit (K11's shared memory with
+    ``cheby``)."""
     nz, ny, nx = L_
     out = [None]
     size = 8 if dtype == torch.float64 else 4
@@ -1101,7 +1103,7 @@ def _slab_tiles(L_, dtype, coef_dtype, napp, from_u):
                            (nx, max(1, ny // 2), 2)):
             _, _, tx, ty = SK.slab_tile(L_, napp, vec, ox, oy)
             if tx // vec * ty <= SK.SLAB_THREADS and SK.slab_smem(
-                    tx * ty, napp, csize, size, from_u) <= \
+                    tx * ty, napp, csize, size, from_u, cheby) <= \
                     SK.SLAB_MAX_SMEM:
                 out.append((vec, ox, oy, tz))
     return out
@@ -1216,6 +1218,139 @@ def test_gmg_routes_the_fine_and_mid_levels_to_k10(dev):
     assert torch.equal(got, want)
     assert (counts["scalar_jacobi_slab"], counts["scalar_sweeps_resident"],
             counts["scalar_jacobi"]) == (4, 1, 0), counts
+
+
+# ---------------------------------------------------------------------------
+# K11: a whole Chebyshev phase of a large level in one launch, equal to the
+# K4 chain (and K2's residual) bit for bit
+# ---------------------------------------------------------------------------
+def _slab_steps(vec, dev):
+    from jutul.jl_tpu_torch.linsolve.cheby import chebyshev_steps
+
+    return chebyshev_steps(torch.tensor(2.5, dtype=vec, device=dev), 0.25,
+                           SK.SLAB_MAX_DEPTH + 1)
+
+
+@pytest.mark.parametrize("coef_dtype", [torch.float32, torch.float64,
+                                        torch.bfloat16])
+@pytest.mark.parametrize("L_", SLAB_L)
+def test_k11_equals_the_k4_chain_bitwise(dev, L_, coef_dtype):
+    """1-5 steps (at most SLAB_MAX_DEPTH applications), from zero and from
+    u, with and without the residual, under the planner's tile and pinned
+    ones: K11 equal to the K4 chain and K2's residual bit for bit, one
+    launch each, and within TOL of its plain version."""
+    c16, c32, b, u, _ = _scalar_coef(L_, dev, seed=sum(L_) + 2)
+    vec = torch.float64 if coef_dtype == torch.float64 else torch.float32
+    coef = {torch.bfloat16: c16, torch.float32: c32,
+            torch.float64: c32.double()}[coef_dtype]
+    b, u = b.to(vec), u.to(vec)
+    steps = _slab_steps(vec, dev)
+    counter = "launches_bf16c" if coef_dtype == torch.bfloat16 \
+        else "launches"
+    for u0 in (None, u):
+        for n_sweep in (1, 2, 3, 4, 5):
+            for res in (False, True):
+                napp = SK._phase_depth(u0, n_sweep, res)
+                if napp > SK.SLAB_MAX_DEPTH:
+                    continue
+                want = _k4_chain(coef, b, u0, steps, n_sweep, res, L_)
+                plain = SK.scalar_chebyshev_slab_plain(coef, b, u0, steps,
+                                                       n_sweep, res, L_)
+                for plan in _slab_tiles(L_, vec, coef_dtype, napp,
+                                        u0 is not None, cheby=True):
+                    case = (u0 is None, n_sweep, res, plan)
+                    if plan is None and SK.slab_plan(
+                            L_, vec, coef.dtype, napp, u0 is not None,
+                            cheby=True) is None:
+                        continue  # no tile holds it (4 f64 applications)
+                    before = getattr(SK.scalar_chebyshev_slab, counter)
+                    got = SK.scalar_chebyshev_slab(coef, b, u0, steps,
+                                                   n_sweep, res, L_, plan)
+                    assert getattr(SK.scalar_chebyshev_slab, counter) == \
+                        before + 1
+                    for g, w, p in zip(got, want, plain):
+                        assert (g is None) == (w is None), case
+                        if w is not None:
+                            assert torch.equal(g, w), case
+                            assert _rel(g, p) <= TOL[vec], case
+
+
+def test_k11_refuses_what_it_cannot_run(dev):
+    """More than SLAB_MAX_DEPTH applications, no step, a step table shorter
+    than the phase, or a tile the kernel cannot run: the wrapper raises and
+    counts no launch."""
+    L_ = (4, 8, 16)
+    coef = torch.zeros(7, 1, 512, device=dev)
+    b = torch.zeros(512, device=dev)
+    steps = _slab_steps(torch.float32, dev)
+    before = SK.scalar_chebyshev_slab.launches
+    with pytest.raises(ValueError, match="applications"):
+        SK.scalar_chebyshev_slab(coef, b, b, steps, SK.SLAB_MAX_DEPTH + 1,
+                                 False, L_)
+    with pytest.raises(ValueError, match="applications"):
+        SK.scalar_chebyshev_slab(coef, b, b, steps, 0, True, L_)
+    with pytest.raises(ValueError, match="steps"):
+        SK.scalar_chebyshev_slab(coef, b, b, steps[:2], 3, False, L_)
+    for plan in ((4, 6, 8, 1), (4, 16, 8, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            SK.scalar_chebyshev_slab(coef, b, None, steps, 2, True, L_,
+                                     plan)
+    assert SK.scalar_chebyshev_slab.launches == before
+
+
+@pytest.mark.parametrize("coef_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L_", [(64, 64, 256), (32, 32, 128), (9, 13, 37)])
+def test_k11_takes_unaligned_vectors(dev, L_, coef_dtype):
+    """b or u starting one element into its storage: the wrapper's
+    alignment test drops to one cell a thread, and K11 still equals the K4
+    chain and K2's residual bit for bit."""
+    c16, c32, b, u, _ = _scalar_coef(L_, dev, seed=sum(L_) + 3)
+    coef = c16 if coef_dtype == torch.bfloat16 else c32
+    steps = _slab_steps(torch.float32, dev)
+    for u0 in (None, u):
+        want = _k4_chain(coef, b, u0, steps, 2, u0 is None, L_)
+        for bb, uu in ((_unaligned(b), u0),
+                       (b, None if u0 is None else _unaligned(u0))):
+            got = SK.scalar_chebyshev_slab(coef, bb, uu, steps, 2,
+                                           u0 is None, L_)
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    assert torch.equal(g, w)
+
+
+def test_gmg_routes_the_fine_and_mid_chebyshev_hooks_to_k11(dev):
+    """The flagship's hierarchy with the Chebyshev smoother: a V-cycle's
+    smoothing phases on the fine and mid levels are one K11 launch each (4
+    a V-cycle), the coarse solve one K9 launch, and neither a K4 step nor
+    a K2 pass; the result equals the chains' bit for bit."""
+    from jutul.jl_tpu_torch.ops.stencil import GMG
+
+    g = torch.Generator().manual_seed(6)
+    L_ = (64, 64, 256)
+    nz, ny, nx = L_
+    n = nz * ny * nx
+    shapes = {0: (nz, ny, nx - 1), 1: (nz, ny - 1, nx), 2: (nz - 1, ny, nx)}
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    A = ScalarStencil(L_, (rnd(n).abs() + 6.0).to(dev),
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()},
+                      {a: -rnd(*s).abs().to(dev) for a, s in shapes.items()})
+    b = rnd(n).to(dev)
+    gmg = GMG(n_smooth=2, n_coarse_sweeps=12, min_cells=16384,
+              smoother="chebyshev")
+    ops = gmg.hierarchy(A)
+    mvs, cheb = gmg.matvecs(ops), gmg.cheby_data(ops)
+    assert [lv.route(h, b) for lv in mvs[:2] for h in (
+        "presmooth_residual_cheby", "postsmooth_cheby")] == ["slab"] * 4
+    chains = [SK.ScalarLevel(o, resident=False, slab=False) for o in ops]
+    kernels.reset_launch_counts()
+    got = gmg.vcycle(ops, b, mvs=mvs, cheb=cheb)
+    counts = kernels.launch_counts()
+    want = gmg.vcycle(ops, b, mvs=chains, cheb=cheb)
+    assert torch.equal(got, want)
+    assert (counts["scalar_chebyshev_slab"],
+            counts["scalar_chebyshev_resident"], counts["scalar_chebyshev"],
+            counts["scalar_jacobi"]) == (4, 1, 0, 0), counts
 
 
 def test_gmg_routes_the_coarse_solve_to_k8_k9(dev):

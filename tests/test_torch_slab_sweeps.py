@@ -8,9 +8,10 @@ GMG level in one launch) on the CPU, against the JAX package.
   every hook, ``n_smooth`` 2 and 3: to 1e-6 (float32) and 1e-12 (float64)
   of the largest value (of b for the residual) — the same sweeps, sums in
   another order;
-- the flagship's GMG hierarchy routes its Jacobi phases to K10 on the fine
-  and mid levels (the reference runs B2, or B8 under ``double_buffer``, on
-  the fine level and B3 on the mid) and the coarse solve to K8's cluster
+- the flagship's GMG hierarchy routes its Jacobi phases to K10 and its
+  V-cycle Chebyshev phases to K11 on the fine and mid levels (the
+  reference runs B2, or B8 under ``double_buffer``, or B7 on the fine level
+  and B3 or B6 on the mid) and the coarse solve to K8's or K9's cluster
   form; ``GMG.slab_double_buffer`` changes no route;
 - a V-cycle with K10 routing equals the chains exactly and the JAX
   V-cycle to the tolerances above;
@@ -129,10 +130,11 @@ def test_flagship_hierarchy_routes_k10_k8_k5(dtype, coef):
     """The fine and mid levels (at least SLAB_MIN_CELLS cells) run their
     Jacobi phases on K10 — the reference gives the fine level its slab
     kernel (B2, or B8) and the mid level, whose streams fit VMEM, B3; K10
-    measured faster there than K8's grid form. The coarse level runs its
-    solve on K8's cluster form; the Chebyshev hooks keep K4/K9;
-    ``slab=False`` keeps the chains; nothing routes to a kernel of its own
-    for B8."""
+    measured faster there than K8's grid form — and their V-cycle
+    Chebyshev phases on K11 (B7 on the fine level, B6 on the mid), but not
+    ``sweep_n_cheby`` (no slab route: d cannot cross launches). The coarse
+    level runs its solve on K8's or K9's cluster form; ``slab=False`` keeps
+    the chains; nothing routes to a kernel of its own for B8."""
     jac = ("presmooth_residual", "postsmooth", "sweep_n")
 
     def routes(L_, hooks, **kw):
@@ -144,7 +146,10 @@ def test_flagship_hierarchy_routes_k10_k8_k5(dtype, coef):
         assert routes(L_, jac) == ["slab"] * 3
         assert routes(L_, jac, depth=3) == ["slab"] * 3
         assert routes(L_, jac, slab=False) == ["chain"] * 3
-        assert routes(L_, [h + "_cheby" for h in jac]) == ["chain"] * 3
+        assert routes(L_, [h + "_cheby" for h in jac]) == \
+            ["slab", "slab", "chain"]
+        assert routes(L_, [h + "_cheby" for h in jac], slab=False) == \
+            ["chain"] * 3
     assert int(np.prod(coarse)) < SK.SLAB_MIN_CELLS
     assert routes(coarse, ["sweep_n"]) == ["resident"]
     assert routes(coarse, ["sweep_n_cheby"]) == ["resident"]
@@ -189,7 +194,8 @@ def test_level_launches_per_vcycle():
     """Per linear iteration (two V-cycles) on the flagship's hierarchy:
     the Jacobi slices 10 launches (K10 8, K8 2) and their bf16 forms
     alike, with B8's flag as without it (it changes no route,
-    ``test_b8_flag_routes_as_the_default``); the Chebyshev slice 22."""
+    ``test_b8_flag_routes_as_the_default``); the Chebyshev slices 10 (K11
+    8, K9 2), no K4 step and no K2 pass."""
     def per_lin(smoother, coef_dtype=None):
         got = chip_smoke.level_launches_per_vcycle(
             FLAGSHIP[0], smoother, coef_dtype, props=H100)
@@ -198,10 +204,9 @@ def test_level_launches_per_vcycle():
     assert per_lin("jacobi") == {K10: 8, K8: 2}
     assert per_lin("jacobi", "bf16") == {K10 + "_bf16c": 8,
                                          K8 + "_bf16c": 2}
-    assert per_lin("chebyshev") == {"scalar_chebyshev": 16,
-                                    "scalar_jacobi": 4, K9: 2}
-    assert per_lin("chebyshev", "bf16") == {"scalar_chebyshev_bf16c": 16,
-                                            "scalar_jacobi_bf16c": 4,
+    K11 = chip_smoke.K11
+    assert per_lin("chebyshev") == {K11: 8, K9: 2}
+    assert per_lin("chebyshev", "bf16") == {K11 + "_bf16c": 8,
                                             K9 + "_bf16c": 2}
 
 
@@ -215,11 +220,11 @@ def test_b8_flag_routes_as_the_default(dtype, coef):
     """On the flagship's three level shapes, under the H100's properties,
     the levels a GMG with ``slab_double_buffer`` builds take the same route
     for every hook as a GMG's without it — the pure ``level_route`` — and
-    none a route of its own: the fine and mid Jacobi hooks K10, the coarse
-    solve K8/K9."""
+    none a route of its own: the fine and mid Jacobi hooks K10, their
+    V-cycle Chebyshev hooks K11, the coarse solve K8/K9."""
     like = torch.empty(0, dtype=dtype)
-    want = {FLAGSHIP[0]: ["slab", "slab", "slab", "chain", "chain", "chain"],
-            FLAGSHIP[1]: ["slab", "slab", "slab", "chain", "chain", "chain"],
+    want = {FLAGSHIP[0]: ["slab", "slab", "slab", "slab", "slab", "chain"],
+            FLAGSHIP[1]: ["slab", "slab", "slab", "slab", "slab", "chain"],
             FLAGSHIP[2]: ["chain", "chain", "resident", "chain", "chain",
                           "resident"]}
     for L_ in FLAGSHIP:
