@@ -22,6 +22,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.timing import host_array, host_read
+
 
 def _identity(x):
     return x
@@ -34,8 +36,8 @@ def _tolerance(rtol, bnorm, atol):
     tolerance, float64 as the reference's traced Eisenstat-Walker eta:
     the product is formed in double)."""
     if torch.is_tensor(rtol):
-        return max(float(rtol) * float(bnorm), atol)
-    return float(torch.clamp(rtol * bnorm, min=atol))
+        return max(float(rtol) * host_read(bnorm), atol)
+    return host_read(torch.clamp(rtol * bnorm, min=atol))
 
 
 def gmres(matvec: Callable, b, x0=None, restart: int = 20,
@@ -75,7 +77,7 @@ def gmres(matvec: Callable, b, x0=None, restart: int = 20,
         cs = np.zeros(m, hdt)
         sn = np.zeros(m, hdt)
         g = np.zeros(m + 1, hdt)
-        g[0] = hdt(float(beta))
+        g[0] = hdt(host_read(beta))
         res, k = g[0], 0
         while k < m and float(res) > tol:  # one host read per step
             w = matvec(precond(V[k]))
@@ -95,7 +97,7 @@ def gmres(matvec: Callable, b, x0=None, restart: int = 20,
                 hcol = torch.cat([torch.stack(hs), b.new_zeros(m - k)])
             hk1 = norm(w)
             V[k + 1] = w / torch.where(hk1 > 0, hk1, torch.ones_like(hk1))
-            col = torch.cat([hcol, hk1[None]]).cpu().numpy().astype(hdt)
+            col = host_array(torch.cat([hcol, hk1[None]])).astype(hdt)
             col[k + 1] = col[m + 1]
             col = col[:m + 1]
             # previous Givens rotations on the new column
@@ -124,7 +126,7 @@ def gmres(matvec: Callable, b, x0=None, restart: int = 20,
         return x + dx, res, k
 
     x = x0
-    res = float(norm(b - matvec(x0)))
+    res = host_read(norm(b - matvec(x0)))
     its = cycles = 0
     while res > tol and its < maxiter:
         x, res_h, k = inner_cycle(x)
@@ -178,7 +180,7 @@ def bicgstab(matvec: Callable, b, maxiter: int = 200, rtol: float = 1e-8,
     rho, alpha, omega = one, one, one
     res = norm(r)
     it = 0
-    while float(res) > tol and it < maxiter:  # one host sync per iteration
+    while host_read(res) > tol and it < maxiter:  # one host sync per iteration
         rho_new = dot(rhat, r)
         beta = (rho_new / guard(rho)) * (alpha / guard(omega))
         p = r + beta * (p - omega * v)
@@ -195,7 +197,7 @@ def bicgstab(matvec: Callable, b, maxiter: int = 200, rtol: float = 1e-8,
         rho = rho_new
         it += 1
     return x, {"iterations": it, "residual": res,
-               "converged": float(res) <= tol}
+               "converged": host_read(res) <= tol}
 
 
 def resolve_bicgstab(dtype, use_fused: bool | None):

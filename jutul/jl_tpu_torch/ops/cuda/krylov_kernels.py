@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.timing import host_read
 from ._build import check, dtype_suffix, load_library, stream_handle
 from .stencil_kernels import _is_cpu, _require
 
@@ -165,11 +166,11 @@ def bicgstab_fused(matvec, b, x0=None, maxiter: int = 200, rtol: float = 1e-8,
     if torch.is_tensor(rtol):
         # a per-call forcing tolerance (float64 scalar): the product is
         # formed in double, as with the reference's traced float64 rtol
-        tol = max(float(rtol) * float(bnorm), atol)
+        tol = max(float(rtol) * host_read(bnorm), atol)
         tol2 = tol * tol
     else:
         tol = torch.clamp(rtol * bnorm, min=atol)
-        tol2 = float(tol * tol)  # float32, as the reference's traced tol2
+        tol2 = host_read(tol * tol)  # float32, as the reference's traced tol2
     r = (b - matvec(x0)).to(torch.float32)
     rhat = r
     rho = torch.dot(rhat, r)
@@ -177,7 +178,7 @@ def bicgstab_fused(matvec, b, x0=None, maxiter: int = 200, rtol: float = 1e-8,
     # p_1 = r_0 (the folded p-update's first output), rho_1 = <rhat, r0>
     x, p = x0, r
     it = 0
-    while float(res2) > tol2 and it < maxiter:  # one host read per iteration
+    while host_read(res2) > tol2 and it < maxiter:  # one read per iteration
         phat = precond(p).to(torch.float32)
         v = matvec(phat).to(torch.float32)
         s, alpha = fused_alpha_s(rhat, r, v, rho)
@@ -188,4 +189,5 @@ def bicgstab_fused(matvec, b, x0=None, maxiter: int = 200, rtol: float = 1e-8,
         it += 1
     res = torch.sqrt(res2)
     return x, {"iterations": it, "residual": res,
-               "converged": float(res) <= float(tol)}
+               "converged": host_read(res) <= (
+                   host_read(tol) if torch.is_tensor(tol) else tol)}

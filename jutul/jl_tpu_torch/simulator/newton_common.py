@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from ..utils.timing import host_read
+
 
 def tolerance_for(eq_name: str, crit_name: str, tols, equations=(),
                   model=None) -> float:
@@ -47,7 +49,7 @@ def scaled_error(crit, tols, equations=(), model=None) -> float:
     for eq_name, criteria in crit.items():
         for crit_name, arr in criteria.items():
             tol = tolerance_for(eq_name, crit_name, tols, equations, model)
-            worst = max(worst, float(arr.max()) / tol)
+            worst = max(worst, host_read(arr.max()) / tol)
     return worst
 
 
@@ -73,7 +75,8 @@ def scaled_error_and_residual(crit, r, tols, equations=(), model=None):
     rmax = max_abs(r)
     worst = (torch.clamp_min(torch.stack(scaled).amax(), 0.0) if scaled
              else torch.zeros_like(rmax))
-    err, rnorm = torch.stack([worst.to(rmax.dtype), rmax]).tolist()
+    err, rnorm = host_read(torch.stack([worst.to(rmax.dtype), rmax]),
+                           torch.Tensor.tolist)
     return err, rnorm
 
 
